@@ -1,0 +1,82 @@
+"""Statement executor: CREATE TABLE, INSERT … VALUES and grouped SELECT.
+
+Counterpart of ``aquery2_tpu/engine/executor.py``, reduced to what the
+h2o group-by path needs: DDL, literal inserts, and the single-device
+fused branch of SELECT (engine/fused_groupby.py). Every other statement
+raises NotImplementedError naming the ROADMAP item that brings it.
+"""
+
+from __future__ import annotations
+
+from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.engine import fused_groupby
+from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.storage.result import Result
+from aquery2_tpu_torch.storage.table import Column, StringDict, Table
+
+_GENERAL = "ROADMAP queue 1, item 7 (general engine)"
+
+
+class Executor:
+    def __init__(self, session) -> None:
+        self.session = session
+
+    def execute(self, stmt: A.Statement) -> Result | None:
+        if isinstance(stmt, A.CreateTable):
+            return self._create_table(stmt)
+        if isinstance(stmt, A.Insert):
+            return self._insert(stmt)
+        if isinstance(stmt, A.Select):
+            return Result(self._run_select(stmt))
+        raise NotImplementedError(f"{type(stmt).__name__}: {_GENERAL}")
+
+    def _create_table(self, stmt: A.CreateTable) -> None:
+        if stmt.as_select is not None:
+            raise NotImplementedError(f"CREATE TABLE AS SELECT: {_GENERAL}")
+        dev = self.session.device
+        cols = []
+        for cd in stmt.columns:
+            t = T.from_sql_name(cd.type_name)
+            cols.append(Column.from_host(
+                cd.name, t, [], device=dev,
+                dictionary=StringDict() if t.is_string else None))
+        self.session.catalog.create(Table(stmt.name, cols))
+        return None
+
+    def _insert(self, stmt: A.Insert) -> None:
+        tbl = self.session.catalog.get(stmt.table)
+        if stmt.select is not None:
+            raise NotImplementedError(f"INSERT … SELECT: {_GENERAL}")
+        rows = []
+        for row in stmt.values:
+            vals = []
+            for e in row:
+                if isinstance(e, A.Literal):
+                    vals.append(e.value)
+                elif (isinstance(e, A.UnaryOp) and e.op == "-"
+                        and isinstance(e.operand, A.Literal)):
+                    vals.append(-e.operand.value)
+                else:
+                    raise NotImplementedError(
+                        f"INSERT of a computed value: {_GENERAL}")
+            rows.append(vals)
+        if stmt.columns:
+            order = [c.lower() for c in stmt.columns]
+            names = [c.lower() for c in tbl.column_names()]
+            if set(order) != set(names):
+                raise ValueError("INSERT column list must cover all columns")
+            perm = [order.index(nm) for nm in names]
+            rows = [[r[i] for i in perm] for r in rows]
+        tbl.append_rows(rows)
+        return None
+
+    def _run_select(self, sel: A.Select) -> Table:
+        if (sel.group_by and len(sel.sources) == 1
+                and isinstance(sel.sources[0], A.TableSource)
+                and sel.sources[0].name in self.session.catalog):
+            t = fused_groupby.run(sel,
+                                  self.session.catalog.get(sel.sources[0].name))
+            if t is not None:
+                return t
+        raise NotImplementedError(
+            f"SELECT outside the fused group-by: {_GENERAL}")

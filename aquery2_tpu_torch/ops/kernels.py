@@ -1,0 +1,264 @@
+"""The port's hand-written CUDA kernels, each beside its plain version.
+
+Counterpart of ``aquery2_tpu/ops/pallas_kernels.py`` for the two kernels
+the h2o group-by path runs:
+
+* ``seg_cumsum_i64`` — inclusive segmented 64-bit running sum
+  (csrc/seg_cumsum_i64.cu), replacing the TPU kernel
+  ``pallas_kernels.seg_cumsum_i64`` (``_make_segsum64_kernel``).
+* ``seg_scan_multi`` — up to 4 inclusive segmented add/min/max scans
+  sharing one flag array (csrc/seg_scan_multi.cu), replacing the TPU
+  kernel ``pallas_kernels.seg_scan_multi`` (``_make_segscan_kernel``).
+
+Both are memory-bound scans with a carry across blocks. Blocks of a CUDA
+grid run in no order, so the TPU kernels' sequential carry in SMEM becomes
+three phases (csrc/segscan.cuh): fold each tile, scan the tile folds in
+one block, rescan each tile with its carry-in. That reads the input twice:
+about 26 B/row for the int64 sum (int64 read twice, flags read twice,
+int64 written once), and 12 B/row per 32-bit lane plus 2 B/row of flags
+for seg_scan_multi. A single-pass look-back would save the second read.
+
+Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
+use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
+kernel launches, one per wrapper call that launched.
+
+The kernels are compiled at first use with nvcc for sm_90a into a shared
+library with a plain C interface (loaded with ctypes), under
+``build/aquery2_tpu_torch/`` at the root of the checkout, named by a hash
+of the sources and flags so an edit rebuilds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0}
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_OPS = ("add", "min", "max")
+_LANE_DTYPES = (torch.float32, torch.int32)     # lane code = dtype · 3 + op
+_MAX_LANES = 4
+
+_vp = ctypes.c_void_p
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit to build")
+
+
+def library_path() -> Path:
+    """Where the kernels' shared library for the current sources lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libaq_kernels_{h.hexdigest()[:16]}.so"
+
+
+@functools.cache
+def build() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernels' library. The
+    compiler's stderr, with ptxas' register and spill report, is kept
+    beside the library as ``<name>.log``. Raises with nvcc's stderr if the
+    build fails."""
+    so = library_path()
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        so.with_suffix(".log").write_text(proc.stderr)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    lib.aq_error_string.argtypes = [ctypes.c_int]
+    lib.aq_error_string.restype = ctypes.c_char_p
+    lib.aq_seg_cumsum_i64_tile_rows.restype = ctypes.c_int
+    lib.aq_seg_scan_multi_tile_rows.restype = ctypes.c_int
+    lib.aq_seg_cumsum_i64.argtypes = [_vp, _vp, _vp, _vp, _vp,
+                                      ctypes.c_int64, _vp]
+    lib.aq_seg_cumsum_i64.restype = ctypes.c_int
+    lib.aq_seg_scan_multi.argtypes = [_vp, ctypes.c_int, _vp, _vp, _vp, _vp,
+                                      _vp, ctypes.c_int64, _vp]
+    lib.aq_seg_scan_multi.restype = ctypes.c_int
+    return lib
+
+
+def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           f"{lib.aq_error_string(rc).decode()} ({rc})")
+
+
+def _check_flags(flags: torch.Tensor | None, like: torch.Tensor) -> None:
+    if flags is None:
+        return
+    if flags.dtype != torch.bool or flags.shape != like.shape:
+        raise ValueError(f"flags must be bool of shape {tuple(like.shape)}, "
+                         f"got {flags.dtype} {tuple(flags.shape)}")
+    if flags.device != like.device or not flags.is_contiguous():
+        raise ValueError("flags must be contiguous and on the values' device")
+
+
+def _check_device(x: torch.Tensor, name: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+# --------------------------------------------------------------------- #
+# plain versions (CPU tensors, tests, and the on-card comparison)
+# --------------------------------------------------------------------- #
+
+def _segment_pos(flags: torch.Tensor | None, n: int,
+                 device: torch.device) -> torch.Tensor:
+    """Each row's position inside its segment (row 0 always starts one)."""
+    idx = torch.arange(n, device=device)
+    if flags is None:
+        return idx
+    start = torch.where(flags, idx, torch.zeros_like(idx))
+    return idx - torch.cummax(start, 0).values
+
+
+def seg_cumsum_i64_plain(flags: torch.Tensor | None,
+                         x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch seg_cumsum_i64: cumsum minus the cumsum before each
+    row's segment start. int64 arithmetic wraps mod 2^64 throughout, so
+    the result is the kernel's exactly."""
+    total = torch.cumsum(x, 0)
+    if flags is None:
+        return total
+    start = torch.arange(x.shape[0], device=x.device) - _segment_pos(
+        flags, x.shape[0], x.device)
+    return total - (total[start] - x[start])
+
+
+def _combine(op: str):
+    return {"add": torch.add, "min": torch.minimum, "max": torch.maximum}[op]
+
+
+def seg_scan_multi_plain(flags: torch.Tensor | None,
+                         xs: tuple[torch.Tensor, ...],
+                         ops: tuple[str, ...]) -> tuple[torch.Tensor, ...]:
+    """Plain PyTorch seg_scan_multi: Hillis-Steele doubling gated on each
+    row's position in its segment (log2(n) passes per lane). min/max
+    propagate NaN (torch.minimum/maximum)."""
+    n = xs[0].shape[0]
+    pos = _segment_pos(flags, n, xs[0].device)
+    outs = []
+    for x, op in zip(xs, ops):
+        comb = _combine(op)
+        s = 1
+        while s < n:
+            earlier = torch.cat([x[:s], x[:-s]])      # x[i - s]; masked below
+            x = torch.where(pos >= s, comb(earlier, x), x)
+            s <<= 1
+        outs.append(x)
+    return tuple(outs)
+
+
+# --------------------------------------------------------------------- #
+# kernel wrappers
+# --------------------------------------------------------------------- #
+
+def seg_cumsum_i64(flags: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive segmented int64 running sum. flags True starts a segment
+    (row 0 always starts one); flags None is one plain cumsum. Wraps mod
+    2^64. x: contiguous 1-D int64 of any length."""
+    if x.dtype != torch.int64 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"seg_cumsum_i64 takes contiguous 1-D int64, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    _check_flags(flags, x)
+    _check_device(x, "seg_cumsum_i64")
+    if x.device.type == "cpu":
+        return seg_cumsum_i64_plain(flags, x)
+    n = x.shape[0]
+    out = torch.empty_like(x)
+    if n == 0:
+        return out
+    lib = build()
+    ntiles = -(-n // lib.aq_seg_cumsum_i64_tile_rows())
+    tile_v = torch.empty(ntiles, dtype=torch.int64, device=x.device)
+    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.aq_seg_cumsum_i64(
+            None if flags is None else flags.data_ptr(), x.data_ptr(),
+            out.data_ptr(), tile_v.data_ptr(), tile_f.data_ptr(), n, stream)
+    _check(lib, "seg_cumsum_i64", rc)
+    LAUNCHES["seg_cumsum_i64"] += 1
+    return out
+
+
+def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
+                   ops: tuple[str, ...]) -> tuple[torch.Tensor, ...]:
+    """k ≤ 4 inclusive segmented scans, lane i combined with ops[i] ('add',
+    'min' or 'max'), all sharing one flag array (semantics as
+    seg_cumsum_i64). Lanes: contiguous 1-D float32 or int32 of one
+    length and device; outputs keep each lane's dtype."""
+    xs, ops = tuple(xs), tuple(ops)
+    if not 1 <= len(xs) <= _MAX_LANES or len(ops) != len(xs):
+        raise ValueError(f"seg_scan_multi takes 1..{_MAX_LANES} lanes with "
+                         f"one op each, got {len(xs)} lanes, {len(ops)} ops")
+    x0 = xs[0]
+    for x, op in zip(xs, ops):
+        if (x.dtype not in _LANE_DTYPES or x.dim() != 1
+                or not x.is_contiguous() or x.shape != x0.shape
+                or x.device != x0.device):
+            raise ValueError(f"seg_scan_multi lanes must be contiguous 1-D "
+                             f"float32/int32 of one shape and device, got "
+                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+        if op not in _OPS:
+            raise ValueError(f"seg_scan_multi op must be one of {_OPS}, "
+                             f"got {op!r}")
+    _check_flags(flags, x0)
+    _check_device(x0, "seg_scan_multi")
+    if x0.device.type == "cpu":
+        return seg_scan_multi_plain(flags, xs, ops)
+    k, n = len(xs), x0.shape[0]
+    outs = tuple(torch.empty_like(x) for x in xs)
+    if n == 0:
+        return outs
+    lib = build()
+    ntiles = -(-n // lib.aq_seg_scan_multi_tile_rows())
+    tiles = torch.empty((k, ntiles), dtype=torch.int32, device=x0.device)
+    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x0.device)
+    ptrs = (_vp * k)
+    x_ptrs = ptrs(*[x.data_ptr() for x in xs])
+    out_ptrs = ptrs(*[o.data_ptr() for o in outs])
+    tile_ptrs = ptrs(*[tiles[j].data_ptr() for j in range(k)])
+    codes = (ctypes.c_int * k)(*[_LANE_DTYPES.index(x.dtype) * 3
+                                 + _OPS.index(op)
+                                 for x, op in zip(xs, ops)])
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        rc = lib.aq_seg_scan_multi(
+            None if flags is None else flags.data_ptr(), k, x_ptrs, out_ptrs,
+            tile_ptrs, codes, tile_f.data_ptr(), n, stream)
+    _check(lib, "seg_scan_multi", rc)
+    LAUNCHES["seg_scan_multi"] += 1
+    return outs

@@ -1,0 +1,109 @@
+"""Group reductions: dense slots, or runs of key-sorted rows.
+
+Counterpart of ``segment_reduce`` and ``sorted_group_reduce`` in
+``aquery2_tpu/ops/reduce.py``. The JAX package shaped both around the TPU
+(bf16 digit matmuls on the MXU, int32 limb pairs, a v5e cost model for
+extraction); the port keeps what they compute:
+
+* ``segment_reduce`` (the dense tier): exact int64 ``index_add_`` sums and
+  ``scatter_reduce_`` min/max from the same sentinels.
+* ``sorted_group_reduce`` (the packed tier): segmented scans over the
+  sorted rows, whose value at each group's last row is the group's
+  aggregate — sums through the seg_cumsum_i64 kernel in native int64,
+  min/max through seg_scan_multi (lanes share one call per 4, since they
+  share the flags) — then one compaction of the group ends and one gather
+  per lane.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from aquery2_tpu_torch.ops import kernels as K
+
+_MINMAX_DTYPES = (torch.int32, torch.float32)
+
+
+def big_of(dt: torch.dtype):
+    """Identity of min for dt (+inf, True or the dtype's max)."""
+    if dt.is_floating_point:
+        return float("inf")
+    if dt == torch.bool:
+        return True
+    return torch.iinfo(dt).max
+
+
+def small_of(dt: torch.dtype):
+    """Identity of max for dt (-inf, False or the dtype's min)."""
+    if dt.is_floating_point:
+        return float("-inf")
+    if dt == torch.bool:
+        return False
+    return torch.iinfo(dt).min
+
+
+def segment_reduce(code: torch.Tensor, add_lanes: dict[str, torch.Tensor],
+                   min_lanes: dict[str, torch.Tensor],
+                   max_lanes: dict[str, torch.Tensor],
+                   domain: int) -> dict[str, torch.Tensor]:
+    """Reduce rows into ``domain + 1`` dense slots. ``code`` is each row's
+    slot (int64; invalid rows carry ``domain``, the overflow slot). Add
+    lanes are integer tensors, summed exactly in int64; min/max lanes are
+    pre-masked with the sentinels. Returns tag → [domain + 1] tensors."""
+    dp = domain + 1
+    dev = code.device
+    outs: dict[str, torch.Tensor] = {}
+    for t, col in add_lanes.items():
+        outs[t] = torch.zeros(dp, dtype=torch.int64, device=dev).index_add_(
+            0, code, col.to(torch.int64))
+    for t, col in min_lanes.items():
+        outs[t] = torch.full((dp,), big_of(col.dtype), dtype=col.dtype,
+                             device=dev).scatter_reduce_(0, code, col, "amin")
+    for t, col in max_lanes.items():
+        outs[t] = torch.full((dp,), small_of(col.dtype), dtype=col.dtype,
+                             device=dev).scatter_reduce_(0, code, col, "amax")
+    return outs
+
+
+def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
+                        add_lanes: dict[str, torch.Tensor],
+                        min_lanes: dict[str, torch.Tensor],
+                        max_lanes: dict[str, torch.Tensor],
+                        extract: dict[str, torch.Tensor] | None = None):
+    """Group reduction over rows already sorted by group key.
+
+    starts: [n] bool, True at each group's first row. last: [n] bool, True
+    at each VALID group's last row; invalid rows sort behind every valid
+    group, so every row before the last end is valid. Add lanes are int64;
+    min/max lanes int32 or float32, pre-masked with the sentinels.
+    extract: [n] tensors wanted at each group's last row (the sort key).
+
+    Returns (outs, ends_idx): tag → [g] per group in key order, including
+    ``__counts__`` (int64 group sizes from the end-row index differences),
+    and the [g] end-row indices. The compaction of ``last`` is the one
+    host sync here (it fixes g)."""
+    scanned: dict[str, torch.Tensor] = {}
+    for t, col in add_lanes.items():
+        if col.dtype != torch.int64:
+            raise TypeError(f"sum lane {t!r} must be int64, got {col.dtype}")
+        scanned[t] = K.seg_cumsum_i64(starts, col)
+    lanes = ([(t, col, "min") for t, col in min_lanes.items()]
+             + [(t, col, "max") for t, col in max_lanes.items()])
+    for t, col, _op in lanes:
+        if col.dtype not in _MINMAX_DTYPES:
+            raise NotImplementedError(
+                f"{_op} of {col.dtype} in the packed tier: ROADMAP queue 1, "
+                f"item 3 (fused group-by)")
+    for i in range(0, len(lanes), 4):
+        chunk = lanes[i:i + 4]
+        outs = K.seg_scan_multi(starts, tuple(c[1] for c in chunk),
+                                tuple(c[2] for c in chunk))
+        for (t, _col, _op), o in zip(chunk, outs):
+            scanned[t] = o
+    scanned.update(extract or {})
+
+    ends_idx = torch.nonzero(last).squeeze(1)
+    outs = {t: v[ends_idx] for t, v in scanned.items()}
+    prev = torch.cat([ends_idx.new_full((1,), -1), ends_idx])[:-1]
+    outs["__counts__"] = ends_idx - prev
+    return outs, ends_idx

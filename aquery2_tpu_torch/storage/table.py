@@ -1,0 +1,318 @@
+"""Columnar storage on torch tensors: columns and tables.
+
+Counterpart of ``aquery2_tpu/storage/table.py``. A column is a padded 1-D
+tensor on one device plus a logical row count; the capacity is
+``config.bucket_size(nrows)`` and padding rows are zeros, exactly as in
+the JAX package, so both packages see the same capacities and stats.
+Strings are dictionary-encoded: int32 codes on the device, the
+``StringDict`` on the host. Ragged (vector) columns wait for the ordered
+path (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from aquery2_tpu_torch import config
+from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.utils import CaseInsensitiveDict
+
+
+class StringDict:
+    """Append-only string dictionary shared by one or more columns (host
+    only; a copy of the JAX package's). Codes are dense int32 from 0."""
+
+    __slots__ = ("_strings", "_index", "_ranks", "_rank_dirty")
+
+    def __init__(self, strings: Iterable[str] = ()) -> None:
+        self._strings: list[str] = []
+        self._index: dict[str, int] = {}
+        self._ranks: np.ndarray | None = None
+        self._rank_dirty = True
+        for s in strings:
+            self.encode_one(s)
+
+    def __len__(self) -> int:
+        return len(self._strings)
+
+    def encode_one(self, s: str) -> int:
+        code = self._index.get(s)
+        if code is None:
+            code = len(self._strings)
+            self._index[s] = code
+            self._strings.append(s)
+            self._rank_dirty = True
+        return code
+
+    def lookup(self, s: str) -> int:
+        """Code for an existing string, or -1 (never matches any row)."""
+        return self._index.get(s, -1)
+
+    def encode(self, values: Sequence[str] | np.ndarray) -> np.ndarray:
+        out = np.empty(len(values), dtype=np.int32)
+        enc = self.encode_one
+        for i, v in enumerate(values):
+            out[i] = enc(v if isinstance(v, str) else str(v))
+        return out
+
+    def decode(self, codes: np.ndarray) -> np.ndarray:
+        arr = np.asarray(self._strings, dtype=object)
+        codes = np.asarray(codes)
+        ok = (codes >= 0) & (codes < len(arr))
+        return np.where(ok, arr[np.clip(codes, 0, max(len(arr) - 1, 0))], None)
+
+    @property
+    def ranks(self) -> np.ndarray:
+        """rank[code] = position of the string in sorted order."""
+        if self._rank_dirty or self._ranks is None:
+            order = np.argsort(np.asarray(self._strings, dtype=object),
+                               kind="stable")
+            ranks = np.empty(len(order), dtype=np.int32)
+            ranks[order] = np.arange(len(order), dtype=np.int32)
+            self._ranks = ranks
+            self._rank_dirty = False
+        return self._ranks
+
+    def strings(self) -> list[str]:
+        return self._strings
+
+
+def _pad_to(arr: torch.Tensor, cap: int, fill: Any = 0) -> torch.Tensor:
+    n = arr.shape[0]
+    if n == cap:
+        return arr
+    if n > cap:
+        raise ValueError(f"array length {n} exceeds capacity {cap}")
+    pad = torch.full((cap - n,), fill, dtype=arr.dtype, device=arr.device)
+    return torch.cat([arr, pad])
+
+
+def _as_tensor(data: torch.Tensor | np.ndarray,
+               device: torch.device | str | None) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        if device is not None and data.device != torch.device(device):
+            raise ValueError(f"tensor on {data.device}, column wants {device}")
+        return data
+    if device is None:
+        raise ValueError("a column built from host data needs a device")
+    arr = np.ascontiguousarray(data)
+    if not arr.flags.writeable:      # torch tensors never alias read-only memory
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device=device, dtype=T.torch_dtype(arr.dtype))
+
+
+class Column:
+    """One named, typed device column.
+
+    data: tensor of shape (capacity,), capacity = bucket_size(nrows). Rows
+    past ``nrows`` are padding (zeros); every kernel masks by length.
+    valid: optional bool validity mask of the same shape (None = no NULLs).
+    """
+
+    __slots__ = ("name", "sqltype", "data", "nrows", "dictionary", "valid",
+                 "_stats")
+
+    def __init__(self, name: str, sqltype: T.SQLType,
+                 data: torch.Tensor | np.ndarray, nrows: int | None = None,
+                 dictionary: StringDict | None = None,
+                 valid: torch.Tensor | np.ndarray | None = None,
+                 device: torch.device | str | None = None) -> None:
+        self.name = name
+        self.sqltype = sqltype
+        n = int(data.shape[0]) if nrows is None else int(nrows)
+        cap = config.bucket_size(n)
+        t = _as_tensor(data, device)
+        self.data: torch.Tensor = _pad_to(t[:n], cap)
+        self.nrows = n
+        self.dictionary = dictionary
+        self.valid = (None if valid is None
+                      else _pad_to(_as_tensor(valid, t.device)[:n], cap, False))
+        self._stats: tuple[int, int] | None = None
+
+    @classmethod
+    def from_host(cls, name: str, sqltype: T.SQLType,
+                  values: Sequence[Any] | np.ndarray,
+                  device: torch.device | str,
+                  dictionary: StringDict | None = None) -> "Column":
+        """Build from host values; None becomes a NULL (0 + validity
+        False)."""
+        valid = None
+        if not isinstance(values, np.ndarray) and any(v is None for v in values):
+            valid = np.asarray([v is not None for v in values], dtype=bool)
+            values = [v if v is not None else 0 for v in values]
+            if sqltype.is_string:
+                values = [v if isinstance(v, str) else "" for v in values]
+        if sqltype.is_vector:
+            raise NotImplementedError(
+                "vector columns: ROADMAP queue 1, item 5 (ordered path)")
+        if sqltype.is_string:
+            d = dictionary if dictionary is not None else StringDict()
+            return cls(name, sqltype, d.encode(list(values)), dictionary=d,
+                       valid=valid, device=device)
+        if sqltype.is_temporal:
+            values = [v if isinstance(v, (int, np.integer))
+                      else T.parse_temporal_literal(sqltype, str(v))
+                      for v in values]
+        arr = np.asarray(values, dtype=sqltype.np_dtype)
+        return cls(name, sqltype, arr, valid=valid, device=device)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.data.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def is_vector(self) -> bool:
+        return False
+
+    def stats(self) -> tuple[int, int]:
+        """(min, max) over the valid prefix, cached; one host sync. Float
+        columns truncate to int, as in the JAX package."""
+        if self._stats is None:
+            n = self.nrows
+            if n == 0:
+                self._stats = (0, 0)
+            else:
+                d = self.data[:n]
+                if self.valid is not None:
+                    ok = self.valid[:n]
+                    if self.data.dtype.is_floating_point:
+                        big, small = float("inf"), float("-inf")
+                    else:
+                        info = torch.iinfo(self.data.dtype)
+                        big, small = info.max, info.min
+                    mn = torch.where(ok, d, torch.full_like(d, big)).min()
+                    mx = torch.where(ok, d, torch.full_like(d, small)).max()
+                else:
+                    mn, mx = d.min(), d.max()
+                both = torch.stack([mn, mx]).cpu()
+                self._stats = (int(both[0]), int(both[1]))
+        return self._stats
+
+    def to_numpy(self) -> np.ndarray:
+        """Valid-prefix values on the host (raw codes for strings)."""
+        return self.data[:self.nrows].cpu().numpy()
+
+    def to_python(self) -> list[Any]:
+        """Display values: decoded strings, formatted dates, None for NULLs."""
+        raw = self.to_numpy()
+        t = self.sqltype
+        if t.is_string and self.dictionary is not None:
+            out = list(self.dictionary.decode(raw))
+        elif t.kind == "date":
+            out = [T.format_date(v) for v in raw]
+        elif t.kind == "time":
+            out = [T.format_time(v) for v in raw]
+        elif t.kind == "timestamp":
+            out = [T.format_timestamp(v) for v in raw]
+        else:
+            out = raw.tolist()
+        if self.valid is not None:
+            ok = self.valid[:self.nrows].cpu().numpy()
+            out = [v if k else None for v, k in zip(out, ok)]
+        return out
+
+    def __repr__(self) -> str:
+        return f"Column({self.name}:{self.sqltype.name}, n={self.nrows})"
+
+
+class Table:
+    """Named collection of equal-length columns on one device."""
+
+    def __init__(self, name: str, columns: Iterable[Column] = ()) -> None:
+        self.name = name
+        self.columns: CaseInsensitiveDict[Column] = CaseInsensitiveDict()
+        for c in columns:
+            self.add_column(c)
+
+    @classmethod
+    def from_numpy(cls, name: str, arrays: Mapping[str, np.ndarray],
+                   types: Mapping[str, T.SQLType] | None = None, *,
+                   device: torch.device | str) -> "Table":
+        """A table from host arrays (one per column, in order); a column's
+        SQL type comes from ``types`` or else from its dtype."""
+        types = types or {}
+        return cls(name, [
+            Column(nm, types.get(nm) or T.from_np_dtype(arr.dtype), arr,
+                   device=device)
+            for nm, arr in arrays.items()])
+
+    @classmethod
+    def from_reference(cls, ref_table: Any,
+                       device: torch.device | str) -> "Table":
+        """The port's copy of an ``aquery2_tpu`` Table. Reads each column's
+        data, validity, row count, SQL type name and string dictionary as
+        attributes only (no jax import)."""
+        cols = []
+        for rc in ref_table.columns.values():
+            if getattr(rc, "is_vector", False):
+                raise NotImplementedError(
+                    "vector columns: ROADMAP queue 1, item 5 (ordered path)")
+            n = int(rc.nrows)
+            valid = (None if rc.valid is None
+                     else np.asarray(rc.valid)[:n].astype(bool))
+            d = (None if rc.dictionary is None
+                 else StringDict(rc.dictionary.strings()))
+            cols.append(Column(rc.name, T.from_sql_name(rc.sqltype.name),
+                               np.asarray(rc.data)[:n], nrows=n,
+                               dictionary=d, valid=valid, device=device))
+        return cls(ref_table.name, cols)
+
+    def add_column(self, col: Column) -> None:
+        if len(self.columns) and col.nrows != self.nrows:
+            raise ValueError(f"column {col.name} has {col.nrows} rows, "
+                             f"table {self.name} has {self.nrows}")
+        self.columns[col.name] = col
+
+    @property
+    def nrows(self) -> int:
+        for c in self.columns.values():
+            return c.nrows
+        return 0
+
+    def column_names(self) -> list[str]:
+        return list(self.columns)
+
+    def __getitem__(self, name: str) -> Column:
+        return self.columns[name]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.columns
+
+    def append_rows(self, rows: Sequence[Sequence[Any]]) -> None:
+        """INSERT INTO ... VALUES: append host rows to the device columns."""
+        if not rows:
+            return
+        cols = list(self.columns.values())
+        if any(len(r) != len(cols) for r in rows):
+            raise ValueError("row arity mismatch")
+        for j, col in enumerate(cols):
+            self.columns[col.name] = _append_host_values(
+                col, [r[j] for r in rows])
+
+    def __repr__(self) -> str:
+        cols = ", ".join(f"{c.name}:{c.sqltype.name}"
+                         for c in self.columns.values())
+        return f"Table({self.name}: [{cols}] x {self.nrows})"
+
+
+def _append_host_values(col: Column, vals: Sequence[Any]) -> Column:
+    add = Column.from_host(col.name, col.sqltype, vals, device=col.device,
+                           dictionary=col.dictionary)
+    n1, n2 = col.nrows, add.nrows
+    data = torch.cat([col.data[:n1], add.data[:n2]])
+    valid = None
+    if col.valid is not None or add.valid is not None:
+        def mask(c: Column, k: int) -> torch.Tensor:
+            if c.valid is not None:
+                return c.valid[:k]
+            return torch.ones(k, dtype=torch.bool, device=c.device)
+        valid = torch.cat([mask(col, n1), mask(add, n2)])
+    return Column(col.name, col.sqltype, data, nrows=n1 + n2,
+                  dictionary=add.dictionary, valid=valid)

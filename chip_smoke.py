@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (aquery2_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py
+
+Phases, in order (any mismatch raises; there is no fallback):
+  1. identify the card (nvidia-smi name and power limit, torch, CUDA);
+  2. build the CUDA kernels from aquery2_tpu_torch/csrc/;
+  3. each kernel against its plain PyTorch version at the main path's
+     shape (12,582,912 rows = bucket_size(1e7)), with timings;
+  4. the h2o group-by queries q1 q2 q3 q4 q5 q7 q10 through
+     connect(device="cuda").execute on G1_1e7_1e1_0_0 (1e7 rows, K=10,
+     no NAs, seed 42), each checked against a numpy oracle;
+  5. both kernels were launched by phase 4.
+The line before the last is the kernel report as JSON; the last line is
+{"ok": true, "device": {...}}. Exits non-zero, printing no result, when
+no CUDA card is available or the package is missing.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from aquery2_tpu_torch import connect
+from aquery2_tpu_torch.ops import kernels as K
+from aquery2_tpu_torch.storage.table import Table
+from aquery2_tpu_torch.utils.datagen import h2o_g1
+
+ROWS = 10_000_000
+CAP = 12_582_912                 # config.bucket_size(1e7)
+K_GROUPS = 10
+SEED = 42
+QUERIES = {                      # bench.QUERIES, the reference-timed subset
+    "q1": "SELECT id1, sum(v1) AS v1 FROM source GROUP BY id1",
+    "q2": "SELECT id1, id2, sum(v1) AS v1 FROM source GROUP BY id1, id2",
+    "q3": "SELECT id3, sum(v1) AS v1, avg(v3) AS v3 FROM source GROUP BY id3",
+    "q4": ("SELECT id4, avg(v1) AS v1, avg(v2) AS v2, avg(v3) AS v3 "
+           "FROM source GROUP BY id4"),
+    "q5": ("SELECT id6, sum(v1) AS v1, sum(v2) AS v2, sum(v3) AS v3 "
+           "FROM source GROUP BY id6"),
+    "q7": ("SELECT id3, max(v1) - min(v2) AS range_v1_v2 FROM source "
+           "GROUP BY id3"),
+    "q10": ("SELECT id1, id2, id3, id4, id5, id6, sum(v3) AS v3, "
+            "count(*) AS cnt FROM source GROUP BY id1, id2, id3, id4, id5, id6"),
+}
+KEYS = {"q1": ["id1"], "q2": ["id1", "id2"], "q3": ["id3"], "q4": ["id4"],
+        "q5": ["id6"], "q7": ["id3"],
+        "q10": ["id1", "id2", "id3", "id4", "id5", "id6"]}
+FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
+ADD_F32_RTOL = 2e-5     # float32 'add' lanes: another order of rounding
+
+
+def phase(name: str) -> None:
+    torch.cuda.synchronize()
+    print(f"# {name}", flush=True)
+
+
+def cuda_ms(fn, reps: int = 10) -> float:
+    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    both_nan = got.isnan() & want.isnan() if got.is_floating_point() else None
+    if got.dtype == torch.int64:
+        diff = (got - want).abs()        # exact cases: 0 whatever the size
+    else:
+        diff = (got.double() - want.double()).abs()
+    if both_nan is not None:
+        diff = torch.where(both_nan, 0.0, diff)
+        if bool((got.isnan() != want.isnan()).any()):
+            return float("inf")
+    return float(diff.max())
+
+
+def flag_cases(rng, dev):
+    """Flag arrays of the main path's densities plus lone boundaries."""
+    cases = {"none": None}
+    for name, p in (("1e-6", 1e-6), ("0.1", 0.1), ("0.999", 0.999)):
+        cases[name] = torch.from_numpy(rng.random(CAP) < p).to(dev)
+    tile = K.build().aq_seg_cumsum_i64_tile_rows()
+    lone = torch.zeros(CAP, dtype=torch.bool, device=dev)
+    ntiles = CAP // tile
+    lone[ntiles // 3 * tile + tile // 2 + 3] = True    # mid-tile
+    lone[2 * ntiles // 3 * tile] = True                # first row of a tile
+    cases["lone"] = lone
+    return cases
+
+
+def check_kernels(dev) -> list[dict]:
+    rng = np.random.default_rng(SEED)
+    flags = flag_cases(rng, dev)
+
+    # int64 values near ±2^62: running sums wrap past ±2^63
+    x64 = rng.integers(2**62 - 2**20, 2**62, CAP)
+    x64[rng.random(CAP) < 0.3] *= -1
+    x64 = torch.from_numpy(x64).to(dev)
+    err64 = 0.0
+    for name, f in flags.items():
+        got = K.seg_cumsum_i64(f, x64)
+        want = K.seg_cumsum_i64_plain(f, x64)
+        if not torch.equal(got, want):
+            raise AssertionError(f"seg_cumsum_i64 differs (flags {name}): "
+                                 f"max |err| {max_abs_err(got, want)}")
+        err64 = max(err64, max_abs_err(got, want))
+
+    # k = 3 lanes: int32 max, float32 min with NaNs, float32 add. The add
+    # lane is integer-valued so its sums stay exact below 2^24.
+    xi = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, CAP,
+                                       dtype=np.int64).astype(np.int32))
+    xf = torch.from_numpy(rng.normal(size=CAP).astype(np.float32))
+    xf[torch.from_numpy(rng.random(CAP) < 1e-4)] = float("nan")
+    xa = torch.from_numpy(rng.integers(0, 2, CAP).astype(np.float32))
+    xs = (xi.to(dev), xf.to(dev), xa.to(dev))
+    ops = ("max", "min", "add")
+    errm = 0.0
+    for name, f in flags.items():
+        got = K.seg_scan_multi(f, xs, ops)
+        want = K.seg_scan_multi_plain(f, xs, ops)
+        for lane, (g, w, op) in enumerate(zip(got, want, ops)):
+            if g.dtype != w.dtype:
+                raise AssertionError(f"lane {lane} dtype {g.dtype}")
+            if op == "add" and g.is_floating_point():
+                ok = torch.allclose(g, w, rtol=ADD_F32_RTOL, atol=0.0)
+            else:
+                ok = torch.equal(g.isnan(), w.isnan()) if \
+                    g.is_floating_point() else True
+                ok = ok and torch.equal(torch.nan_to_num(g),
+                                        torch.nan_to_num(w))
+            errm = max(errm, max_abs_err(g, w))
+            if not ok:
+                raise AssertionError(f"seg_scan_multi lane {lane} ({op}) "
+                                     f"differs (flags {name}): max |err| "
+                                     f"{max_abs_err(g, w)}")
+    torch.cuda.synchronize()
+
+    f = flags["0.1"]               # the q3/q7-like density
+    rows = [
+        {"name": "seg_cumsum_i64", "route": "cuda",
+         "source": "aquery2_tpu_torch/csrc/seg_cumsum_i64.cu",
+         "replaces": "aquery2_tpu/ops/pallas_kernels.py:277",
+         "max_abs_err": err64,
+         "ms": cuda_ms(lambda: K.seg_cumsum_i64(f, x64)),
+         "plain_ms": cuda_ms(lambda: K.seg_cumsum_i64_plain(f, x64))},
+        {"name": "seg_scan_multi", "route": "cuda",
+         "source": "aquery2_tpu_torch/csrc/seg_scan_multi.cu",
+         "replaces": "aquery2_tpu/ops/pallas_kernels.py:339",
+         "max_abs_err": errm,
+         "ms": cuda_ms(lambda: K.seg_scan_multi(f, xs, ops)),
+         "plain_ms": cuda_ms(lambda: K.seg_scan_multi_plain(f, xs, ops))},
+    ]
+    for r in rows:
+        print(f"# {r['name']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms (median of 10, {CAP} rows, flag "
+              f"density 0.1), max |err| {r['max_abs_err']}", flush=True)
+    return rows
+
+
+def oracle(data: dict[str, np.ndarray], q: str):
+    """(answer, per-group row counts): the query computed on the host with
+    numpy, key-ascending."""
+    code = np.zeros(ROWS, np.int64)
+    for k in KEYS[q]:
+        code = code * (int(data[k].max()) + 1) + data[k]
+    ucode, inv = np.unique(code, return_inverse=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.r_[0, np.flatnonzero(np.diff(inv[order])) + 1]
+    cnt = np.bincount(inv)
+    keys = {}
+    for k in reversed(KEYS[q]):
+        radix = int(data[k].max()) + 1
+        keys[k] = (ucode % radix).astype(np.int32)
+        ucode = ucode // radix
+    out = {k: keys[k] for k in KEYS[q]}
+
+    def isum(v):
+        return np.bincount(inv, weights=v.astype(np.float64)).astype(np.int64)
+
+    def fsum(v):
+        return np.bincount(inv, weights=v.astype(np.float64))
+
+    d = data
+    if q in ("q1", "q2"):
+        out["v1"] = isum(d["v1"])
+    elif q == "q3":
+        out["v1"], out["v3"] = isum(d["v1"]), fsum(d["v3"]) / cnt
+    elif q == "q4":
+        out["v1"], out["v2"], out["v3"] = (fsum(d["v1"]) / cnt,
+                                           fsum(d["v2"]) / cnt,
+                                           fsum(d["v3"]) / cnt)
+    elif q == "q5":
+        out["v1"], out["v2"], out["v3"] = (isum(d["v1"]), isum(d["v2"]),
+                                           fsum(d["v3"]))
+    elif q == "q7":
+        mx = np.maximum.reduceat(d["v1"][order], starts)
+        mn = np.minimum.reduceat(d["v2"][order], starts)
+        out["range_v1_v2"] = (mx - mn).astype(np.int32)
+    else:
+        out["v3"], out["cnt"] = fsum(d["v3"]), cnt.astype(np.int64)
+    return out, cnt
+
+
+def check_result(q: str, res, want: dict[str, np.ndarray],
+                 cnt: np.ndarray) -> None:
+    """Keys, counts, integer sums and min/max exactly; float sums and
+    averages to FLOAT_RTOL plus the limb split's rounding of each row
+    (at most 2^-39 per row, so cnt · 2^-39 per group)."""
+    names = res.column_names()
+    if names != list(want):
+        raise AssertionError(f"{q}: columns {names}, want {list(want)}")
+    for nm in names:
+        got = res.table.columns[nm].to_numpy()
+        w = want[nm]
+        if got.shape != w.shape:
+            raise AssertionError(f"{q}.{nm}: shape {got.shape} vs {w.shape}")
+        if got.dtype.kind == "f":
+            if not np.isfinite(got).all():
+                raise AssertionError(f"{q}.{nm}: non-finite values")
+            bad = np.abs(got - w) > FLOAT_RTOL * np.abs(w) + cnt * 2.0**-39
+            if bad.any():
+                i = int(np.flatnonzero(bad)[0])
+                raise AssertionError(f"{q}.{nm}: {int(bad.sum())} groups "
+                                     f"differ, first {i}: {got[i]!r} vs "
+                                     f"{w[i]!r}")
+        else:
+            if got.dtype != w.dtype:
+                raise AssertionError(f"{q}.{nm}: dtype {got.dtype} vs {w.dtype}")
+            np.testing.assert_array_equal(got, w, err_msg=f"{q}.{nm}")
+
+
+def run_slice(dev) -> dict[str, float]:
+    t0 = time.perf_counter()
+    data = h2o_g1(ROWS, K_GROUPS, SEED)
+    db = connect(device=dev)
+    db.catalog.create(Table.from_numpy("source", data, device=dev))
+    torch.cuda.synchronize()
+    print(f"# loaded G1_1e7_1e1_0_0: {ROWS} rows x {len(data)} columns, "
+          f"capacity {db.catalog.get('source').columns['id1'].capacity}, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    for k in K.LAUNCHES:             # count only the main path's launches
+        K.LAUNCHES[k] = 0
+    times = {}
+    for q, sql in QUERIES.items():
+        res = db.execute(sql)          # first run: caches, allocator
+        torch.cuda.synchronize()
+        runs = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            db.execute(sql)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t1)
+        times[q] = float(np.median(runs)) * 1e3
+        check_result(q, res, *oracle(data, q))
+        print(f"# {q}: {res.nrows} groups, {times[q]:.3f} ms "
+              f"(median of 3 warm runs), matches the numpy oracle",
+              flush=True)
+    launches = dict(K.LAUNCHES)
+    print(f"# main-path launches: {launches}", flush=True)
+    return launches
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+    dev = torch.device("cuda", 0)
+    phase("1. card")
+    print(card)
+    print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    t0 = time.perf_counter()
+    K.build()
+    phase("2. build")
+    print(f"# built {K.library_path().name} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    for line in K.library_path().with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"# ptxas {line.strip()}")
+
+    rows = check_kernels(dev)
+    phase("3. kernels vs plain: equal")
+
+    launches = run_slice(dev)
+    phase("4. slice: 7 queries match the oracle")
+
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched by the "
+                                 f"main path")
+    phase("5. both kernels ran on the main path")
+
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

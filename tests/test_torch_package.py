@@ -1,0 +1,98 @@
+"""Package-level checks of the PyTorch port: it imports no JAX, parses
+like the JAX package, refuses a missing card, and (on a machine with a
+CUDA card) its kernels agree with their plain versions.
+
+Only the parser test imports the JAX package, so that the card test runs
+where JAX is not installed:
+    python -m pytest tests/test_torch_package.py -m gpu --noconftest -q"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import aquery2_tpu_torch
+from aquery2_tpu_torch.ops import kernels as K
+from aquery2_tpu_torch.parser import parse as tparse
+from bench import QUERIES
+
+PKG = pathlib.Path(aquery2_tpu_torch.__file__).parent
+
+
+def test_import_pulls_in_no_jax():
+    code = ("import sys; before = set(sys.modules); import aquery2_tpu_torch; "
+            "new = set(sys.modules) - before; "
+            "bad = sorted(m for m in new if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'aquery2_tpu')); "
+            "assert not bad, bad; print('ok')")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=str(PKG.parent))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_sources_name_no_jax():
+    """No module of the port imports jax or the JAX package."""
+    for path in sorted(PKG.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for nm in names:
+                assert nm.split(".")[0] not in ("jax", "jaxlib",
+                                                "aquery2_tpu"), (path, nm)
+
+
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_parser_matches_jax(name):
+    from aquery2_tpu.parser import parse as jparse
+
+    assert repr(tparse(QUERIES[name])) == repr(jparse(QUERIES[name]))
+
+
+def test_connect_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        aquery2_tpu_torch.connect()
+    assert aquery2_tpu_torch.connect(device="cpu").device.type == "cpu"
+
+
+def test_library_name_follows_sources():
+    so = K.library_path()
+    assert so.parent == K.BUILD_DIR and so.suffix == ".so"
+    assert K.library_path() == so
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4097, 3 * 4096 * 5 + 123])
+def test_kernels_match_plain_on_card(n):
+    """One row, one row past a tile, and a ragged last tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(n)
+    dev = torch.device("cuda")
+    flags = torch.from_numpy(rng.random(n) < 0.01).to(dev)
+    x64 = torch.from_numpy(rng.integers(-2**62, 2**62, n)).to(dev)
+    x64[0] = 2**63 - 1                         # wraps on the next add
+    for f in (None, flags):
+        assert torch.equal(K.seg_cumsum_i64(f, x64),
+                           K.seg_cumsum_i64_plain(f, x64))
+    xi = torch.from_numpy(rng.integers(-99, 99, n).astype(np.int32)).to(dev)
+    xf = torch.from_numpy(rng.normal(size=n).astype(np.float32)).to(dev)
+    xf[::977] = float("nan")
+    ops = ("add", "min", "max", "min")
+    xs = (xi, xf, xf, xi)
+    for f in (None, flags):
+        got = K.seg_scan_multi(f, xs, ops)
+        want = K.seg_scan_multi_plain(f, xs, ops)
+        for g, w in zip(got, want):
+            assert torch.equal(g.isnan(), w.isnan())
+            assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
