@@ -17,6 +17,12 @@ MIN_CAPACITY = 1024
 # own bound waits for measurements on the card.
 ONEHOT_MATMUL_MAX_GROUPS = 512
 
+# var and stddev divide by n + 1, as the reference engine does: the JAX
+# package mirrors it under ``config.strict_reference_semantics``, which is
+# True unless its environment switch turns it off. The port has no switch,
+# so it keeps the default.
+STRICT_REFERENCE_SEMANTICS = True
+
 
 def bucket_size(n: int) -> int:
     """Padded capacity for a logical length ``n``: buckets are

@@ -6,16 +6,23 @@ split for exact float sums and the same group order, run eagerly on one
 device. Two tiers:
 
   dense   — key domains of at most ``config.ONEHOT_MATMUL_MAX_GROUPS``
-            slots: each row's perfect-hash code indexes dense int64
-            accumulators (ops/reduce.segment_reduce).
+            slots: each row's perfect-hash code picks a slot, and the
+            onehot_segment_sums kernel sums every add lane per slot in
+            int64 (ops/reduce.segment_reduce).
   packed  — keys bit-pack (from column stats) into at most two 30-bit
             words, joined into one int64 sort key: ``torch.sort``, then
             segmented scans over the sorted rows
-            (ops/reduce.sorted_group_reduce → the CUDA kernels).
+            (ops/reduce.sorted_group_reduce → the CUDA scan kernels). A
+            median argument joins the sort as a secondary key, so each
+            group's run is value-ascending and its middle rows are the
+            median.
 
-Groups come out key-ascending in both tiers, as in the JAX package. Host
-syncs: each key column's stats (cached on the column) and the one
-compaction that fixes the group count.
+Aggregates: count, sum, avg, min, max, var, stddev, corr (their sums are
+ordinary add lanes, so both tiers take them) and median (packed tier).
+Groups come out key-ascending in both tiers, as in the JAX package, then
+HAVING, ORDER BY (ops/sort.sort_perm) and LIMIT apply. Host syncs: each
+key column's stats (cached on the column) and the one compaction that
+fixes the group count.
 
 Shapes outside this slice raise NotImplementedError naming the ROADMAP
 item that will bring them; a shape the plan does not cover at all
@@ -31,6 +38,7 @@ import torch
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.ops import reduce as R
+from aquery2_tpu_torch.ops.sort import canonical_float, sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils import CaseInsensitiveDict, base62uuid, legal_name
@@ -415,46 +423,83 @@ def _as_rows(v, like: torch.Tensor) -> torch.Tensor:
 
 def _build_lanes(env, valid, scatters):
     """Every aggregate's per-row reduction lanes, masked so invalid rows
-    are identities: (add int64, min, max) dicts of [rows] tensors.
+    are identities: (add, min, max, f64) dicts of [rows] tensors, as the
+    JAX package's _build_lanes. Add lanes hold integers (bool, int32 or
+    int64; squares and products of int32 widen to int64 first) and
+    ``__counts__``; median rides the sort instead.
 
     float32 sums split into two integer-valued limbs (the JAX package's
     add_float, P1 = 14) that are summed as int64, so the sums are exact
-    and recombine to the JAX package's float64 bit for bit."""
-    add: dict[str, torch.Tensor] = {}
+    and recombine to the JAX package's float64 bit for bit. Sums of other
+    float dtypes are float64 lanes."""
+    add: dict[str, torch.Tensor] = {"__counts__": valid}
     mins: dict[str, torch.Tensor] = {}
     maxs: dict[str, torch.Tensor] = {}
+    f64s: dict[str, torch.Tensor] = {}
 
     def add_float(tag: str, vv: torch.Tensor) -> None:
+        if vv.dtype != torch.float32:
+            f64s[tag] = vv.to(torch.float64)
+            return
         a = torch.round(vv * 2.0 ** _LIMB_BITS)
         r = vv - a * 2.0 ** -_LIMB_BITS
         b = torch.round(r * 2.0 ** (_LIMB_BITS + 24))
         add[tag + "#A"] = a.to(torch.int64)
         add[tag + "#B"] = b.to(torch.int64)
 
+    def masked(v: torch.Tensor) -> torch.Tensor:
+        return torch.where(valid, v, torch.zeros((), dtype=v.dtype,
+                                                 device=v.device))
+
+    def widen_sq(v: torch.Tensor) -> torch.Tensor:
+        """A factor of a square or product that cannot overflow."""
+        return v.to(torch.int64) if v.element_size() <= 4 else v
+
     for fp, (kind, args) in scatters.items():
-        if kind == "count":
-            continue            # count(*) and count(col) ride the counts
-        if kind not in ("sum", "avg", "mean", "min", "max"):
-            raise _todo(f"{kind}() aggregates")
+        if kind in ("count", "median"):
+            continue            # count rides the counts; median the sort
+        if kind == "corr":
+            x = _as_rows(_row_eval(args[0], env), valid)
+            y = _as_rows(_row_eval(args[1], env), valid)
+            if not x.is_floating_point() and not y.is_floating_point():
+                xi, yi = masked(x), masked(y)
+                xw, yw = widen_sq(xi), widen_sq(yi)
+                for tag, arr in (("sx", xi), ("sy", yi), ("sxy", xw * yw),
+                                 ("sx2", xw * xw), ("sy2", yw * yw)):
+                    add[f"{fp}:{tag}"] = arr
+            else:
+                xf = masked(x).to(torch.float32)
+                yf = masked(y).to(torch.float32)
+                for tag, arr in (("sx", xf), ("sy", yf), ("sxy", xf * yf),
+                                 ("sx2", xf * xf), ("sy2", yf * yf)):
+                    add_float(f"{fp}:{tag}", arr)
+            continue
         v = _as_rows(_row_eval(args[0], env), valid)
         if kind in ("sum", "avg", "mean"):
-            vv = torch.where(valid, v, torch.zeros((), dtype=v.dtype,
-                                                   device=v.device))
-            if vv.dtype == torch.float32:
-                add_float(fp + ":sum", vv)
-            elif vv.is_floating_point():
-                raise _todo(f"sums of {vv.dtype}")
+            if v.is_floating_point():
+                add_float(fp + ":sum", masked(v))
             else:
-                add[fp + ":sum"] = vv.to(torch.int64)
+                add[fp + ":sum"] = masked(v)
+        elif kind in ("var", "stddev"):
+            if v.is_floating_point():
+                vv = masked(v).to(torch.float32)
+                add_float(fp + ":sum", vv)
+                add_float(fp + ":ssq", vv * vv)
+            else:
+                vv = masked(v)
+                add[fp + ":sum"] = vv
+                vw = widen_sq(vv)
+                add[fp + ":ssq"] = vw * vw
         elif kind == "min":
             mins[fp + ":min"] = torch.where(valid, v, R.big_of(v.dtype))
-        else:
+        elif kind == "max":
             maxs[fp + ":max"] = torch.where(valid, v, R.small_of(v.dtype))
-    return add, mins, maxs
+    return add, mins, maxs, f64s
 
 
 def _gathered_sum(dense, tag):
-    """A sum in float64 from its limbs, or the int64 sum itself."""
+    """A sum as float64 from its limbs, or the int64 or float64 sum
+    itself."""
     if tag + "#A" in dense:
         return (dense[tag + "#A"].to(torch.float64) * 2.0 ** -_LIMB_BITS
                 + dense[tag + "#B"].to(torch.float64)
@@ -476,8 +521,25 @@ def _post_agg_eval(e: A.Expr, dense: dict[str, torch.Tensor], counts):
         if kind in ("avg", "mean"):
             s = _gathered_sum(dense, fp + ":sum").to(torch.float64)
             return s / torch.clamp(counts, min=1)
-        if kind in ("min", "max"):
+        if kind in ("min", "max", "median"):
             return dense[f"{fp}:{kind}"]
+        if kind in ("var", "stddev"):
+            s = _gathered_sum(dense, fp + ":sum").to(torch.float64)
+            ssq = _gathered_sum(dense, fp + ":ssq").to(torch.float64)
+            denom = torch.clamp(
+                counts.to(torch.float64)
+                + (1.0 if config.STRICT_REFERENCE_SEMANTICS else 0.0),
+                min=1.0)
+            v = (ssq - s * s / denom) / denom
+            return torch.sqrt(torch.clamp(v, min=0.0)) if kind == "stddev" \
+                else v
+        if kind == "corr":
+            sx, sy, sxy, sx2, sy2 = (
+                _gathered_sum(dense, f"{fp}:{t}").to(torch.float64)
+                for t in ("sx", "sy", "sxy", "sx2", "sy2"))
+            nn = counts.to(torch.float64)
+            return (nn * sxy - sx * sy) / torch.sqrt(
+                (nn * sx2 - sx * sx) * (nn * sy2 - sy * sy))
         if kind in _MATH:
             return _math(kind, [_post_agg_eval(a, dense, counts)
                                 for a in e.args])
@@ -495,15 +557,8 @@ def _post_agg_eval(e: A.Expr, dense: dict[str, torch.Tensor], counts):
 
 def _check_slice(p, cols, col_order) -> None:
     """Raise NotImplementedError for plans this port does not run yet."""
-    if p["has_median"]:
-        raise _todo("median (h2o q6)")
-    for call in p["aggs"]:
-        if call.func in ("corr", "var", "stddev"):
-            raise _todo(f"{call.func}() (h2o q9)")
     if any(cols[nm].valid is not None for nm in col_order if nm in cols):
         raise _todo("nullable columns")
-    if p["order_by"]:
-        raise _todo("ORDER BY on the grouped result (ops/sort.sort_perm)")
     if p["expr_keys"]:
         raise _todo("computed group keys (the multikey tier)")
     if p["into_table"] or p["into_outfile"]:
@@ -527,7 +582,10 @@ def run(sel: A.Select, table: Table) -> Table | None:
             "group-by of an empty table: ROADMAP queue 1, item 7 "
             "(general engine)")
 
-    strategy, key_mins, key_ranges, domain = choose_strategy(p, cols)
+    chosen = choose_strategy(p, cols)
+    if chosen is None:
+        return None             # median over keys that do not pack
+    strategy, key_mins, key_ranges, domain = chosen
     if strategy == "multikey":
         raise _todo("non-integer group keys (the multikey tier)")
     scatters = _needed_scatters(p["aggs"])
@@ -570,10 +628,9 @@ def _run_dense(env, valid, scatters, key_names, key_mins, key_ranges,
     for kn, mn, st in zip(key_names, key_mins, strides):
         part = (env[kn].to(torch.int64) - mn) * st
         code = part if code is None else code + part
-    code = torch.where(valid, code, domain)
-    add, mins, maxs = _build_lanes(env, valid, scatters)
-    add["__counts__"] = valid
-    outs = R.segment_reduce(code, add, mins, maxs, domain)
+    code = torch.where(valid, code, domain).to(torch.int32)
+    add, mins, maxs, f64s = _build_lanes(env, valid, scatters)
+    outs = R.segment_reduce(code, add, mins, maxs, f64s, domain)
     ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
     dense = {t: arr[ucodes] for t, arr in outs.items()}
     keyvals = [(ucodes // st) % r + mn
@@ -586,7 +643,8 @@ def _run_packed(env, valid, scatters, key_names, key_mins, key_ranges):
     (invalid rows carry the 2^30 sentinel, so they sort behind every
     group), joined into one int64 key (w0 << 31) | w1 and sorted; the
     aggregate-argument columns are gathered by the sort permutation and
-    reduced over the sorted runs."""
+    reduced over the sorted runs. A median argument is the sort's second
+    key, and each group's median is read at the middle of its run."""
     planned = _plan_words(key_ranges)
     if planned is None:
         raise _todo("keys wider than 30 bits (the multikey tier)")
@@ -607,21 +665,33 @@ def _run_packed(env, valid, scatters, key_names, key_mins, key_ranges):
     if nwords == 2:
         key = (key << 31) | words[1].to(torch.int64)
         bound = _SENTINEL << 31
-    skey, perm = torch.sort(key)
+    med_fps = [fp for fp, (kind, _a) in scatters.items() if kind == "median"]
+    if med_fps:             # plan() allows one distinct median argument
+        mv = _as_rows(_row_eval(scatters[med_fps[0]][1][0], env), valid)
+        skey, perm = _median_order(key, mv, nwords == 1)
+    else:
+        skey, perm = torch.sort(key)
     dif = skey[1:] != skey[:-1]
     one = torch.ones(1, dtype=torch.bool, device=dev)
     starts = torch.cat([one, dif])
     last = torch.cat([dif, one]) & (skey < bound)
 
     argcols: set[str] = set()
-    for _kind, args in scatters.values():
+    for kind, args in scatters.values():
         for a in args:
-            if not isinstance(a, A.Star):
+            if kind != "median" and not isinstance(a, A.Star):
                 argcols |= _refs(a)
     env_s = {nm: env[nm][perm] for nm in argcols}
-    add, mins, maxs = _build_lanes(env_s, skey < bound, scatters)
-    dense, _ends = R.sorted_group_reduce(starts, last, add, mins, maxs,
-                                         extract={"__key": skey})
+    add, mins, maxs, f64s = _build_lanes(env_s, skey < bound, scatters)
+    add.pop("__counts__")           # counts come from the group ends
+    dense, ends = R.sorted_group_reduce(starts, last, add, mins, maxs, f64s,
+                                        extract={"__key": skey})
+    if med_fps:
+        sv = mv[perm]
+        first = ends - (dense["__counts__"] - 1)
+        dense[med_fps[0] + ":median"] = (
+            sv[first + (dense["__counts__"] - 1) // 2].to(torch.float64)
+            + sv[first + dense["__counts__"] // 2].to(torch.float64)) * 0.5
     gkey = dense.pop("__key")
     gwords = ([gkey >> 31, gkey & ((1 << 31) - 1)] if nwords == 2
               else [gkey])
@@ -631,6 +701,35 @@ def _run_packed(env, valid, scatters, key_names, key_mins, key_ranges):
         keyvals.append(((gwords[wi] >> shift) & ((1 << b) - 1))
                        + key_mins[ki])
     return dense, dense["__counts__"], keyvals
+
+
+_PACKS_32 = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8,
+             torch.bool)     # median arguments whose order fits 32 bits
+
+
+def _order_bits32(v: torch.Tensor) -> torch.Tensor:
+    """int64 in [0, 2^32) ordered as v is (v of a _PACKS_32 dtype); float32
+    as canonical_float orders it."""
+    if v.is_floating_point():
+        b = canonical_float(v).view(torch.int32).to(torch.int64)
+        return torch.where(b < 0, ~b, b + (1 << 31))
+    return v.to(torch.int64) + (1 << 31)
+
+
+def _median_order(key: torch.Tensor, v: torch.Tensor, one_word: bool):
+    """(sorted key, permutation) ordering rows by key, then by the median
+    argument v. With a one-word key (< 2^31) and a 32-bit argument both
+    pack into one int64, (key << 32) | order bits of v, and one sort does
+    it; otherwise a stable sort by v, then a stable sort by key. Float
+    arguments order as ``lax.sort`` orders them: -0.0 ties with 0.0, NaN
+    last."""
+    if one_word and v.dtype in _PACKS_32:
+        skey, perm = torch.sort((key << 32) | _order_bits32(v))
+        return skey >> 32, perm
+    perm = torch.sort(canonical_float(v) if v.is_floating_point() else v,
+                      stable=True).indices
+    perm = perm[torch.sort(key[perm], stable=True).indices]
+    return key[perm], perm
 
 
 def _derive_name(e: A.Expr) -> str:
@@ -657,13 +756,30 @@ def _take(t: torch.Tensor | None, idx: torch.Tensor | None,
     return t[:k] if idx is None else t[idx]
 
 
+def _sort_key(p, cols, pi: int, arr: torch.Tensor) -> torch.Tensor:
+    """Output column pi's ORDER BY key: string keys by dictionary rank."""
+    kindp, expr, _alias = p["projections"][pi]
+    if kindp == "key":
+        src = cols[expr.name]
+        if src.sqltype.is_string and src.dictionary is not None:
+            ranks = torch.from_numpy(src.dictionary.ranks).to(arr.device)
+            return ranks[arr.to(torch.int64).clamp(0, max(len(ranks) - 1,
+                                                          0))]
+    return arr
+
+
 def _finish(p, cols, results, g, having=None) -> Table:
-    """The output Table from the per-projection [g] tensors; ``having``
-    is an optional [g] group mask, ``limit`` keeps the first rows."""
+    """The output Table from the per-projection [g] tensors: ``having``
+    (an optional [g] group mask) keeps groups, ORDER BY sorts them
+    (stable), ``limit`` keeps the first rows."""
     keep = None
     if having is not None:
         keep = torch.nonzero(_truth(_as_rows(having, results[0]))).squeeze(1)
         g = int(keep.shape[0])
+    if p["order_by"] and g:
+        perm = sort_perm([(_sort_key(p, cols, pi, _take(results[pi], keep, g)),
+                           asc) for pi, asc in p["order_by"]], g)
+        keep = perm if keep is None else keep[perm]
     if p["limit"] is not None and p["limit"] < g:
         keep = (torch.arange(p["limit"], device=results[0].device)
                 if keep is None else keep[:p["limit"]])

@@ -1,22 +1,36 @@
 """The port's hand-written CUDA kernels, each beside its plain version.
 
-Counterpart of ``aquery2_tpu/ops/pallas_kernels.py`` for the two kernels
-the h2o group-by path runs:
+Counterpart of ``aquery2_tpu/ops/pallas_kernels.py``: one kernel for each
+of its four TPU kernels.
 
 * ``seg_cumsum_i64`` — inclusive segmented 64-bit running sum
   (csrc/seg_cumsum_i64.cu), replacing the TPU kernel
-  ``pallas_kernels.seg_cumsum_i64`` (``_make_segsum64_kernel``).
+  ``pallas_kernels.seg_cumsum_i64`` (``_make_segsum64_kernel``). Runs the
+  packed group-by tier's sums.
 * ``seg_scan_multi`` — up to 4 inclusive segmented add/min/max scans
   sharing one flag array (csrc/seg_scan_multi.cu), replacing the TPU
   kernel ``pallas_kernels.seg_scan_multi`` (``_make_segscan_kernel``).
+  Runs the packed tier's min/max.
+* ``onehot_segment_sums`` — exact int64 per-slot sums of up to 8 lanes
+  over a small slot domain (csrc/onehot_segment_sums.cu), replacing the
+  TPU kernel ``pallas_kernels.onehot_segment_sums``
+  (``_make_onehot_kernel``) with its caller
+  ``reduce._pallas_onehot_reduce``. Runs the dense tier's sums.
+* ``fused_running_stats`` — running sum, min and max of a float32 column
+  in one scan (csrc/fused_running_stats.cu), replacing the TPU kernel
+  ``pallas_kernels.fused_running_stats`` (``_running_kernel``), with its
+  ``best_profit`` wrapper. No engine caller, as in the JAX package.
 
-Both are memory-bound scans with a carry across blocks. Blocks of a CUDA
+The scans are memory-bound with a carry across blocks. Blocks of a CUDA
 grid run in no order, so the TPU kernels' sequential carry in SMEM becomes
 three phases (csrc/segscan.cuh): fold each tile, scan the tile folds in
 one block, rescan each tile with its carry-in. That reads the input twice:
 about 26 B/row for the int64 sum (int64 read twice, flags read twice,
-int64 written once), and 12 B/row per 32-bit lane plus 2 B/row of flags
-for seg_scan_multi. A single-pass look-back would save the second read.
+int64 written once), 12 B/row per 32-bit lane plus 2 B/row of flags for
+seg_scan_multi, and 20 B/row for fused_running_stats. A single-pass
+look-back would save the second read. onehot_segment_sums reads its
+inputs once; it keeps per-block copies of the accumulators in shared
+memory so that few slots do not serialise the adds.
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
 use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
@@ -41,7 +55,9 @@ from pathlib import Path
 
 import torch
 
-LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0}
+LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0,
+                            "onehot_segment_sums": 0,
+                            "fused_running_stats": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
@@ -51,6 +67,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _OPS = ("add", "min", "max")
 _LANE_DTYPES = (torch.float32, torch.int32)     # lane code = dtype · 3 + op
 _MAX_LANES = 4
+ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool)   # lane dtype codes
+ONEHOT_MAX_LANES = 8
+# One copy of the [dp][k] int64 accumulators must fit a block's shared
+# memory (232,448 bytes on Hopper, kMaxShared in onehot_segment_sums.cu).
+ONEHOT_MAX_ENTRIES = 232448 // 8
 
 _vp = ctypes.c_void_p
 
@@ -106,6 +127,14 @@ def build() -> ctypes.CDLL:
     lib.aq_seg_scan_multi.argtypes = [_vp, ctypes.c_int, _vp, _vp, _vp, _vp,
                                       _vp, ctypes.c_int64, _vp]
     lib.aq_seg_scan_multi.restype = ctypes.c_int
+    lib.aq_onehot_segment_sums.argtypes = [_vp, ctypes.c_int, _vp, _vp,
+                                           ctypes.c_int, ctypes.c_int64, _vp,
+                                           _vp]
+    lib.aq_onehot_segment_sums.restype = ctypes.c_int
+    lib.aq_fused_running_stats_tile_rows.restype = ctypes.c_int
+    lib.aq_fused_running_stats.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp,
+                                           ctypes.c_int64, _vp]
+    lib.aq_fused_running_stats.restype = ctypes.c_int
     return lib
 
 
@@ -179,6 +208,23 @@ def seg_scan_multi_plain(flags: torch.Tensor | None,
             s <<= 1
         outs.append(x)
     return tuple(outs)
+
+
+def onehot_segment_sums_plain(code: torch.Tensor,
+                              lanes: tuple[torch.Tensor, ...],
+                              dp: int) -> torch.Tensor:
+    """Plain PyTorch onehot_segment_sums: one int64 ``index_add_`` per lane
+    (wraps mod 2^64, as the kernel does)."""
+    cols = [torch.zeros(dp, dtype=torch.int64, device=code.device)
+            .index_add_(0, code, x.to(torch.int64)) for x in lanes]
+    return torch.stack(cols, 1)
+
+
+def fused_running_stats_plain(x: torch.Tensor):
+    """Plain PyTorch fused_running_stats: cumsum, cummin and cummax (min and
+    max propagate NaN)."""
+    return (torch.cumsum(x, 0), torch.cummin(x, 0).values,
+            torch.cummax(x, 0).values)
 
 
 # --------------------------------------------------------------------- #
@@ -262,3 +308,91 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
     _check(lib, "seg_scan_multi", rc)
     LAUNCHES["seg_scan_multi"] += 1
     return outs
+
+
+def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
+                        dp: int) -> torch.Tensor:
+    """Exact per-slot sums: out[s, j] = sum of lanes[j] over the rows whose
+    code is s, as int64 [dp, k], wrapping mod 2^64. code: contiguous 1-D
+    int32 in [0, dp) (on the card a row outside that range is dropped).
+    lanes: k ≤ 8 contiguous 1-D int64, int32 or bool tensors of code's
+    length and device, widened to int64 as they are added. Raises
+    ValueError for a dp · k whose accumulators do not fit a block's shared
+    memory, on every device."""
+    lanes = tuple(lanes)
+    k = len(lanes)
+    if (code.dtype != torch.int32 or code.dim() != 1
+            or not code.is_contiguous()):
+        raise ValueError(f"onehot_segment_sums takes contiguous 1-D int32 "
+                         f"codes, got {code.dtype} {tuple(code.shape)}")
+    if not 1 <= k <= ONEHOT_MAX_LANES:
+        raise ValueError(f"onehot_segment_sums takes 1..{ONEHOT_MAX_LANES} "
+                         f"lanes, got {k}")
+    for x in lanes:
+        if (x.dtype not in ONEHOT_DTYPES or x.shape != code.shape
+                or not x.is_contiguous() or x.device != code.device):
+            raise ValueError(f"onehot_segment_sums lanes must be contiguous "
+                             f"1-D int64/int32/bool of the codes' shape and "
+                             f"device, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+    if dp < 1 or dp * k > ONEHOT_MAX_ENTRIES:
+        raise ValueError(f"onehot_segment_sums: {dp} slots x {k} lanes do "
+                         f"not fit one block's shared memory (at most "
+                         f"{ONEHOT_MAX_ENTRIES} entries)")
+    _check_device(code, "onehot_segment_sums")
+    if code.device.type == "cpu":
+        return onehot_segment_sums_plain(code, lanes, dp)
+    out = torch.zeros((dp, k), dtype=torch.int64, device=code.device)
+    n = code.shape[0]
+    if n == 0:
+        return out
+    lib = build()
+    x_ptrs = (_vp * k)(*[x.data_ptr() for x in lanes])
+    dtypes = (ctypes.c_int * k)(*[ONEHOT_DTYPES.index(x.dtype)
+                                  for x in lanes])
+    with torch.cuda.device(code.device):
+        stream = torch.cuda.current_stream(code.device).cuda_stream
+        rc = lib.aq_onehot_segment_sums(code.data_ptr(), k, x_ptrs, dtypes,
+                                        dp, n, out.data_ptr(), stream)
+    _check(lib, "onehot_segment_sums", rc)
+    LAUNCHES["onehot_segment_sums"] += 1
+    return out
+
+
+def fused_running_stats(x: torch.Tensor):
+    """Running (sums, mins, maxs) of a 1-D column in one scan, each float32
+    of x's length; x is taken as float32, as in the JAX package. min and
+    max propagate NaN. Any length (the TPU kernel's multiple of 8192 was
+    its tile)."""
+    if x.dim() != 1:
+        raise ValueError(f"fused_running_stats takes a 1-D column, got "
+                         f"{tuple(x.shape)}")
+    _check_device(x, "fused_running_stats")
+    x = x.to(torch.float32).contiguous()
+    if x.device.type == "cpu":
+        return fused_running_stats_plain(x)
+    n = x.shape[0]
+    outs = tuple(torch.empty_like(x) for _ in range(3))
+    if n == 0:
+        return outs
+    lib = build()
+    ntiles = -(-n // lib.aq_fused_running_stats_tile_rows())
+    tile_v = torch.empty(3 * ntiles, dtype=torch.float32, device=x.device)
+    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.aq_fused_running_stats(
+            x.data_ptr(), *[o.data_ptr() for o in outs], tile_v.data_ptr(),
+            tile_f.data_ptr(), n, stream)
+    _check(lib, "fused_running_stats", rc)
+    LAUNCHES["fused_running_stats"] += 1
+    return outs
+
+
+def best_profit(x: torch.Tensor, n: int) -> torch.Tensor:
+    """max(x − mins(x)) over the first n rows, as a float32 scalar tensor,
+    through one fused_running_stats (``pallas_kernels.best_profit``)."""
+    xf = x.to(torch.float32)
+    _sums, mins, _maxs = fused_running_stats(xf)
+    idx = torch.arange(xf.shape[0], device=xf.device)
+    return torch.where(idx < n, xf - mins, float("-inf")).max()

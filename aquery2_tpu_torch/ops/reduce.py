@@ -5,14 +5,16 @@ Counterpart of ``segment_reduce`` and ``sorted_group_reduce`` in
 (bf16 digit matmuls on the MXU, int32 limb pairs, a v5e cost model for
 extraction); the port keeps what they compute:
 
-* ``segment_reduce`` (the dense tier): exact int64 ``index_add_`` sums and
-  ``scatter_reduce_`` min/max from the same sentinels.
+* ``segment_reduce`` (the dense tier): exact int64 sums through the
+  onehot_segment_sums kernel (one call per 8 lanes), ``scatter_reduce_``
+  min/max from the same sentinels (the JAX package leaves those to XLA
+  too), and float64 sums by ``index_add_``.
 * ``sorted_group_reduce`` (the packed tier): segmented scans over the
   sorted rows, whose value at each group's last row is the group's
   aggregate — sums through the seg_cumsum_i64 kernel in native int64,
   min/max through seg_scan_multi (lanes share one call per 4, since they
-  share the flags) — then one compaction of the group ends and one gather
-  per lane.
+  share the flags), float64 sums by ``torch.cumsum`` — then one
+  compaction of the group ends and one gather per lane.
 """
 
 from __future__ import annotations
@@ -42,26 +44,45 @@ def small_of(dt: torch.dtype):
     return torch.iinfo(dt).min
 
 
+def _sum_lane(col: torch.Tensor) -> torch.Tensor:
+    """An add lane as onehot_segment_sums takes it: int64, int32 or bool
+    as they are, other integer dtypes widened to int64."""
+    if col.dtype not in K.ONEHOT_DTYPES:
+        col = col.to(torch.int64)
+    return col.contiguous()
+
+
 def segment_reduce(code: torch.Tensor, add_lanes: dict[str, torch.Tensor],
                    min_lanes: dict[str, torch.Tensor],
                    max_lanes: dict[str, torch.Tensor],
+                   f64_lanes: dict[str, torch.Tensor],
                    domain: int) -> dict[str, torch.Tensor]:
     """Reduce rows into ``domain + 1`` dense slots. ``code`` is each row's
-    slot (int64; invalid rows carry ``domain``, the overflow slot). Add
-    lanes are integer tensors, summed exactly in int64; min/max lanes are
-    pre-masked with the sentinels. Returns tag → [domain + 1] tensors."""
+    slot (contiguous int32; invalid rows carry ``domain``, the overflow
+    slot). Add lanes are integer or bool tensors, summed exactly in int64;
+    min/max lanes are pre-masked with the sentinels; f64 lanes are
+    float64 sums. Returns tag → [domain + 1] tensors."""
     dp = domain + 1
     dev = code.device
     outs: dict[str, torch.Tensor] = {}
-    for t, col in add_lanes.items():
-        outs[t] = torch.zeros(dp, dtype=torch.int64, device=dev).index_add_(
-            0, code, col.to(torch.int64))
+    tags = list(add_lanes)
+    for i in range(0, len(tags), K.ONEHOT_MAX_LANES):
+        chunk = tags[i:i + K.ONEHOT_MAX_LANES]
+        sums = K.onehot_segment_sums(code, tuple(
+            _sum_lane(add_lanes[t]) for t in chunk), dp)
+        for j, t in enumerate(chunk):
+            outs[t] = sums[:, j]
+    if min_lanes or max_lanes or f64_lanes:
+        idx = code.to(torch.int64)       # scatter_reduce_ takes int64 only
     for t, col in min_lanes.items():
         outs[t] = torch.full((dp,), big_of(col.dtype), dtype=col.dtype,
-                             device=dev).scatter_reduce_(0, code, col, "amin")
+                             device=dev).scatter_reduce_(0, idx, col, "amin")
     for t, col in max_lanes.items():
         outs[t] = torch.full((dp,), small_of(col.dtype), dtype=col.dtype,
-                             device=dev).scatter_reduce_(0, code, col, "amax")
+                             device=dev).scatter_reduce_(0, idx, col, "amax")
+    for t, col in f64_lanes.items():
+        outs[t] = torch.zeros(dp, dtype=torch.float64, device=dev).index_add_(
+            0, idx, col.to(torch.float64))
     return outs
 
 
@@ -69,13 +90,15 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
                         add_lanes: dict[str, torch.Tensor],
                         min_lanes: dict[str, torch.Tensor],
                         max_lanes: dict[str, torch.Tensor],
+                        f64_lanes: dict[str, torch.Tensor],
                         extract: dict[str, torch.Tensor] | None = None):
     """Group reduction over rows already sorted by group key.
 
     starts: [n] bool, True at each group's first row. last: [n] bool, True
     at each VALID group's last row; invalid rows sort behind every valid
-    group, so every row before the last end is valid. Add lanes are int64;
-    min/max lanes int32 or float32, pre-masked with the sentinels.
+    group, so every row before the last end is valid. Add lanes are
+    integer or bool tensors, summed in int64; min/max lanes int32 or
+    float32, pre-masked with the sentinels; f64 lanes float64 sums.
     extract: [n] tensors wanted at each group's last row (the sort key).
 
     Returns (outs, ends_idx): tag → [g] per group in key order, including
@@ -84,9 +107,7 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
     host sync here (it fixes g)."""
     scanned: dict[str, torch.Tensor] = {}
     for t, col in add_lanes.items():
-        if col.dtype != torch.int64:
-            raise TypeError(f"sum lane {t!r} must be int64, got {col.dtype}")
-        scanned[t] = K.seg_cumsum_i64(starts, col)
+        scanned[t] = K.seg_cumsum_i64(starts, col.to(torch.int64))
     lanes = ([(t, col, "min") for t, col in min_lanes.items()]
              + [(t, col, "max") for t, col in max_lanes.items()])
     for t, col, _op in lanes:
@@ -100,10 +121,15 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
                                 tuple(c[2] for c in chunk))
         for (t, _col, _op), o in zip(chunk, outs):
             scanned[t] = o
+    running = {t: torch.cumsum(col.to(torch.float64), 0)
+               for t, col in f64_lanes.items()}
     scanned.update(extract or {})
 
     ends_idx = torch.nonzero(last).squeeze(1)
     outs = {t: v[ends_idx] for t, v in scanned.items()}
+    for t, v in running.items():         # running sum → boundary difference
+        ends_v = v[ends_idx]
+        outs[t] = ends_v - torch.cat([ends_v.new_zeros(1), ends_v[:-1]])
     prev = torch.cat([ends_idx.new_full((1,), -1), ends_idx])[:-1]
     outs["__counts__"] = ends_idx - prev
     return outs, ends_idx

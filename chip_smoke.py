@@ -6,12 +6,17 @@
 Phases, in order (any mismatch raises; there is no fallback):
   1. identify the card (nvidia-smi name and power limit, torch, CUDA);
   2. build the CUDA kernels from aquery2_tpu_torch/csrc/;
-  3. each kernel against its plain PyTorch version at the main path's
-     shape (12,582,912 rows = bucket_size(1e7)), with timings;
-  4. the h2o group-by queries q1 q2 q3 q4 q5 q7 q10 through
+  3. each of the four kernels against its plain PyTorch version at the
+     main path's shape (12,582,912 rows = bucket_size(1e7)), with timings;
+  4. the h2o group-by queries q1 q2 q3 q4 q5 q6 q7 q9 q10 through
      connect(device="cuda").execute on G1_1e7_1e1_0_0 (1e7 rows, K=10,
-     no NAs, seed 42), each checked against a numpy oracle;
-  5. both kernels were launched by phase 4.
+     no NAs, seed 42), each checked against a numpy oracle, with each
+     query's kernel launches counted from zero; then best_profit over a
+     1e7-row price column (the entry point of fused_running_stats, which
+     no query calls), checked against numpy;
+  5. the dense queries (q1 q2 q4 q9) launched onehot_segment_sums, the
+     packed ones seg_cumsum_i64 (q3 q5 q6 q10) or seg_scan_multi (q7),
+     and best_profit launched fused_running_stats.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -36,7 +41,7 @@ ROWS = 10_000_000
 CAP = 12_582_912                 # config.bucket_size(1e7)
 K_GROUPS = 10
 SEED = 42
-QUERIES = {                      # bench.QUERIES, the reference-timed subset
+QUERIES = {                      # bench.QUERIES, all but q8 and the joins
     "q1": "SELECT id1, sum(v1) AS v1 FROM source GROUP BY id1",
     "q2": "SELECT id1, id2, sum(v1) AS v1 FROM source GROUP BY id1, id2",
     "q3": "SELECT id3, sum(v1) AS v1, avg(v3) AS v3 FROM source GROUP BY id3",
@@ -44,16 +49,29 @@ QUERIES = {                      # bench.QUERIES, the reference-timed subset
            "FROM source GROUP BY id4"),
     "q5": ("SELECT id6, sum(v1) AS v1, sum(v2) AS v2, sum(v3) AS v3 "
            "FROM source GROUP BY id6"),
+    "q6": ("SELECT id4, id5, median(v3) AS median_v3, stddev(v3) AS sd "
+           "FROM source GROUP BY id4, id5"),
     "q7": ("SELECT id3, max(v1) - min(v2) AS range_v1_v2 FROM source "
            "GROUP BY id3"),
+    "q9": ("SELECT id2, id4, pow(corr(v1, v2), 2) AS r2 FROM source "
+           "GROUP BY id2, id4"),
     "q10": ("SELECT id1, id2, id3, id4, id5, id6, sum(v3) AS v3, "
             "count(*) AS cnt FROM source GROUP BY id1, id2, id3, id4, id5, id6"),
 }
 KEYS = {"q1": ["id1"], "q2": ["id1", "id2"], "q3": ["id3"], "q4": ["id4"],
-        "q5": ["id6"], "q7": ["id3"],
+        "q5": ["id6"], "q6": ["id4", "id5"], "q7": ["id3"],
+        "q9": ["id2", "id4"],
         "q10": ["id1", "id2", "id3", "id4", "id5", "id6"]}
+# the kernel each query must launch: the dense tier's and the packed tier's
+MAIN_KERNEL = {"q1": "onehot_segment_sums", "q2": "onehot_segment_sums",
+               "q4": "onehot_segment_sums", "q9": "onehot_segment_sums",
+               "q3": "seg_cumsum_i64", "q5": "seg_cumsum_i64",
+               "q6": "seg_cumsum_i64", "q10": "seg_cumsum_i64",
+               "q7": "seg_scan_multi"}
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
+EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
 ADD_F32_RTOL = 2e-5     # float32 'add' lanes: another order of rounding
+RUN_SUM_TOL = 1e-5      # float32 running sums: |err| ≤ this · running Σ|x|
 
 
 def phase(name: str) -> None:
@@ -150,6 +168,9 @@ def check_kernels(dev) -> list[dict]:
                                      f"{max_abs_err(g, w)}")
     torch.cuda.synchronize()
 
+    onehot_err, onehot_timed = check_onehot(rng, dev)
+    run_err, run_timed = check_running(rng, dev)
+
     f = flags["0.1"]               # the q3/q7-like density
     rows = [
         {"name": "seg_cumsum_i64", "route": "cuda",
@@ -169,7 +190,118 @@ def check_kernels(dev) -> list[dict]:
         print(f"# {r['name']}: kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms (median of 10, {CAP} rows, flag "
               f"density 0.1), max |err| {r['max_abs_err']}", flush=True)
+    rows.append({"name": "onehot_segment_sums", "route": "cuda",
+                 "source": "aquery2_tpu_torch/csrc/onehot_segment_sums.cu",
+                 "replaces": "aquery2_tpu/ops/pallas_kernels.py:438",
+                 "max_abs_err": onehot_err, **onehot_timed["q9"]})
+    rows.append({"name": "fused_running_stats", "route": "cuda",
+                 "source": "aquery2_tpu_torch/csrc/fused_running_stats.cu",
+                 "replaces": "aquery2_tpu/ops/pallas_kernels.py:73",
+                 "max_abs_err": run_err, **run_timed})
     return rows
+
+
+def check_onehot(rng, dev):
+    """onehot_segment_sums equal to its plain version (torch.equal) over
+    dp 2, 11, 101, 513 with 6 mixed lanes, and with every row in one slot;
+    then timed at the shapes q1 and q9 give it."""
+    x64 = rng.integers(2**62 - 2**20, 2**62, CAP)
+    x64[rng.random(CAP) < 0.3] *= -1                 # sums wrap past ±2^63
+    lanes = (torch.from_numpy(x64).to(dev),
+             torch.from_numpy(rng.integers(-2**31, 2**31 - 1, CAP)
+                              .astype(np.int32)).to(dev),
+             torch.from_numpy(rng.random(CAP) < 0.5).to(dev),
+             torch.from_numpy(rng.integers(-5, 6, CAP)).to(dev),
+             torch.from_numpy(rng.integers(0, 15, CAP).astype(np.int32)
+                              ).to(dev),
+             torch.from_numpy(rng.random(CAP) < 0.999).to(dev))
+    cases = [(dp, torch.from_numpy(rng.integers(0, dp, CAP).astype(np.int32)
+                                   ).to(dev)) for dp in (2, 11, 101, 513)]
+    cases.append((513, torch.full((CAP,), 7, dtype=torch.int32, device=dev)))
+    err = 0.0
+    for dp, code in cases:
+        got = K.onehot_segment_sums(code, lanes, dp)
+        want = K.onehot_segment_sums_plain(code, lanes, dp)
+        err = max(err, max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"onehot_segment_sums differs (dp {dp}): "
+                                 f"max |err| {max_abs_err(got, want)}")
+
+    # the main path's shapes: codes of 1e7 valid rows, the rest in the
+    # overflow slot; q1 = (counts, sum(v1)); q9 = counts and corr's five
+    # sums (int32 sx, sy; int64 sxy, sx2, sy2)
+    valid = torch.arange(CAP, device=dev) < ROWS
+    v1 = torch.from_numpy(rng.integers(1, 6, CAP).astype(np.int32)).to(dev)
+    v2 = torch.from_numpy(rng.integers(1, 16, CAP).astype(np.int32)).to(dev)
+    v1, v2 = v1 * valid, v2 * valid
+    w1, w2 = v1.to(torch.int64), v2.to(torch.int64)
+    shapes = {"q1": (11, (valid, v1)),
+              "q9": (101, (valid, v1, v2, w1 * w2, w1 * w1, w2 * w2))}
+    timed = {}
+    for q, (dp, ls) in shapes.items():
+        code = torch.where(valid, torch.from_numpy(
+            rng.integers(0, dp - 1, CAP).astype(np.int32)).to(dev), dp - 1)
+        if not torch.equal(K.onehot_segment_sums(code, ls, dp),
+                           K.onehot_segment_sums_plain(code, ls, dp)):
+            raise AssertionError(f"onehot_segment_sums differs at {q}")
+        timed[q] = {
+            "ms": cuda_ms(lambda: K.onehot_segment_sums(code, ls, dp)),
+            "plain_ms": cuda_ms(
+                lambda: K.onehot_segment_sums_plain(code, ls, dp))}
+        print(f"# onehot_segment_sums at {q}'s shape (dp {dp}, "
+              f"{len(ls)} lanes, {CAP} rows): kernel {timed[q]['ms']:.4f} "
+              f"ms, plain {timed[q]['plain_ms']:.4f} ms (median of 10), "
+              f"equal", flush=True)
+    timed["q9"]["q1_ms"] = timed["q1"]["ms"]
+    timed["q9"]["q1_plain_ms"] = timed["q1"]["plain_ms"]
+    return err, timed
+
+
+def check_running(rng, dev):
+    """fused_running_stats against its plain version: {0, 1} values (float32
+    sums exact below 2^24, so all three equal), normal values (sums within
+    RUN_SUM_TOL of the running Σ|x| of a float64 cumsum, min and max
+    equal), normal values with NaNs (NaN where the plain version has it),
+    and best_profit equal to the plain computation."""
+    x01 = torch.from_numpy(rng.integers(0, 2, CAP).astype(np.float32)).to(dev)
+    for g, w in zip(K.fused_running_stats(x01),
+                    K.fused_running_stats_plain(x01)):
+        if not torch.equal(g, w):
+            raise AssertionError("fused_running_stats differs on {0, 1}")
+    xn = torch.from_numpy(rng.normal(size=CAP).astype(np.float32)).to(dev)
+    xnan = xn.clone()
+    xnan[torch.from_numpy(rng.random(CAP) < 1e-6).to(dev)] = float("nan")
+    err = 0.0
+    for x in (xn, xnan):
+        got = K.fused_running_stats(x)
+        want = K.fused_running_stats_plain(x)
+        for g, w in zip(got, want):
+            if not torch.equal(g.isnan(), w.isnan()):
+                raise AssertionError("fused_running_stats: NaN rows differ")
+        ok = ~got[0].isnan()
+        exact = torch.cumsum(torch.nan_to_num(x).double(), 0)
+        scale = torch.cumsum(torch.nan_to_num(x).double().abs(), 0)
+        if not bool(((got[0].double() - exact).abs()[ok]
+                     <= RUN_SUM_TOL * scale[ok]).all()):
+            raise AssertionError("fused_running_stats sums out of tolerance")
+        err = max(err, max_abs_err(got[0], want[0]))
+        for g, w in zip(got[1:], want[1:]):
+            if not torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)):
+                raise AssertionError("fused_running_stats min/max differ")
+    idx = torch.arange(CAP, device=dev)
+    for n in (ROWS, CAP):
+        bp = K.best_profit(xn, n)
+        plain = torch.where(idx < n, xn - torch.cummin(xn, 0).values,
+                            float("-inf")).max()
+        if not torch.equal(bp, plain):
+            raise AssertionError(f"best_profit {bp} vs plain {plain}")
+    timed = {"ms": cuda_ms(lambda: K.fused_running_stats(xn)),
+             "plain_ms": cuda_ms(lambda: K.fused_running_stats_plain(xn))}
+    print(f"# fused_running_stats: kernel {timed['ms']:.4f} ms, plain "
+          f"{timed['plain_ms']:.4f} ms (median of 10, {CAP} rows), max |err| "
+          f"of the sums vs plain {err}; min, max and best_profit equal",
+          flush=True)
+    return err, timed
 
 
 def oracle(data: dict[str, np.ndarray], q: str):
@@ -207,10 +339,28 @@ def oracle(data: dict[str, np.ndarray], q: str):
     elif q == "q5":
         out["v1"], out["v2"], out["v3"] = (isum(d["v1"]), isum(d["v2"]),
                                            fsum(d["v3"]))
+    elif q == "q6":
+        v = d["v3"]
+        byval = np.lexsort((v, inv))             # group, then value
+        sv = v[byval].astype(np.float64)
+        out["median_v3"] = (sv[starts + (cnt - 1) // 2]
+                            + sv[starts + cnt // 2]) * 0.5
+        s1 = fsum(v)
+        s2 = fsum(v * v)                         # float32 squares
+        den = cnt + 1.0                          # var divides by n + 1
+        out["sd"] = np.sqrt(np.maximum((s2 - s1 * s1 / den) / den, 0.0))
     elif q == "q7":
         mx = np.maximum.reduceat(d["v1"][order], starts)
         mn = np.minimum.reduceat(d["v2"][order], starts)
         out["range_v1_v2"] = (mx - mn).astype(np.int32)
+    elif q == "q9":
+        x, y = d["v1"].astype(np.int64), d["v2"].astype(np.int64)
+        sx, sy, sxy, sx2, sy2 = (isum(a).astype(np.float64)
+                                 for a in (x, y, x * y, x * x, y * y))
+        nn = cnt.astype(np.float64)
+        r = (nn * sxy - sx * sy) / np.sqrt((nn * sx2 - sx * sx)
+                                           * (nn * sy2 - sy * sy))
+        out["r2"] = r ** 2
     else:
         out["v3"], out["cnt"] = fsum(d["v3"]), cnt.astype(np.int64)
     return out, cnt
@@ -218,9 +368,10 @@ def oracle(data: dict[str, np.ndarray], q: str):
 
 def check_result(q: str, res, want: dict[str, np.ndarray],
                  cnt: np.ndarray) -> None:
-    """Keys, counts, integer sums and min/max exactly; float sums and
-    averages to FLOAT_RTOL plus the limb split's rounding of each row
-    (at most 2^-39 per row, so cnt · 2^-39 per group)."""
+    """Keys, counts, integer sums, min/max and medians exactly; float sums,
+    averages and stddev to FLOAT_RTOL plus the limb split's rounding of
+    each row (at most 2^-39 per row, so cnt · 2^-39 per group); q9's r2,
+    from exact integer sums, to EXACT_SUMS_RTOL."""
     names = res.column_names()
     if names != list(want):
         raise AssertionError(f"{q}: columns {names}, want {list(want)}")
@@ -229,10 +380,14 @@ def check_result(q: str, res, want: dict[str, np.ndarray],
         w = want[nm]
         if got.shape != w.shape:
             raise AssertionError(f"{q}.{nm}: shape {got.shape} vs {w.shape}")
-        if got.dtype.kind == "f":
+        if nm == "median_v3":
+            np.testing.assert_array_equal(got, w, err_msg=f"{q}.{nm}")
+        elif got.dtype.kind == "f":
             if not np.isfinite(got).all():
                 raise AssertionError(f"{q}.{nm}: non-finite values")
-            bad = np.abs(got - w) > FLOAT_RTOL * np.abs(w) + cnt * 2.0**-39
+            tol = (EXACT_SUMS_RTOL[nm] * np.abs(w) if nm in EXACT_SUMS_RTOL
+                   else FLOAT_RTOL * np.abs(w) + cnt * 2.0**-39)
+            bad = np.abs(got - w) > tol
             if bad.any():
                 i = int(np.flatnonzero(bad)[0])
                 raise AssertionError(f"{q}.{nm}: {int(bad.sum())} groups "
@@ -254,10 +409,9 @@ def run_slice(dev) -> dict[str, float]:
           f"capacity {db.catalog.get('source').columns['id1'].capacity}, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    for k in K.LAUNCHES:             # count only the main path's launches
-        K.LAUNCHES[k] = 0
-    times = {}
+    times, launches = {}, {}
     for q, sql in QUERIES.items():
+        reset_launches()               # each query's own launches
         res = db.execute(sql)          # first run: caches, allocator
         torch.cuda.synchronize()
         runs = []
@@ -266,14 +420,41 @@ def run_slice(dev) -> dict[str, float]:
             db.execute(sql)
             torch.cuda.synchronize()
             runs.append(time.perf_counter() - t1)
+        launches[q] = {k: v for k, v in K.LAUNCHES.items() if v}
         times[q] = float(np.median(runs)) * 1e3
         check_result(q, res, *oracle(data, q))
         print(f"# {q}: {res.nrows} groups, {times[q]:.3f} ms "
-              f"(median of 3 warm runs), matches the numpy oracle",
-              flush=True)
-    launches = dict(K.LAUNCHES)
-    print(f"# main-path launches: {launches}", flush=True)
+              f"(median of 3 warm runs), matches the numpy oracle, "
+              f"launches {launches[q]}", flush=True)
     return launches
+
+
+def run_best_profit(dev) -> dict[str, int]:
+    """best_profit over a 1e7-row price column (a random walk, padded to
+    the capacity), against numpy; returns the launches of that call."""
+    rng = np.random.default_rng(SEED)
+    walk = 1000.0 + np.cumsum(rng.normal(size=ROWS))
+    prices = np.zeros(CAP, np.float32)
+    prices[:ROWS] = np.round(walk, 2).astype(np.float32)
+    x = torch.from_numpy(prices).to(dev)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    got = float(K.best_profit(x, ROWS))
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    p = prices[:ROWS]
+    want = float((p - np.minimum.accumulate(p)).max())
+    if got != want:
+        raise AssertionError(f"best_profit {got} vs numpy {want}")
+    print(f"# best_profit over {ROWS} prices: {got} in {ms:.3f} ms (one "
+          f"call), matches numpy, launches {launches}", flush=True)
+    return launches
+
+
+def reset_launches() -> None:
+    for k in K.LAUNCHES:
+        K.LAUNCHES[k] = 0
 
 
 def main() -> int:
@@ -303,14 +484,20 @@ def main() -> int:
     phase("3. kernels vs plain: equal")
 
     launches = run_slice(dev)
-    phase("4. slice: 7 queries match the oracle")
+    launches["best_profit"] = run_best_profit(dev)
+    phase(f"4. slice: {len(QUERIES)} queries and best_profit match the "
+          f"oracles")
 
+    for q, name in MAIN_KERNEL.items():
+        if launches[q].get(name, 0) <= 0:
+            raise AssertionError(f"{q} did not launch {name}: {launches[q]}")
+    if launches["best_profit"].get("fused_running_stats", 0) <= 0:
+        raise AssertionError("best_profit did not launch fused_running_stats")
     for r in rows:
-        r["launches"] = launches[r["name"]]
-        if r["launches"] <= 0:
-            raise AssertionError(f"{r['name']} was not launched by the "
-                                 f"main path")
-    phase("5. both kernels ran on the main path")
+        r["launches"] = sum(per.get(r["name"], 0)
+                            for per in launches.values())
+    phase("5. each query launched its tier's kernel, best_profit "
+          "fused_running_stats")
 
     print(json.dumps({"kernels": rows}))
     print(card)

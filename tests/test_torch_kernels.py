@@ -1,10 +1,12 @@
-"""The port's seg_cumsum_i64 and seg_scan_multi against the JAX package's
-Pallas kernels (interpret mode, block_rows=64, as tests/test_pallas.py
-runs them on the CPU) and against a row-by-row oracle.
+"""The port's four kernels against the JAX package's Pallas kernels
+(interpret mode, as tests/test_pallas.py runs them on the CPU) and against
+numpy oracles: seg_cumsum_i64, seg_scan_multi, onehot_segment_sums (held
+against reduce._pallas_onehot_reduce, the kernel with its caller) and
+fused_running_stats with best_profit.
 
 On the CPU the port's wrappers run their plain PyTorch versions. Results
-are exact, except float32 'add' lanes (rtol 2e-5: the doubling scan adds
-in another order than the row loop)."""
+are exact, except float32 running sums (rtol 2e-5, test_pallas.py's
+tolerance: the scans add in another order than the row loop)."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from aquery2_tpu.ops import pallas_kernels as PK
+from aquery2_tpu.ops import reduce as JR
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import scan as S
 
@@ -165,3 +168,140 @@ def test_wrappers_check_inputs_and_count_only_launches():
         K.seg_scan_multi(None, (x.to(torch.int32),) * 5, ("add",) * 5)
     with pytest.raises(ValueError):
         K.seg_scan_multi(None, (x.to(torch.int32),), ("mul",))
+
+
+# --- onehot_segment_sums ----------------------------------------------------
+
+def _onehot_case(name, rng):
+    """(code int32, {tag: lane}, dp, bounds) for _pallas_onehot_reduce."""
+    n = 16384
+    if name == "superblock":
+        # max_digit 63 forces one block per superblock (test_pallas.py)
+        n, dp = 32768, 8
+        return ((np.arange(n) % dp).astype(np.int32),
+                {"s": np.full(n, 63, np.int32)}, dp, {"s": 63})
+    dp = {"dp2": 2, "dp16": 16, "dp101_six_lanes": 101, "dp513": 513,
+          "one_slot": 11}[name]
+    code = rng.integers(0, dp, n).astype(np.int32)
+    if name == "one_slot":
+        code[:] = dp - 1
+    lanes = {"c": rng.random(n) < 0.7,
+             "w": rng.integers(-2**40, 2**40, n)}
+    if name != "dp2":
+        lanes["s"] = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    if name == "dp101_six_lanes":
+        lanes["t"] = rng.integers(-5, 6, n).astype(np.int32)
+        lanes["u"] = -rng.integers(2**39, 2**40, n)
+        lanes["b"] = rng.random(n) < 0.01
+    return code, lanes, dp, {}
+
+
+def _add_at(code, v, dp):
+    """Exact per-slot int64 sums (np.add.at wraps mod 2^64)."""
+    out = np.zeros(dp, np.int64)
+    np.add.at(out, code, v.astype(np.int64))
+    return out
+
+
+@pytest.mark.parametrize("case", ["dp2", "dp16", "dp101_six_lanes", "dp513",
+                                  "one_slot", "superblock"])
+def test_onehot_segment_sums_matches_pallas(case, rng):
+    code, lanes, dp, bounds = _onehot_case(case, rng)
+    tags = list(lanes)
+    got = K.onehot_segment_sums(torch.from_numpy(code),
+                                tuple(torch.from_numpy(lanes[t])
+                                      for t in tags), dp)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (dp, len(tags))
+    want = JR._pallas_onehot_reduce(
+        jnp.asarray(code), {t: jnp.asarray(v) for t, v in lanes.items()},
+        dp - 1, bounds=bounds, interpret=True)
+    for j, t in enumerate(tags):
+        np.testing.assert_array_equal(got[:, j].numpy(), np.asarray(want[t]),
+                                      err_msg=t)
+        np.testing.assert_array_equal(got[:, j].numpy(),
+                                      _add_at(code, lanes[t], dp), err_msg=t)
+
+
+def test_onehot_segment_sums_wraps_like_int64():
+    """Sums past ±2^63 wrap mod 2^64, as int64 index_add_ does."""
+    code = torch.tensor([0, 0, 1, 1, 0], dtype=torch.int32)
+    big = torch.tensor([2**62, 2**62, -2**62, -2**62, 2**62])
+    got = K.onehot_segment_sums(code, (big,), 2)
+    np.testing.assert_array_equal(got[:, 0].numpy(),
+                                  _add_at(code.numpy(), big.numpy(), 2))
+    assert got[0, 0] == 2**62 * 3 - 2**64 and got[1, 0] == -2**63
+
+
+def test_onehot_segment_sums_checks_inputs():
+    code = torch.zeros(10, dtype=torch.int32)
+    lane = torch.ones(10, dtype=torch.int64)
+    before = dict(K.LAUNCHES)
+    K.onehot_segment_sums(code, (lane,) * 8, 3)
+    assert K.LAUNCHES == before          # CPU tensors take the plain version
+    with pytest.raises(ValueError):      # one copy would not fit
+        K.onehot_segment_sums(code, (lane,), K.ONEHOT_MAX_ENTRIES + 1)
+    with pytest.raises(ValueError):
+        K.onehot_segment_sums(code, (lane,) * 9, 3)
+    with pytest.raises(ValueError):
+        K.onehot_segment_sums(code.to(torch.int64), (lane,), 3)
+    with pytest.raises(ValueError):
+        K.onehot_segment_sums(code, (lane.to(torch.float32),), 3)
+    with pytest.raises(ValueError):
+        K.onehot_segment_sums(code, (lane[:9],), 3)
+
+
+# --- fused_running_stats and best_profit ------------------------------------
+
+def _running_x(case, rng, cap):
+    if case == "zero_one":     # sums stay integers below 2^24: exact
+        return rng.integers(0, 2, cap).astype(np.float32)
+    x = (rng.random(cap) * 100 - 50).astype(np.float32)
+    if case == "nan":
+        x[rng.random(cap) < 0.001] = np.nan
+    return x
+
+
+@pytest.mark.parametrize("case", ["normal", "nan", "zero_one"])
+def test_fused_running_stats_matches_pallas(case, rng):
+    cap = 16384
+    x = _running_x(case, rng, cap)
+    got = K.fused_running_stats(torch.from_numpy(x))
+    want = [np.asarray(w) for w in PK.fused_running_stats(jnp.asarray(x),
+                                                          interpret=True)]
+    for g in got:
+        assert g.dtype == torch.float32 and tuple(g.shape) == (cap,)
+    sums, mins, maxs = (g.numpy() for g in got)
+    if case == "zero_one":
+        np.testing.assert_array_equal(sums, want[0])
+        np.testing.assert_array_equal(sums, np.cumsum(x, dtype=np.float64))
+    else:
+        np.testing.assert_allclose(sums, want[0], rtol=2e-5)
+        np.testing.assert_allclose(sums, np.cumsum(x, dtype=np.float32),
+                                   rtol=2e-5)
+    np.testing.assert_array_equal(mins, want[1])
+    np.testing.assert_array_equal(maxs, want[2])
+    np.testing.assert_array_equal(mins, np.minimum.accumulate(x))
+    np.testing.assert_array_equal(maxs, np.maximum.accumulate(x))
+
+
+@pytest.mark.parametrize("cap,n", [(8192, 5000), (16384, 16384)])
+def test_best_profit_matches_pallas(cap, n, rng):
+    x = np.zeros(cap, np.float32)
+    x[:n] = rng.integers(1, 100, n)
+    got = K.best_profit(torch.from_numpy(x), n)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    want = float(PK.best_profit(jnp.asarray(x), n, interpret=True))
+    assert float(got) == want == float((x[:n] - np.minimum.accumulate(
+        x[:n])).max())
+
+
+def test_fused_running_stats_any_length():
+    """The port takes any length (the TPU kernel wanted a multiple of
+    8192); integer input is taken as float32, as in the JAX package."""
+    x = torch.tensor([3, 1, 4, 1, 5, 9, 2], dtype=torch.int32)
+    sums, mins, maxs = K.fused_running_stats(x)
+    np.testing.assert_array_equal(sums.numpy(), [3, 4, 8, 9, 14, 23, 25])
+    np.testing.assert_array_equal(mins.numpy(), [3, 1, 1, 1, 1, 1, 1])
+    np.testing.assert_array_equal(maxs.numpy(), [3, 3, 4, 4, 5, 9, 9])
+    assert sums.dtype == torch.float32
+    assert float(K.best_profit(x, 6)) == 8.0

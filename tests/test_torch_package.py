@@ -74,7 +74,10 @@ def test_library_name_follows_sources():
 @pytest.mark.gpu
 @pytest.mark.parametrize("n", [1, 4097, 3 * 4096 * 5 + 123])
 def test_kernels_match_plain_on_card(n):
-    """One row, one row past a tile, and a ragged last tile."""
+    """One row, one row past a tile, and a ragged last tile: the four
+    kernels against their plain versions (float32 running sums against a
+    float64 cumsum, within 1e-5 of the running sum of |x|; everything else
+    exactly)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(n)
@@ -96,3 +99,18 @@ def test_kernels_match_plain_on_card(n):
         for g, w in zip(got, want):
             assert torch.equal(g.isnan(), w.isnan())
             assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    lanes = (x64, xi, flags, xi.to(torch.int64) * x64)
+    for dp in (1, 11, 513):
+        code = torch.from_numpy(rng.integers(0, dp, n).astype(np.int32)).to(dev)
+        assert torch.equal(K.onehot_segment_sums(code, lanes, dp),
+                           K.onehot_segment_sums_plain(code, lanes, dp))
+    xr = torch.nan_to_num(xf)               # NaN-free sums; NaN min/max
+    got = K.fused_running_stats(xr)
+    exact = torch.cumsum(xr.double(), 0)
+    scale = torch.cumsum(xr.double().abs(), 0)
+    assert bool(((got[0].double() - exact).abs() <= 1e-5 * scale).all())
+    got = K.fused_running_stats(xf)
+    want = K.fused_running_stats_plain(xf)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.isnan(), w.isnan())
+        assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
