@@ -1,15 +1,18 @@
 """Statement executor: CREATE TABLE, INSERT … VALUES and grouped SELECT.
 
-Counterpart of ``aquery2_tpu/engine/executor.py``, reduced to what the
-h2o group-by path needs: DDL, literal inserts, and the single-device
-fused branch of SELECT (engine/fused_groupby.py). Every other statement
-raises NotImplementedError naming the ROADMAP item that brings it.
+Counterpart of ``aquery2_tpu/engine/executor.py``, reduced to DDL, literal
+inserts and the single-device fused branch of a grouped SELECT: the fused
+group-by (engine/fused_groupby.py), and where its plan does not cover the
+statement, the ordered group-by with running and windowed aggregates,
+ASSUMING and subvec (engine/fused_ordered.py), as the JAX package tries
+them. Every other statement raises NotImplementedError naming the ROADMAP
+item that brings it.
 """
 
 from __future__ import annotations
 
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.engine import fused_groupby
+from aquery2_tpu_torch.engine import fused_groupby, fused_ordered
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import Column, StringDict, Table
@@ -74,9 +77,12 @@ class Executor:
         if (sel.group_by and len(sel.sources) == 1
                 and isinstance(sel.sources[0], A.TableSource)
                 and sel.sources[0].name in self.session.catalog):
-            t = fused_groupby.run(sel,
-                                  self.session.catalog.get(sel.sources[0].name))
+            table = self.session.catalog.get(sel.sources[0].name)
+            t = fused_groupby.run(sel, table)
+            if t is None:
+                t = fused_ordered.run(sel, table)
             if t is not None:
                 return t
         raise NotImplementedError(
-            f"SELECT outside the fused group-by: {_GENERAL}")
+            f"SELECT outside the fused group-by and ordered paths: "
+            f"{_GENERAL}")

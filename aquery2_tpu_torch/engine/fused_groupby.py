@@ -3,30 +3,41 @@
 Counterpart of ``aquery2_tpu/engine/fused_groupby.py``: the same plan
 (``plan``), the same tier choice (``choose_strategy``), the same limb
 split for exact float sums and the same group order, run eagerly on one
-device. Two tiers:
+device. Three tiers:
 
-  dense   — key domains of at most ``config.ONEHOT_MATMUL_MAX_GROUPS``
-            slots: each row's perfect-hash code picks a slot, and the
-            onehot_segment_sums kernel sums every add lane per slot in
-            int64 (ops/reduce.segment_reduce).
-  packed  — keys bit-pack (from column stats) into at most two 30-bit
-            words, joined into one int64 sort key: ``torch.sort``, then
-            segmented scans over the sorted rows
-            (ops/reduce.sorted_group_reduce → the CUDA scan kernels). A
-            median argument joins the sort as a secondary key, so each
-            group's run is value-ascending and its middle rows are the
-            median.
+  dense    — key domains of at most ``config.ONEHOT_MATMUL_MAX_GROUPS``
+             slots: each row's perfect-hash code picks a slot, and the
+             onehot_segment_sums kernel sums every add lane per slot in
+             int64 (ops/reduce.segment_reduce).
+  packed   — keys bit-pack (from column stats) into 30-bit words: one
+             ops/sort.lexsort of [validity, words] (a single int64 sort
+             up to two words), then segmented scans over the sorted rows
+             (ops/reduce.sorted_group_reduce → the CUDA scan kernels). A
+             median argument joins the sort as a secondary key, so each
+             group's run is value-ascending and its middle rows are the
+             median.
+  multikey — computed keys, float keys and integer keys wider than 30
+             bits (the JAX package's ``_run_sort``): one lexsort of
+             [validity, key values], boundaries where any sorted key or
+             the validity changes, the same sorted reduction.
 
 Aggregates: count, sum, avg, min, max, var, stddev, corr (their sums are
-ordinary add lanes, so both tiers take them) and median (packed tier).
-Groups come out key-ascending in both tiers, as in the JAX package, then
+ordinary add lanes, so every tier takes them) and median (packed tier).
+Groups come out key-ascending in every tier, as in the JAX package, then
 HAVING, ORDER BY (ops/sort.sort_perm) and LIMIT apply. Host syncs: each
 key column's stats (cached on the column) and the one compaction that
 fixes the group count.
 
-Shapes outside this slice raise NotImplementedError naming the ROADMAP
-item that will bring them; a shape the plan does not cover at all
-(``Unsupported``) returns None and the executor raises.
+Nullable columns, as the JAX package runs them: NULL group keys are coded
+as (max + 1) in a shallow copy of the table, so they form one group that
+sorts last and comes out with its key NULL; NULL aggregate arguments are
+skipped, with a per-aggregate non-null count for avg, var, stddev, corr
+and count(col). An all-NULL group gets sum 0 and the min/max sentinels,
+as in the JAX package. Where the JAX package sends a query to its general
+engine instead (a nullable WHERE column, a nullable median argument,
+Kleene logic inside a nullable argument, a nullable key also read
+elsewhere) the port raises NotImplementedError naming that ROADMAP item;
+a shape the plan does not cover at all (``Unsupported``) returns None.
 """
 
 from __future__ import annotations
@@ -38,7 +49,8 @@ import torch
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.ops import reduce as R
-from aquery2_tpu_torch.ops.sort import canonical_float, sort_perm
+from aquery2_tpu_torch.ops.segment import last_flags
+from aquery2_tpu_torch.ops.sort import lexsort, sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils import CaseInsensitiveDict, base62uuid, legal_name
@@ -48,19 +60,14 @@ _SIMPLE_AGGS = {"sum", "avg", "mean", "min", "max", "count", "corr",
 _MATH = {"sqrt": torch.sqrt, "pow": torch.pow, "abs": torch.abs,
          "exp": torch.exp, "log": torch.log, "floor": torch.floor,
          "ceil": torch.ceil, "round": torch.round}
-_WORD_BITS = 30          # data bits per packed key word (bit 30 = sentinel)
-_SENTINEL = 1 << _WORD_BITS
+_WORD_BITS = 30          # data bits per packed key word
 _LIMB_BITS = 14          # add_float: coarse limb = round(v · 2^14)
 
-_Q3 = "ROADMAP queue 1, item 3 (fused group-by)"
+_GENERAL = "ROADMAP queue 1, item 7 (general engine)"
 
 
 class Unsupported(Exception):
     pass
-
-
-def _todo(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what}: {_Q3}")
 
 
 # --------------------------------------------------------------------- #
@@ -156,6 +163,12 @@ def plan(sel: A.Select, table: Table):
             c = cols[g.name]
             if getattr(c, "is_vector", False):
                 raise Unsupported("vector key")
+            if c.sqltype.kind == "float":
+                # sorts by value in the multikey tier (the JAX package
+                # sends a float column key to its general engine)
+                keys.append(g)
+                expr_keys = True
+                continue
             if not (c.sqltype.kind in ("int", "bool") or c.sqltype.is_string
                     or c.sqltype.is_temporal):
                 raise Unsupported("non-integer key")
@@ -246,10 +259,11 @@ def _refs(e: A.Expr) -> set[str]:
 
 
 def referenced_columns(p) -> list[str]:
-    """Sorted lower-cased names of every column the plan touches."""
-    refs: set[str] = set()
+    """Sorted lower-cased names of every column the plan touches (an
+    ordered plan's ASSUMING columns included)."""
+    refs = {an for an, _asc in p.get("assume", ())}
     for e in [*p["keys"], *(expr for _, expr, _ in p["projections"]),
-              p["where"], p["having"]]:
+              p["where"], p.get("having")]:
         if e is not None:
             refs |= _refs(e)
     return sorted(refs)
@@ -270,17 +284,13 @@ def choose_strategy(p, cols):
     (median without a packable layout), exactly as the JAX package:
       dense    — packable keys whose domain ≤ ONEHOT_MATMUL_MAX_GROUPS
       packed   — other packable keys (integer columns with stats)
-      multikey — computed or non-integer keys"""
+      multikey — computed or float keys"""
     key_mins, key_ranges = [], []
     domain = 1
     packable = not p["expr_keys"]
     if packable:
         for k in p["keys"]:
-            c = cols[k.name]
-            if c.data.dtype.is_floating_point:
-                packable = False
-                break
-            mn, mx = c.stats()
+            mn, mx = cols[k.name].stats()
             key_mins.append(int(mn))
             key_ranges.append(int(mx) - int(mn) + 1)
             domain *= key_ranges[-1]
@@ -349,9 +359,15 @@ def _truth(v):
 
 
 def _truediv(a, b):
-    """SQL '/': integer operands divide in float64 (jnp.true_divide)."""
+    """SQL '/' as jnp.true_divide: integer operands divide in float64 when
+    they promote to int64 (a literal beside a bool column does), else in
+    float32."""
     if not _is_float(a) and not _is_float(b):
-        a = a.to(torch.float64) if isinstance(a, torch.Tensor) else float(a)
+        if not isinstance(a, torch.Tensor) and not isinstance(b, torch.Tensor):
+            return a / b
+        wide = torch.result_type(a, b) == torch.int64
+        a = a.to(torch.float64 if wide else torch.float32) \
+            if isinstance(a, torch.Tensor) else float(a)
     return a / b
 
 
@@ -421,7 +437,7 @@ def _as_rows(v, like: torch.Tensor) -> torch.Tensor:
                       else torch.int64)
 
 
-def _build_lanes(env, valid, scatters):
+def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
     """Every aggregate's per-row reduction lanes, masked so invalid rows
     are identities: (add, min, max, f64) dicts of [rows] tensors, as the
     JAX package's _build_lanes. Add lanes hold integers (bool, int32 or
@@ -431,7 +447,14 @@ def _build_lanes(env, valid, scatters):
     float32 sums split into two integer-valued limbs (the JAX package's
     add_float, P1 = 14) that are summed as int64, so the sums are exact
     and recombine to the JAX package's float64 bit for bit. Sums of other
-    float dtypes are float64 lanes."""
+    float dtypes are float64 lanes.
+
+    eval_fn: evaluates an argument expression (default: over ``env``).
+    null_fn: arg exprs → [rows] bool, True where a referenced column is
+    NULL, or None. SQL aggregates skip NULL inputs: such an aggregate's
+    lanes mask those rows too, and it gets a ``:cnt`` lane, its non-null
+    count, which avg, var, stddev, corr and count(col) divide by."""
+    rows = eval_fn if eval_fn is not None else (lambda e: _row_eval(e, env))
     add: dict[str, torch.Tensor] = {"__counts__": valid}
     mins: dict[str, torch.Tensor] = {}
     maxs: dict[str, torch.Tensor] = {}
@@ -447,20 +470,27 @@ def _build_lanes(env, valid, scatters):
         add[tag + "#A"] = a.to(torch.int64)
         add[tag + "#B"] = b.to(torch.int64)
 
-    def masked(v: torch.Tensor) -> torch.Tensor:
-        return torch.where(valid, v, torch.zeros((), dtype=v.dtype,
-                                                 device=v.device))
-
     def widen_sq(v: torch.Tensor) -> torch.Tensor:
         """A factor of a square or product that cannot overflow."""
         return v.to(torch.int64) if v.element_size() <= 4 else v
 
     for fp, (kind, args) in scatters.items():
-        if kind in ("count", "median"):
-            continue            # count rides the counts; median the sort
+        if kind == "median":
+            continue                    # median rides the sort
+        nmask = null_fn(args) if null_fn is not None else None
+        vm = valid if nmask is None else valid & ~nmask
+        if nmask is not None:
+            add[fp + ":cnt"] = vm       # the aggregate's non-null count
+        if kind == "count":
+            continue                    # count(*) rides the counts
+
+        def masked(v: torch.Tensor) -> torch.Tensor:
+            return torch.where(vm, v, torch.zeros((), dtype=v.dtype,
+                                                  device=v.device))
+
         if kind == "corr":
-            x = _as_rows(_row_eval(args[0], env), valid)
-            y = _as_rows(_row_eval(args[1], env), valid)
+            x = _as_rows(rows(args[0]), valid)
+            y = _as_rows(rows(args[1]), valid)
             if not x.is_floating_point() and not y.is_floating_point():
                 xi, yi = masked(x), masked(y)
                 xw, yw = widen_sq(xi), widen_sq(yi)
@@ -474,7 +504,7 @@ def _build_lanes(env, valid, scatters):
                                  ("sx2", xf * xf), ("sy2", yf * yf)):
                     add_float(f"{fp}:{tag}", arr)
             continue
-        v = _as_rows(_row_eval(args[0], env), valid)
+        v = _as_rows(rows(args[0]), valid)
         if kind in ("sum", "avg", "mean"):
             if v.is_floating_point():
                 add_float(fp + ":sum", masked(v))
@@ -491,9 +521,9 @@ def _build_lanes(env, valid, scatters):
                 vw = widen_sq(vv)
                 add[fp + ":ssq"] = vw * vw
         elif kind == "min":
-            mins[fp + ":min"] = torch.where(valid, v, R.big_of(v.dtype))
+            mins[fp + ":min"] = torch.where(vm, v, R.big_of(v.dtype))
         elif kind == "max":
-            maxs[fp + ":max"] = torch.where(valid, v, R.small_of(v.dtype))
+            maxs[fp + ":max"] = torch.where(vm, v, R.small_of(v.dtype))
     return add, mins, maxs, f64s
 
 
@@ -514,20 +544,22 @@ def _post_agg_eval(e: A.Expr, dense: dict[str, torch.Tensor], counts):
     if isinstance(e, A.Call):
         fp = repr(e)
         kind = e.func
+        # the non-null count, where the aggregate's arguments are nullable
+        acnt = dense.get(fp + ":cnt", counts)
         if kind == "count":
-            return counts.to(torch.int64)
+            return acnt.to(torch.int64)
         if kind == "sum":
             return _gathered_sum(dense, fp + ":sum")
         if kind in ("avg", "mean"):
             s = _gathered_sum(dense, fp + ":sum").to(torch.float64)
-            return s / torch.clamp(counts, min=1)
+            return s / torch.clamp(acnt, min=1)
         if kind in ("min", "max", "median"):
             return dense[f"{fp}:{kind}"]
         if kind in ("var", "stddev"):
             s = _gathered_sum(dense, fp + ":sum").to(torch.float64)
             ssq = _gathered_sum(dense, fp + ":ssq").to(torch.float64)
             denom = torch.clamp(
-                counts.to(torch.float64)
+                acnt.to(torch.float64)
                 + (1.0 if config.STRICT_REFERENCE_SEMANTICS else 0.0),
                 min=1.0)
             v = (ssq - s * s / denom) / denom
@@ -537,7 +569,7 @@ def _post_agg_eval(e: A.Expr, dense: dict[str, torch.Tensor], counts):
             sx, sy, sxy, sx2, sy2 = (
                 _gathered_sum(dense, f"{fp}:{t}").to(torch.float64)
                 for t in ("sx", "sy", "sxy", "sx2", "sy2"))
-            nn = counts.to(torch.float64)
+            nn = acnt.to(torch.float64)
             return (nn * sxy - sx * sy) / torch.sqrt(
                 (nn * sx2 - sx * sx) * (nn * sy2 - sy * sy))
         if kind in _MATH:
@@ -555,15 +587,127 @@ def _post_agg_eval(e: A.Expr, dense: dict[str, torch.Tensor], counts):
 # execution
 # --------------------------------------------------------------------- #
 
-def _check_slice(p, cols, col_order) -> None:
-    """Raise NotImplementedError for plans this port does not run yet."""
-    if any(cols[nm].valid is not None for nm in col_order if nm in cols):
-        raise _todo("nullable columns")
-    if p["expr_keys"]:
-        raise _todo("computed group keys (the multikey tier)")
-    if p["into_table"] or p["into_outfile"]:
-        raise NotImplementedError(
-            "SELECT INTO: ROADMAP queue 1, item 8 (services)")
+def _contains_logical(e: A.Expr) -> bool:
+    if isinstance(e, A.BinOp):
+        return (e.op in ("and", "or") or _contains_logical(e.left)
+                or _contains_logical(e.right))
+    if isinstance(e, A.UnaryOp):
+        return e.op == "not" or _contains_logical(e.operand)
+    if isinstance(e, A.Call):
+        return any(_contains_logical(a) for a in e.args
+                   if not isinstance(a, A.Star))
+    return False
+
+
+def nullable_gate(p, cols, col_order):
+    """(nullable column names, reason | None), as the JAX package's gate.
+    The fused tiers run nullable aggregate-argument columns (each lane
+    skips its NULL rows, _build_lanes null_fn). A reason means the query
+    needs the general engine's three-valued logic: a nullable group key
+    (one that sentinel_code_null_keys could not code), a nullable WHERE
+    column, a nullable median argument, or and/or inside a nullable
+    aggregate argument."""
+    nullable = {nm for nm in col_order
+                if nm in cols and cols[nm].valid is not None}
+    if not nullable:
+        return nullable, None
+    for k in p["keys"]:
+        if _refs(k) & nullable:
+            return nullable, "nullable group key"
+    if p["where"] is not None and _refs(p["where"]) & nullable:
+        return nullable, "nullable WHERE column"
+    for kind, args in _needed_scatters(p["aggs"]).values():
+        argrefs: set[str] = set()
+        for a in args:
+            if not isinstance(a, A.Star):
+                argrefs |= _refs(a)
+        if not argrefs & nullable:
+            continue
+        if kind == "median":
+            return nullable, "nullable median argument"
+        if any(_contains_logical(a) for a in args
+               if not isinstance(a, A.Star)):
+            return nullable, "Kleene logic inside a nullable aggregate argument"
+    return nullable, None
+
+
+def sentinel_code_null_keys(p, table: Table):
+    """(table', {key name: sentinel}) with each nullable integer GROUP BY
+    key column coded NULL → (non-null max) + 1 in a shallow copy of the
+    table, so every tier groups the NULLs together, after every value;
+    _finish restores the NULL key. None where that does not apply: no
+    nullable column key, a computed key, a non-integer key, a sentinel
+    past the dtype's max, or a key column that is also read outside the
+    key position (a WHERE or an aggregate needs real NULLs)."""
+    cols = table.columns
+    key_names = [k.name.lower() for k in p["keys"]
+                 if isinstance(k, A.ColumnRef)]
+    if len(key_names) != len(p["keys"]):
+        return None
+    nullable_keys = [kn for kn in key_names
+                     if kn in cols and cols[kn].valid is not None]
+    if not nullable_keys:
+        return None
+    other_refs: set[str] = set()
+    for kindp, expr, _ in p["projections"]:
+        if kindp != "key":
+            other_refs |= _refs(expr)
+    for e in (p["where"], p["having"]):
+        if e is not None:
+            other_refs |= _refs(e)
+    if other_refs & set(nullable_keys):
+        return None
+
+    sents: dict[str, int] = {}
+    coded = Table(table.name)
+    for c in table.columns.values():
+        nm = c.name.lower()
+        if nm not in nullable_keys:
+            coded.add_column(c)
+            continue
+        if c.data.is_floating_point() or c.data.dtype == torch.bool:
+            return None
+        mn, mx = c.stats()
+        if mn > mx:                     # all NULL: the stats are sentinels
+            mn, mx = 0, 0
+        sent = mx + 1
+        if sent > torch.iinfo(c.data.dtype).max:
+            return None
+        nc = Column(c.name, c.sqltype,
+                    torch.where(c.valid, c.data, sent).to(c.data.dtype),
+                    nrows=c.nrows, dictionary=c.dictionary)
+        nc._stats = (mn, sent)
+        coded.add_column(nc)
+        sents[nm] = sent
+    return coded, sents
+
+
+def make_null_fn(env_null: dict[str, torch.Tensor]):
+    """null_fn for _build_lanes: arg exprs → the OR of the referenced
+    columns' NULL masks (arithmetic or comparison over NULL is NULL), or
+    None when no referenced column is nullable."""
+    def nf(args):
+        m = None
+        for a in args:
+            if isinstance(a, A.Star):
+                continue
+            for nm in _refs(a):
+                mask = env_null.get(nm)
+                if mask is not None:
+                    m = mask if m is None else m | mask
+        return m
+    return nf
+
+
+def _key_index(keys: list[A.Expr], expr: A.Expr) -> int:
+    """Index of a projected key in the GROUP BY list: by name for column
+    references, by AST equality for computed keys."""
+    for i, k in enumerate(keys):
+        if k == expr or (isinstance(k, A.ColumnRef)
+                         and isinstance(expr, A.ColumnRef)
+                         and k.name.lower() == expr.name.lower()):
+            return i
+    raise Unsupported(f"projection {expr} is not a group key")
 
 
 def run(sel: A.Select, table: Table) -> Table | None:
@@ -573,39 +717,54 @@ def run(sel: A.Select, table: Table) -> Table | None:
         p = plan(sel, table)
     except Unsupported:
         return None
-    cols = table.columns
-    col_order = referenced_columns(p)
-    _check_slice(p, cols, col_order)
+    if p["into_table"] or p["into_outfile"]:
+        raise NotImplementedError(
+            "SELECT INTO: ROADMAP queue 1, item 8 (services)")
     n = table.nrows
     if n == 0:
-        raise NotImplementedError(
-            "group-by of an empty table: ROADMAP queue 1, item 7 "
-            "(general engine)")
+        raise NotImplementedError(f"group-by of an empty table: {_GENERAL}")
+    sub = sentinel_code_null_keys(p, table)
+    if sub is not None:
+        table, p["key_sentinels"] = sub
+    cols = table.columns
 
     chosen = choose_strategy(p, cols)
     if chosen is None:
         return None             # median over keys that do not pack
     strategy, key_mins, key_ranges, domain = chosen
-    if strategy == "multikey":
-        raise _todo("non-integer group keys (the multikey tier)")
+    col_order = referenced_columns(p)
+    nullable, bail = nullable_gate(p, cols, col_order)
+    if bail:
+        raise NotImplementedError(f"{bail}: {_GENERAL}")
     scatters = _needed_scatters(p["aggs"])
     env = {nm: cols[nm].data for nm in col_order}
+    env_null = {nm: ~cols[nm].valid for nm in sorted(nullable)}
     cap = next(iter(env.values())).shape[0]
     valid = torch.arange(cap, device=env[col_order[0]].device) < n
     if p["where"] is not None:
         valid = valid & _truth(_as_rows(_row_eval(p["where"], env), valid))
-    key_names = [k.name.lower() for k in p["keys"]]
+    keys = p["keys"]
     if strategy == "dense":
-        dense, counts, keyvals = _run_dense(env, valid, scatters, key_names,
-                                            key_mins, key_ranges, domain)
-    else:
-        dense, counts, keyvals = _run_packed(env, valid, scatters, key_names,
-                                             key_mins, key_ranges)
+        dense, counts, keyvals = _run_dense(env, env_null, valid, scatters,
+                                            keys, key_mins, key_ranges,
+                                            domain)
+    elif strategy == "packed" and _plan_words(key_ranges) is not None:
+        dense, counts, keyvals = _run_packed(env, env_null, valid, scatters,
+                                             keys, key_mins, key_ranges)
+    else:                       # multikey, or a key wider than 30 bits
+        # integer column keys wider than 30 bits sort within their stats
+        # bounds; computed and float keys (no key_mins) by value
+        bounds = ([(mn, mn + r - 1) for mn, r in zip(key_mins, key_ranges)]
+                  or [None] * len(keys))
+        dense, counts, keyvals = _run_sort(env, env_null, valid, scatters,
+                                           keys, bounds)
     results = []
     for kindp, expr, _alias in p["projections"]:
         if kindp == "key":
-            ki = key_names.index(expr.name.lower())
-            results.append(keyvals[ki].to(cols[key_names[ki]].data.dtype))
+            kv = keyvals[_key_index(keys, expr)]
+            if isinstance(expr, A.ColumnRef):
+                kv = kv.to(cols[expr.name].data.dtype)
+            results.append(kv)
         else:
             results.append(_as_rows(_post_agg_eval(expr, dense, counts),
                                     counts))
@@ -614,7 +773,7 @@ def run(sel: A.Select, table: Table) -> Table | None:
     return _finish(p, cols, results, int(counts.shape[0]), having)
 
 
-def _run_dense(env, valid, scatters, key_names, key_mins, key_ranges,
+def _run_dense(env, env_null, valid, scatters, keys, key_mins, key_ranges,
                domain):
     """Dense tier: perfect-hash codes index [domain + 1] accumulators;
     present slots compact in code order (= key order)."""
@@ -625,11 +784,13 @@ def _run_dense(env, valid, scatters, key_names, key_mins, key_ranges,
         s *= r
     strides.reverse()
     code = None
-    for kn, mn, st in zip(key_names, key_mins, strides):
-        part = (env[kn].to(torch.int64) - mn) * st
+    for k, mn, st in zip(keys, key_mins, strides):
+        part = (env[k.name.lower()].to(torch.int64) - mn) * st
         code = part if code is None else code + part
     code = torch.where(valid, code, domain).to(torch.int32)
-    add, mins, maxs, f64s = _build_lanes(env, valid, scatters)
+    add, mins, maxs, f64s = _build_lanes(
+        env, valid, scatters, null_fn=make_null_fn(env_null) if env_null
+        else None)
     outs = R.segment_reduce(code, add, mins, maxs, f64s, domain)
     ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
     dense = {t: arr[ucodes] for t, arr in outs.items()}
@@ -638,98 +799,112 @@ def _run_dense(env, valid, scatters, key_names, key_mins, key_ranges,
     return dense, dense["__counts__"], keyvals
 
 
-def _run_packed(env, valid, scatters, key_names, key_mins, key_ranges):
-    """Packed tier: keys pack into ≤ 2 int32 words of 30-bit fields
-    (invalid rows carry the 2^30 sentinel, so they sort behind every
-    group), joined into one int64 key (w0 << 31) | w1 and sorted; the
-    aggregate-argument columns are gathered by the sort permutation and
-    reduced over the sorted runs. A median argument is the sort's second
-    key, and each group's median is read at the middle of its run."""
-    planned = _plan_words(key_ranges)
-    if planned is None:
-        raise _todo("keys wider than 30 bits (the multikey tier)")
-    fields, nwords = planned
-    if nwords > 2:
-        raise _todo("keys of more than 2 packed words")
-    dev = valid.device
-    words = [torch.zeros(valid.shape, dtype=torch.int32, device=dev)
-             for _ in range(nwords)]
-    for ki, kn in enumerate(key_names):
-        wi, shift, _b = fields[ki]
-        # in place: ORs each key's field into its word without a temporary
-        words[wi] |= ((env[kn].to(torch.int64) - key_mins[ki])
-                      .to(torch.int32) << shift)
-    words = [torch.where(valid, w, _SENTINEL) for w in words]
-    key = words[0].to(torch.int64)
-    bound = _SENTINEL
-    if nwords == 2:
-        key = (key << 31) | words[1].to(torch.int64)
-        bound = _SENTINEL << 31
-    med_fps = [fp for fp, (kind, _a) in scatters.items() if kind == "median"]
-    if med_fps:             # plan() allows one distinct median argument
-        mv = _as_rows(_row_eval(scatters[med_fps[0]][1][0], env), valid)
-        skey, perm = _median_order(key, mv, nwords == 1)
-    else:
-        skey, perm = torch.sort(key)
-    dif = skey[1:] != skey[:-1]
-    one = torch.ones(1, dtype=torch.bool, device=dev)
-    starts = torch.cat([one, dif])
-    last = torch.cat([dif, one]) & (skey < bound)
-
+def _sorted_lanes(env, env_null, perm, valid_s, scatters):
+    """The reduction lanes over sorted rows: the aggregate-argument
+    columns and their NULL masks gathered by the sort permutation."""
     argcols: set[str] = set()
     for kind, args in scatters.values():
         for a in args:
             if kind != "median" and not isinstance(a, A.Star):
                 argcols |= _refs(a)
     env_s = {nm: env[nm][perm] for nm in argcols}
-    add, mins, maxs, f64s = _build_lanes(env_s, skey < bound, scatters)
-    add.pop("__counts__")           # counts come from the group ends
-    dense, ends = R.sorted_group_reduce(starts, last, add, mins, maxs, f64s,
-                                        extract={"__key": skey})
+    null_s = {nm: m[perm] for nm, m in env_null.items() if nm in argcols}
+    return _build_lanes(env_s, valid_s, scatters,
+                        null_fn=make_null_fn(null_s) if null_s else None)
+
+
+def _differs(sk: torch.Tensor) -> torch.Tensor:
+    """[n - 1] bool: row i + 1's sorted key differs from row i's. NaN keys
+    are equal to each other, so they make one group (the sort puts them
+    together, last), and -0.0 equals 0.0."""
+    d = sk[1:] != sk[:-1]
+    if sk.is_floating_point():
+        d &= ~(sk[1:].isnan() & sk[:-1].isnan())
+    return d
+
+
+def sorted_groups(valid, keys, order_keys=()):
+    """One stable lexsort of [invalid, keys..., order_keys...], validity
+    most significant, so invalid rows sort behind every valid group
+    whatever their key values. keys and order_keys are lexsort entries
+    (tensor, ascending[, (lo, hi)]); order_keys only order the rows within
+    a group. Returns (perm, valid_s, the sorted keys and order keys,
+    starts, last): a group starts where the validity or any key changes,
+    and ``last`` flags each valid group's last row."""
+    perm, sk = lexsort([(~valid, True), *keys, *order_keys])
+    valid_s = ~sk[0]
+    dif = sk[0][1:] != sk[0][:-1]
+    for x in sk[1:1 + len(keys)]:
+        dif |= _differs(x)
+    one = torch.ones(1, dtype=torch.bool, device=valid.device)
+    starts = torch.cat([one, dif])
+    return perm, valid_s, sk[1:], starts, last_flags(starts) & valid_s
+
+
+def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
+    """Packed tier: keys pack into int32 words of 30-bit fields, sorted by
+    sorted_groups (two words and the validity bit fit one int64 sort). The
+    aggregate-argument columns are gathered by the sort permutation and
+    reduced over the sorted runs. A median argument is the sort's order
+    key, so each group's run is value-ascending and its median is read at
+    the middle of the run."""
+    fields, nwords = _plan_words(key_ranges)
+    dev = valid.device
+    words = [torch.zeros(valid.shape, dtype=torch.int32, device=dev)
+             for _ in range(nwords)]
+    for ki, k in enumerate(keys):
+        wi, shift, _b = fields[ki]
+        # in place: ORs each key's field into its word without a temporary
+        words[wi] |= ((env[k.name.lower()].to(torch.int64) - key_mins[ki])
+                      .to(torch.int32) << shift)
+    med_fps = [fp for fp, (kind, _a) in scatters.items() if kind == "median"]
+    med = []
+    if med_fps:             # plan() allows one distinct median argument
+        mv = _as_rows(_row_eval(scatters[med_fps[0]][1][0], env), valid)
+        med = [(mv, True)]
+    perm, valid_s, sk, starts, last = sorted_groups(
+        valid, [(w, True, (0, (1 << _WORD_BITS) - 1)) for w in words], med)
+
+    add, mins, maxs, f64s = _sorted_lanes(env, env_null, perm, valid_s,
+                                          scatters)
+    dense, ends = R.sorted_group_reduce(
+        starts, last, add, mins, maxs, f64s,
+        extract={f"__key{i}": x for i, x in enumerate(sk[:nwords])},
+        counts_from_ends="__counts__")
+    counts = dense["__counts__"]
     if med_fps:
-        sv = mv[perm]
-        first = ends - (dense["__counts__"] - 1)
+        sv = sk[nwords]
+        first = ends - (counts - 1)
         dense[med_fps[0] + ":median"] = (
-            sv[first + (dense["__counts__"] - 1) // 2].to(torch.float64)
-            + sv[first + dense["__counts__"] // 2].to(torch.float64)) * 0.5
-    gkey = dense.pop("__key")
-    gwords = ([gkey >> 31, gkey & ((1 << 31) - 1)] if nwords == 2
-              else [gkey])
+            sv[first + (counts - 1) // 2].to(torch.float64)
+            + sv[first + counts // 2].to(torch.float64)) * 0.5
+    gwords = [dense.pop(f"__key{i}") for i in range(nwords)]
     keyvals = []
-    for ki in range(len(key_names)):
+    for ki in range(len(keys)):
         wi, shift, b = fields[ki]
         keyvals.append(((gwords[wi] >> shift) & ((1 << b) - 1))
                        + key_mins[ki])
+    return dense, counts, keyvals
+
+
+def _run_sort(env, env_null, valid, scatters, keys, bounds):
+    """Multikey tier (the JAX package's _run_sort): sorted_groups over the
+    key values, the argument columns gathered by the permutation and
+    reduced over the runs; each group's keys are read at its last row.
+    bounds: each key's (min, max) from column stats, or None (computed or
+    float keys)."""
+    kv = [_as_rows(_row_eval(k, env), valid) for k in keys]
+    perm, valid_s, sk, starts, last = sorted_groups(
+        valid, [(v, True) if b is None else (v, True, b)
+                for v, b in zip(kv, bounds)])
+    add, mins, maxs, f64s = _sorted_lanes(env, env_null, perm, valid_s,
+                                          scatters)
+    dense, _ends = R.sorted_group_reduce(
+        starts, last, add, mins, maxs, f64s,
+        extract={f"__key{i}": x for i, x in enumerate(sk)},
+        counts_from_ends="__counts__")
+    keyvals = [dense.pop(f"__key{i}") for i in range(len(keys))]
     return dense, dense["__counts__"], keyvals
-
-
-_PACKS_32 = (torch.float32, torch.int32, torch.int16, torch.int8, torch.uint8,
-             torch.bool)     # median arguments whose order fits 32 bits
-
-
-def _order_bits32(v: torch.Tensor) -> torch.Tensor:
-    """int64 in [0, 2^32) ordered as v is (v of a _PACKS_32 dtype); float32
-    as canonical_float orders it."""
-    if v.is_floating_point():
-        b = canonical_float(v).view(torch.int32).to(torch.int64)
-        return torch.where(b < 0, ~b, b + (1 << 31))
-    return v.to(torch.int64) + (1 << 31)
-
-
-def _median_order(key: torch.Tensor, v: torch.Tensor, one_word: bool):
-    """(sorted key, permutation) ordering rows by key, then by the median
-    argument v. With a one-word key (< 2^31) and a 32-bit argument both
-    pack into one int64, (key << 32) | order bits of v, and one sort does
-    it; otherwise a stable sort by v, then a stable sort by key. Float
-    arguments order as ``lax.sort`` orders them: -0.0 ties with 0.0, NaN
-    last."""
-    if one_word and v.dtype in _PACKS_32:
-        skey, perm = torch.sort((key << 32) | _order_bits32(v))
-        return skey >> 32, perm
-    perm = torch.sort(canonical_float(v) if v.is_floating_point() else v,
-                      stable=True).indices
-    perm = perm[torch.sort(key[perm], stable=True).indices]
-    return key[perm], perm
 
 
 def _derive_name(e: A.Expr) -> str:
@@ -749,6 +924,29 @@ def _derive_name(e: A.Expr) -> str:
     return f"col_{base62uuid(4)}"
 
 
+def output_names(projections) -> list[str]:
+    """Each projection's output name: its alias or a name derived from
+    the expression, a repeat suffixed _1, _2, ... (case-insensitively)."""
+    used: dict[str, int] = {}
+    names = []
+    for _kindp, expr, alias in projections:
+        name = alias or _derive_name(expr)
+        lk = name.lower()
+        if lk in used:
+            used[lk] += 1
+            name = f"{name}_{used[lk]}"
+        else:
+            used[lk] = 0
+        names.append(name)
+    return names
+
+
+def sql_type(arr: torch.Tensor) -> T.SQLType:
+    """The SQL type of a computed column from its dtype."""
+    return T.BoolT if arr.dtype == torch.bool \
+        else T.from_np_dtype(T.np_dtype(arr.dtype))
+
+
 def _take(t: torch.Tensor | None, idx: torch.Tensor | None,
           k: int) -> torch.Tensor | None:
     if t is None:
@@ -759,7 +957,7 @@ def _take(t: torch.Tensor | None, idx: torch.Tensor | None,
 def _sort_key(p, cols, pi: int, arr: torch.Tensor) -> torch.Tensor:
     """Output column pi's ORDER BY key: string keys by dictionary rank."""
     kindp, expr, _alias = p["projections"][pi]
-    if kindp == "key":
+    if kindp == "key" and isinstance(expr, A.ColumnRef):
         src = cols[expr.name]
         if src.sqltype.is_string and src.dictionary is not None:
             ranks = torch.from_numpy(src.dictionary.ranks).to(arr.device)
@@ -771,7 +969,8 @@ def _sort_key(p, cols, pi: int, arr: torch.Tensor) -> torch.Tensor:
 def _finish(p, cols, results, g, having=None) -> Table:
     """The output Table from the per-projection [g] tensors: ``having``
     (an optional [g] group mask) keeps groups, ORDER BY sorts them
-    (stable), ``limit`` keeps the first rows."""
+    (stable), ``limit`` keeps the first rows. A sentinel-coded key column
+    (sentinel_code_null_keys) gets its NULL back."""
     keep = None
     if having is not None:
         keep = torch.nonzero(_truth(_as_rows(having, results[0]))).squeeze(1)
@@ -786,22 +985,21 @@ def _finish(p, cols, results, g, having=None) -> Table:
         g = p["limit"]
 
     out = Table(f"result_{base62uuid(4)}")
-    used: dict[str, int] = {}
-    for (kindp, expr, alias), arr in zip(p["projections"], results):
-        name = alias or _derive_name(expr)
-        lk = name.lower()
-        if lk in used:
-            used[lk] += 1
-            name = f"{name}_{used[lk]}"
-        else:
-            used[lk] = 0
+    sents = p.get("key_sentinels") or {}
+    names = output_names(p["projections"])
+    for (kindp, expr, _alias), name, arr in zip(p["projections"], names,
+                                                results):
         arr = _take(arr, keep, g)
-        if kindp == "key":
+        if kindp == "key" and isinstance(expr, A.ColumnRef):
             src = cols[expr.name]
+            valid = None
+            sent = sents.get(expr.name.lower())
+            if sent is not None:            # restore the NULL-group key
+                valid = arr != sent
+                arr = torch.where(valid, arr, torch.zeros_like(arr))
             out.columns[name] = Column(name, src.sqltype, arr, nrows=g,
-                                       dictionary=src.dictionary)
+                                       dictionary=src.dictionary,
+                                       valid=valid)
         else:
-            st = (T.BoolT if arr.dtype == torch.bool
-                  else T.from_np_dtype(T.np_dtype(arr.dtype)))
-            out.columns[name] = Column(name, st, arr, nrows=g)
+            out.columns[name] = Column(name, sql_type(arr), arr, nrows=g)
     return out

@@ -9,8 +9,11 @@ of its four TPU kernels.
   packed group-by tier's sums.
 * ``seg_scan_multi`` — up to 4 inclusive segmented add/min/max scans
   sharing one flag array (csrc/seg_scan_multi.cu), replacing the TPU
-  kernel ``pallas_kernels.seg_scan_multi`` (``_make_segscan_kernel``).
-  Runs the packed tier's min/max.
+  kernel ``pallas_kernels.seg_scan_multi`` (``_make_segscan_kernel``),
+  with float32/int32 lanes as the TPU kernel has and float64/int64 lanes
+  besides (which the JAX package scans with XLA's doubling). Runs the
+  sorted reduction's min/max, the float64 running sums of ops/scan.py and
+  the in-segment positions of ops/segment.py.
 * ``onehot_segment_sums`` — exact int64 per-slot sums of up to 8 lanes
   over a small slot domain (csrc/onehot_segment_sums.cu), replacing the
   TPU kernel ``pallas_kernels.onehot_segment_sums``
@@ -26,8 +29,9 @@ grid run in no order, so the TPU kernels' sequential carry in SMEM becomes
 three phases (csrc/segscan.cuh): fold each tile, scan the tile folds in
 one block, rescan each tile with its carry-in. That reads the input twice:
 about 26 B/row for the int64 sum (int64 read twice, flags read twice,
-int64 written once), 12 B/row per 32-bit lane plus 2 B/row of flags for
-seg_scan_multi, and 20 B/row for fused_running_stats. A single-pass
+int64 written once), 12 B/row per 32-bit lane and 24 B/row per 64-bit lane
+plus 2 B/row of flags for seg_scan_multi, and 20 B/row for
+fused_running_stats. A single-pass
 look-back would save the second read. onehot_segment_sums reads its
 inputs once; it keeps per-block copies of the accumulators in shared
 memory so that few slots do not serialise the adds.
@@ -62,10 +66,11 @@ LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0,
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _OPS = ("add", "min", "max")
-_LANE_DTYPES = (torch.float32, torch.int32)     # lane code = dtype · 3 + op
+# lane code = dtype · 3 + op; the first two are 32-bit words, the rest 64-bit
+_LANE_DTYPES = (torch.float32, torch.int32, torch.float64, torch.int64)
 _MAX_LANES = 4
 ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool)   # lane dtype codes
 ONEHOT_MAX_LANES = 8
@@ -98,24 +103,34 @@ def library_path() -> Path:
 
 @functools.cache
 def build() -> ctypes.CDLL:
-    """Compile (once per source hash) and load the kernels' library. The
-    compiler's stderr, with ptxas' register and spill report, is kept
-    beside the library as ``<name>.log``. Raises with nvcc's stderr if the
-    build fails."""
+    """Compile (once per source hash) and load the kernels' library: one
+    nvcc per source, all started together, then one link. The compilers'
+    stderr, with ptxas' register and spill report, is kept beside the
+    library as ``<name>.log``. Raises with nvcc's stderr if the build
+    fails."""
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        sources = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr}")
-        so.with_suffix(".log").write_text(proc.stderr)
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            procs = []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = os.path.join(tmp, src.stem + ".o")
+                procs.append((obj, subprocess.Popen(
+                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                    text=True)))
+            logs = [(obj, p.communicate()[1], p.returncode)
+                    for obj, p in procs]
+            lib_tmp = os.path.join(tmp, so.name)
+            link = subprocess.run([nvcc, "-shared", "-o", lib_tmp,
+                                   *[obj for obj, _, _ in logs]],
+                                  capture_output=True, text=True)
+            log = "".join(err for _, err, _ in logs) + link.stderr
+            if any(rc for _, _, rc in logs) or link.returncode:
+                raise RuntimeError(f"nvcc failed:\n{log}")
+            so.with_suffix(".log").write_text(log)
+            os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
     lib.aq_error_string.argtypes = [ctypes.c_int]
     lib.aq_error_string.restype = ctypes.c_char_p
@@ -264,8 +279,10 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
                    ops: tuple[str, ...]) -> tuple[torch.Tensor, ...]:
     """k ≤ 4 inclusive segmented scans, lane i combined with ops[i] ('add',
     'min' or 'max'), all sharing one flag array (semantics as
-    seg_cumsum_i64). Lanes: contiguous 1-D float32 or int32 of one
-    length and device; outputs keep each lane's dtype."""
+    seg_cumsum_i64). Lanes: contiguous 1-D float32, int32, float64 or
+    int64 of one length, device and element size (32-bit or 64-bit
+    words); outputs keep each lane's dtype. Integer adds wrap, min and
+    max propagate NaN."""
     xs, ops = tuple(xs), tuple(ops)
     if not 1 <= len(xs) <= _MAX_LANES or len(ops) != len(xs):
         raise ValueError(f"seg_scan_multi takes 1..{_MAX_LANES} lanes with "
@@ -276,8 +293,12 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
                 or not x.is_contiguous() or x.shape != x0.shape
                 or x.device != x0.device):
             raise ValueError(f"seg_scan_multi lanes must be contiguous 1-D "
-                             f"float32/int32 of one shape and device, got "
-                             f"{x.dtype} {tuple(x.shape)} on {x.device}")
+                             f"float32/int32/float64/int64 of one shape and "
+                             f"device, got {x.dtype} {tuple(x.shape)} on "
+                             f"{x.device}")
+        if x.element_size() != x0.element_size():
+            raise ValueError(f"seg_scan_multi lanes of one call share one "
+                             f"word width, got {x0.dtype} and {x.dtype}")
         if op not in _OPS:
             raise ValueError(f"seg_scan_multi op must be one of {_OPS}, "
                              f"got {op!r}")
@@ -291,7 +312,7 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
         return outs
     lib = build()
     ntiles = -(-n // lib.aq_seg_scan_multi_tile_rows())
-    tiles = torch.empty((k, ntiles), dtype=torch.int32, device=x0.device)
+    tiles = torch.empty((k, ntiles), dtype=x0.dtype, device=x0.device)
     tile_f = torch.empty(ntiles, dtype=torch.int32, device=x0.device)
     ptrs = (_vp * k)
     x_ptrs = ptrs(*[x.data_ptr() for x in xs])

@@ -12,9 +12,11 @@ extraction); the port keeps what they compute:
 * ``sorted_group_reduce`` (the packed tier): segmented scans over the
   sorted rows, whose value at each group's last row is the group's
   aggregate — sums through the seg_cumsum_i64 kernel in native int64,
-  min/max through seg_scan_multi (lanes share one call per 4, since they
-  share the flags), float64 sums by ``torch.cumsum`` — then one
-  compaction of the group ends and one gather per lane.
+  min/max of every dtype through seg_scan_multi (lanes of one word width
+  share one call per 4, since they share the flags; bool, int8 and int16
+  lanes widen to int32 there and come back), float64 sums by
+  ``torch.cumsum`` — then one compaction of the group ends and one gather
+  per lane.
 """
 
 from __future__ import annotations
@@ -22,8 +24,7 @@ from __future__ import annotations
 import torch
 
 from aquery2_tpu_torch.ops import kernels as K
-
-_MINMAX_DTYPES = (torch.int32, torch.float32)
+from aquery2_tpu_torch.ops.scan import seg_extremes
 
 
 def big_of(dt: torch.dtype):
@@ -91,36 +92,32 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
                         min_lanes: dict[str, torch.Tensor],
                         max_lanes: dict[str, torch.Tensor],
                         f64_lanes: dict[str, torch.Tensor],
-                        extract: dict[str, torch.Tensor] | None = None):
+                        extract: dict[str, torch.Tensor] | None = None,
+                        counts_from_ends: str | None = None):
     """Group reduction over rows already sorted by group key.
 
     starts: [n] bool, True at each group's first row. last: [n] bool, True
-    at each VALID group's last row; invalid rows sort behind every valid
-    group, so every row before the last end is valid. Add lanes are
-    integer or bool tensors, summed in int64; min/max lanes int32 or
-    float32, pre-masked with the sentinels; f64 lanes float64 sums.
-    extract: [n] tensors wanted at each group's last row (the sort key).
+    at each VALID group's last row. Add lanes are integer or bool tensors,
+    summed in int64; min/max lanes of any integer, bool or float dtype,
+    pre-masked with the sentinels, come back in their dtype; f64 lanes
+    float64 sums. extract: [n] tensors wanted at each group's last row
+    (the sort keys).
 
-    Returns (outs, ends_idx): tag → [g] per group in key order, including
-    ``__counts__`` (int64 group sizes from the end-row index differences),
-    and the [g] end-row indices. The compaction of ``last`` is the one
-    host sync here (it fixes g)."""
+    counts_from_ends: a tag under which to return the int64 group sizes
+    as differences of the end-row indices, in place of that add lane
+    (which is not scanned). Only right when invalid rows sort behind every
+    valid group, so that every row before the last end is valid.
+
+    Returns (outs, ends_idx): tag → [g] per group in key order, and the
+    [g] end-row indices. The compaction of ``last`` is the one host sync
+    here (it fixes g)."""
     scanned: dict[str, torch.Tensor] = {}
     for t, col in add_lanes.items():
-        scanned[t] = K.seg_cumsum_i64(starts, col.to(torch.int64))
-    lanes = ([(t, col, "min") for t, col in min_lanes.items()]
-             + [(t, col, "max") for t, col in max_lanes.items()])
-    for t, col, _op in lanes:
-        if col.dtype not in _MINMAX_DTYPES:
-            raise NotImplementedError(
-                f"{_op} of {col.dtype} in the packed tier: ROADMAP queue 1, "
-                f"item 3 (fused group-by)")
-    for i in range(0, len(lanes), 4):
-        chunk = lanes[i:i + 4]
-        outs = K.seg_scan_multi(starts, tuple(c[1] for c in chunk),
-                                tuple(c[2] for c in chunk))
-        for (t, _col, _op), o in zip(chunk, outs):
-            scanned[t] = o
+        if t != counts_from_ends:
+            scanned[t] = K.seg_cumsum_i64(starts, col.to(torch.int64))
+    scanned.update(seg_extremes(
+        starts, [(t, col, "min") for t, col in min_lanes.items()]
+        + [(t, col, "max") for t, col in max_lanes.items()]))
     running = {t: torch.cumsum(col.to(torch.float64), 0)
                for t, col in f64_lanes.items()}
     scanned.update(extract or {})
@@ -130,6 +127,7 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
     for t, v in running.items():         # running sum → boundary difference
         ends_v = v[ends_idx]
         outs[t] = ends_v - torch.cat([ends_v.new_zeros(1), ends_v[:-1]])
-    prev = torch.cat([ends_idx.new_full((1,), -1), ends_idx])[:-1]
-    outs["__counts__"] = ends_idx - prev
+    if counts_from_ends is not None:
+        prev = torch.cat([ends_idx.new_full((1,), -1), ends_idx])[:-1]
+        outs[counts_from_ends] = ends_idx - prev
     return outs, ends_idx

@@ -5,8 +5,9 @@ tensor on one device plus a logical row count; the capacity is
 ``config.bucket_size(nrows)`` and padding rows are zeros, exactly as in
 the JAX package, so both packages see the same capacities and stats.
 Strings are dictionary-encoded: int32 codes on the device, the
-``StringDict`` on the host. Ragged (vector) columns wait for the ordered
-path (ROADMAP queue 1, item 5).
+``StringDict`` on the host. A ``VectorColumn`` holds one ragged vector per
+row in CSR form (flat values and int64 offsets, both tensors): the ordered
+path returns its per-group sequences that way.
 """
 
 from __future__ import annotations
@@ -146,8 +147,9 @@ class Column:
             if sqltype.is_string:
                 values = [v if isinstance(v, str) else "" for v in values]
         if sqltype.is_vector:
-            raise NotImplementedError(
-                "vector columns: ROADMAP queue 1, item 5 (ordered path)")
+            return VectorColumn.from_lists(name, sqltype, values,
+                                           device=device,
+                                           dictionary=dictionary)
         if sqltype.is_string:
             d = dictionary if dictionary is not None else StringDict()
             return cls(name, sqltype, d.encode(list(values)), dictionary=d,
@@ -222,26 +224,133 @@ class Column:
         return f"Column({self.name}:{self.sqltype.name}, n={self.nrows})"
 
 
+class VectorColumn:
+    """Ragged column: one vector value per row, in CSR form on the device
+    (the JAX package's ``VectorColumn``).
+
+    values: flat tensor, padded to bucket_size(total). offsets: int64
+    tensor of shape (capacity + 1,); row i spans values[offsets[i]:
+    offsets[i + 1]], and the padding rows are empty."""
+
+    __slots__ = ("name", "sqltype", "values", "offsets", "nrows",
+                 "dictionary")
+    valid = None                # vector cells are never NULL
+
+    def __init__(self, name: str, sqltype: T.SQLType,
+                 values: torch.Tensor | np.ndarray,
+                 offsets: torch.Tensor | np.ndarray, nrows: int | None = None,
+                 dictionary: StringDict | None = None,
+                 total: int | None = None,
+                 device: torch.device | str | None = None) -> None:
+        if not sqltype.is_vector:
+            raise ValueError(f"VectorColumn needs a vector type, got "
+                             f"{sqltype}")
+        self.name = name
+        self.sqltype = sqltype
+        n = int(offsets.shape[0]) - 1 if nrows is None else int(nrows)
+        self.nrows = n
+        off = _as_tensor(offsets, device).to(torch.int64)[:n + 1]
+        if total is None:       # pass total to skip this host sync
+            total = int(off[-1]) if off.shape[0] else 0
+        if off.shape[0] == 0:
+            off = torch.zeros(1, dtype=torch.int64, device=off.device)
+        self.offsets = _pad_to(off, config.bucket_size(n) + 1, total)
+        vals = _as_tensor(values, off.device)[:total]
+        self.values = _pad_to(vals, config.bucket_size(max(total, 1)))
+        self.dictionary = dictionary
+
+    @classmethod
+    def from_lists(cls, name: str, sqltype: T.SQLType,
+                   lists: Sequence[Sequence[Any]], *,
+                   device: torch.device | str,
+                   dictionary: StringDict | None = None) -> "VectorColumn":
+        offsets = np.zeros(len(lists) + 1, dtype=np.int64)
+        offsets[1:] = np.cumsum([len(r) for r in lists])
+        flat = [v for r in lists for v in r]
+        if sqltype.elem.is_string:
+            d = dictionary if dictionary is not None else StringDict()
+            return cls(name, sqltype, d.encode(flat), offsets,
+                       dictionary=d, device=device)
+        return cls(name, sqltype, np.asarray(flat, sqltype.elem.np_dtype),
+                   offsets, device=device)
+
+    @property
+    def capacity(self) -> int:
+        return int(self.offsets.shape[0]) - 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def is_vector(self) -> bool:
+        return True
+
+    def total_values(self) -> int:
+        return int(self.offsets[self.nrows])
+
+    def to_numpy(self) -> np.ndarray:
+        """The flat values of the valid rows, on the host."""
+        return self.values[:self.total_values()].cpu().numpy()
+
+    def offsets_numpy(self) -> np.ndarray:
+        """The nrows + 1 row offsets, on the host."""
+        return self.offsets[:self.nrows + 1].cpu().numpy()
+
+    def to_python(self) -> list[list[Any]]:
+        offs = self.offsets_numpy()
+        vals = self.values[:int(offs[-1])].cpu().numpy()
+        elem = self.sqltype.elem
+        out = []
+        for i in range(self.nrows):
+            seg = vals[offs[i]:offs[i + 1]]
+            if elem is not None and elem.is_string and self.dictionary:
+                out.append(list(self.dictionary.decode(seg)))
+            else:
+                out.append(seg.tolist())
+        return out
+
+    def __repr__(self) -> str:
+        return f"VectorColumn({self.name}:{self.sqltype.name}, n={self.nrows})"
+
+
 class Table:
     """Named collection of equal-length columns on one device."""
 
-    def __init__(self, name: str, columns: Iterable[Column] = ()) -> None:
+    def __init__(self, name: str,
+                 columns: Iterable[Column | VectorColumn] = ()) -> None:
         self.name = name
-        self.columns: CaseInsensitiveDict[Column] = CaseInsensitiveDict()
+        self.columns: CaseInsensitiveDict[Column | VectorColumn] = \
+            CaseInsensitiveDict()
         for c in columns:
             self.add_column(c)
 
     @classmethod
-    def from_numpy(cls, name: str, arrays: Mapping[str, np.ndarray],
+    def from_numpy(cls, name: str, arrays: Mapping[str, Any],
                    types: Mapping[str, T.SQLType] | None = None, *,
-                   device: torch.device | str) -> "Table":
+                   device: torch.device | str,
+                   dictionaries: Mapping[str, StringDict] | None = None
+                   ) -> "Table":
         """A table from host arrays (one per column, in order); a column's
-        SQL type comes from ``types`` or else from its dtype."""
+        SQL type comes from ``types`` or else from its dtype. A numpy masked
+        array makes a nullable column (masked rows are NULL, stored as 0);
+        a VectorColumn is taken as it is; ``dictionaries`` gives string
+        columns (int32 codes) their StringDict."""
         types = types or {}
-        return cls(name, [
-            Column(nm, types.get(nm) or T.from_np_dtype(arr.dtype), arr,
-                   device=device)
-            for nm, arr in arrays.items()])
+        dictionaries = dictionaries or {}
+        cols: list[Column | VectorColumn] = []
+        for nm, arr in arrays.items():
+            if isinstance(arr, VectorColumn):
+                cols.append(arr)
+                continue
+            valid = None
+            if isinstance(arr, np.ma.MaskedArray):
+                valid = ~np.ma.getmaskarray(arr)
+                arr = arr.filled(0)
+            cols.append(Column(nm, types.get(nm) or T.from_np_dtype(arr.dtype),
+                               arr, valid=valid, dictionary=dictionaries.get(nm),
+                               device=device))
+        return cls(name, cols)
 
     @classmethod
     def from_reference(cls, ref_table: Any,
@@ -249,22 +358,27 @@ class Table:
         """The port's copy of an ``aquery2_tpu`` Table. Reads each column's
         data, validity, row count, SQL type name and string dictionary as
         attributes only (no jax import)."""
-        cols = []
+        cols: list[Column | VectorColumn] = []
         for rc in ref_table.columns.values():
+            d = (None if rc.dictionary is None
+                 else StringDict(rc.dictionary.strings()))
             if getattr(rc, "is_vector", False):
-                raise NotImplementedError(
-                    "vector columns: ROADMAP queue 1, item 5 (ordered path)")
+                n = int(rc.nrows)
+                offs = np.asarray(rc.offsets)[:n + 1]
+                cols.append(VectorColumn(
+                    rc.name, T.from_sql_name(rc.sqltype.name),
+                    np.asarray(rc.values)[:int(offs[-1])], offs, nrows=n,
+                    dictionary=d, device=device))
+                continue
             n = int(rc.nrows)
             valid = (None if rc.valid is None
                      else np.asarray(rc.valid)[:n].astype(bool))
-            d = (None if rc.dictionary is None
-                 else StringDict(rc.dictionary.strings()))
             cols.append(Column(rc.name, T.from_sql_name(rc.sqltype.name),
                                np.asarray(rc.data)[:n], nrows=n,
                                dictionary=d, valid=valid, device=device))
         return cls(ref_table.name, cols)
 
-    def add_column(self, col: Column) -> None:
+    def add_column(self, col: "Column | VectorColumn") -> None:
         if len(self.columns) and col.nrows != self.nrows:
             raise ValueError(f"column {col.name} has {col.nrows} rows, "
                              f"table {self.name} has {self.nrows}")
@@ -303,6 +417,10 @@ class Table:
 
 
 def _append_host_values(col: Column, vals: Sequence[Any]) -> Column:
+    if col.is_vector:
+        raise NotImplementedError(
+            "INSERT into a vector column: ROADMAP queue 1, item 7 "
+            "(general engine)")
     add = Column.from_host(col.name, col.sqltype, vals, device=col.device,
                            dictionary=col.dictionary)
     n1, n2 = col.nrows, add.nrows

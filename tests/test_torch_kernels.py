@@ -135,8 +135,9 @@ def test_seg_scan_multi_float_add(rng):
 
 
 def test_scan_dispatch(rng):
-    """ops/scan routes int64 to seg_cumsum_i64, int32/float32 to
-    seg_scan_multi, and refuses other dtypes."""
+    """ops/scan routes int64 sums to seg_cumsum_i64, int32/float32/float64
+    sums and min/max to seg_scan_multi, and refuses to sum other dtypes
+    (the running aggregates widen them first)."""
     n = 3000
     flags = torch.from_numpy(rng.random(n) < 0.05)
     x64 = torch.from_numpy(rng.integers(-9, 9, n))
@@ -148,8 +149,11 @@ def test_scan_dispatch(rng):
         _seg_oracle(x32.numpy(), flags.numpy(), np.minimum))
     np.testing.assert_array_equal(
         S.seg_cummax(x32, None).numpy(), np.maximum.accumulate(x32.numpy()))
-    with pytest.raises(NotImplementedError):
-        S.seg_cumsum(x64.to(torch.float64), flags)
+    np.testing.assert_array_equal(
+        S.seg_cumsum(x64.to(torch.float64), flags).numpy(),
+        _seg_oracle(x64.numpy().astype(np.float64), flags.numpy(), np.add))
+    with pytest.raises(TypeError):
+        S.seg_cumsum(x64.to(torch.int16), flags)
 
 
 def test_wrappers_check_inputs_and_count_only_launches():
@@ -162,8 +166,11 @@ def test_wrappers_check_inputs_and_count_only_launches():
         K.seg_cumsum_i64(None, x.to(torch.int32))
     with pytest.raises(ValueError):
         K.seg_cumsum_i64(torch.zeros(9, dtype=torch.bool), x)
+    with pytest.raises(ValueError):         # one word width per call
+        K.seg_scan_multi(None, (x.to(torch.int32), x.to(torch.float64)),
+                         ("add", "add"))
     with pytest.raises(ValueError):
-        K.seg_scan_multi(None, (x.to(torch.float64),), ("add",))
+        K.seg_scan_multi(None, (x.to(torch.int16),), ("add",))
     with pytest.raises(ValueError):
         K.seg_scan_multi(None, (x.to(torch.int32),) * 5, ("add",) * 5)
     with pytest.raises(ValueError):

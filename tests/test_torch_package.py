@@ -75,9 +75,9 @@ def test_library_name_follows_sources():
 @pytest.mark.parametrize("n", [1, 4097, 3 * 4096 * 5 + 123])
 def test_kernels_match_plain_on_card(n):
     """One row, one row past a tile, and a ragged last tile: the four
-    kernels against their plain versions (float32 running sums against a
-    float64 cumsum, within 1e-5 of the running sum of |x|; everything else
-    exactly)."""
+    kernels against their plain versions, seg_scan_multi with 32-bit and
+    64-bit lanes (float32 running sums against a float64 cumsum, within
+    1e-5 of the running sum of |x|; everything else exactly)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     rng = np.random.default_rng(n)
@@ -99,6 +99,20 @@ def test_kernels_match_plain_on_card(n):
         for g, w in zip(got, want):
             assert torch.equal(g.isnan(), w.isnan())
             assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+    # 64-bit lanes: int64 add (wraps), min, max; float64 min/max with NaN
+    # and an integer-valued float64 add (exact in any order)
+    xd = xf.double() * 2.0 ** 40
+    xa = torch.from_numpy(rng.integers(-2**20, 2**20, n).astype(np.float64)
+                          ).to(dev)
+    for xs, ops in (((x64, x64, x64, xa), ("add", "min", "max", "add")),
+                    ((xd, xd, x64), ("min", "max", "max"))):
+        for f in (None, flags):
+            got = K.seg_scan_multi(f, xs, ops)
+            want = K.seg_scan_multi_plain(f, xs, ops)
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype
+                assert torch.equal(g.isnan(), w.isnan())
+                assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
     lanes = (x64, xi, flags, xi.to(torch.int64) * x64)
     for dp in (1, 11, 513):
         code = torch.from_numpy(rng.integers(0, dp, n).astype(np.int32)).to(dev)
