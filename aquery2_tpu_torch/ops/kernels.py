@@ -25,16 +25,23 @@ of its four TPU kernels.
   ``best_profit`` wrapper. No engine caller, as in the JAX package.
 
 The scans are memory-bound with a carry across blocks. Blocks of a CUDA
-grid run in no order, so the TPU kernels' sequential carry in SMEM becomes
-three phases (csrc/segscan.cuh): fold each tile, scan the tile folds in
-one block, rescan each tile with its carry-in. That reads the input twice:
-about 26 B/row for the int64 sum (int64 read twice, flags read twice,
-int64 written once), 12 B/row per 32-bit lane and 24 B/row per 64-bit lane
-plus 2 B/row of flags for seg_scan_multi, and 20 B/row for
-fused_running_stats. A single-pass
-look-back would save the second read. onehot_segment_sums reads its
-inputs once; it keeps per-block copies of the accumulators in shared
-memory so that few slots do not serialise the adds.
+grid run in no order, so the TPU kernels' sequential carry in SMEM needs
+another way across tiles (csrc/segscan.cuh). seg_cumsum_i64 and
+seg_scan_multi take one launch with a decoupled look-back (Merrill &
+Garland 2016): each tile publishes its fold, finds its carry-in from its
+predecessors' published folds and prefixes, and rescans its rows from
+shared memory, so every input byte is read once and every output byte
+written once: 17 B/row for the int64 sum, 8 B/row per 32-bit lane and
+16 B/row per 64-bit lane plus 1 B/row of flags for seg_scan_multi. Their
+wrappers zero the status words and tile counter (``torch.zeros``) before
+each launch. Float add lanes are not bit-reproducible from run to run
+(the look-back's association depends on timing); integer lanes, min/max
+and integer-valued float sums are exact. fused_running_stats still takes
+the three-phase scan (fold each tile, scan the folds in one block, rescan
+each tile), which reads its input twice: 20 B/row.
+onehot_segment_sums reads its inputs once; it keeps per-block copies of
+the accumulators in shared memory so that few slots do not serialise the
+adds.
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
 use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
@@ -52,6 +59,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -92,9 +100,10 @@ def _nvcc() -> str:
                        "toolkit to build")
 
 
-def library_path() -> Path:
-    """Where the kernels' shared library for the current sources lives."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def library_path(defines: tuple[str, ...] = ()) -> Path:
+    """Where the kernels' shared library for the current sources (and the
+    extra nvcc ``defines``, if any) lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + defines).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -102,13 +111,14 @@ def library_path() -> Path:
 
 
 @functools.cache
-def build() -> ctypes.CDLL:
+def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernels' library: one
     nvcc per source, all started together, then one link. The compilers'
     stderr, with ptxas' register and spill report, is kept beside the
     library as ``<name>.log``. Raises with nvcc's stderr if the build
-    fails."""
-    so = library_path()
+    fails. ``defines`` (``-DNAME=value`` flags) build a diagnostic variant
+    of the library beside it; the wrappers always take the plain one."""
+    so = library_path(defines)
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -117,7 +127,7 @@ def build() -> ctypes.CDLL:
             for src in sorted(CSRC.glob("*.cu")):
                 obj = os.path.join(tmp, src.stem + ".o")
                 procs.append((obj, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)],
+                    [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj, str(src)],
                     stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
                     text=True)))
             logs = [(obj, p.communicate()[1], p.returncode)
@@ -135,6 +145,7 @@ def build() -> ctypes.CDLL:
     lib.aq_error_string.argtypes = [ctypes.c_int]
     lib.aq_error_string.restype = ctypes.c_char_p
     lib.aq_seg_cumsum_i64_tile_rows.restype = ctypes.c_int
+    lib.aq_seg_scan_multi_tile_rows.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.aq_seg_scan_multi_tile_rows.restype = ctypes.c_int
     lib.aq_seg_cumsum_i64.argtypes = [_vp, _vp, _vp, _vp, _vp,
                                       ctypes.c_int64, _vp]
@@ -151,6 +162,45 @@ def build() -> ctypes.CDLL:
                                            ctypes.c_int64, _vp]
     lib.aq_fused_running_stats.restype = ctypes.c_int
     return lib
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name in ptxas' report, the single-pass scans by their
+    lanes and flags."""
+    m = re.search(r"segscan_lookbackIN6aq_i646AddI64ELb(\d)", mangled)
+    if m:
+        return f"seg_cumsum_i64, flags {m[1]}"
+    m = re.search(r"segscan_lookbackIN8aq_multi5MultiI([jy])Li(\d)EEELb(\d)",
+                  mangled)
+    if m:
+        bits = 32 if m[1] == "j" else 64
+        return f"seg_scan_multi {m[2]} x {bits}-bit, flags {m[3]}"
+    return mangled
+
+
+def ptxas_report(defines: tuple[str, ...] = ()) -> list[dict]:
+    """ptxas' report from a build's log, one dict per kernel: its name,
+    registers, stack frame, spill stores and loads (bytes of local memory
+    a thread moves) and static shared memory (bytes)."""
+    log = library_path(defines).with_suffix(".log").read_text()
+    rows: list[dict] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rows.append({"kernel": _kernel_name(m[1]), "smem": 0})
+        elif rows:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m:
+                rows[-1].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                rows[-1]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                rows[-1]["smem"] = int(m[1])
+    return rows
 
 
 def _check(lib: ctypes.CDLL, name: str, rc: int) -> None:
@@ -246,6 +296,17 @@ def fused_running_stats_plain(x: torch.Tensor):
 # kernel wrappers
 # --------------------------------------------------------------------- #
 
+def _lookback_scratch(ntiles: int, k: int, like: torch.Tensor):
+    """A single-pass scan's scratch on the current stream: each tile's
+    published aggregate and inclusive prefix (2 · k · ntiles words of
+    like's dtype, written before they are read), and the status words with
+    the tile counter after them (ntiles + 1 int32, zeroed for every call so
+    that no call reads another's)."""
+    scratch = torch.empty(2 * k * ntiles, dtype=like.dtype, device=like.device)
+    status = torch.zeros(ntiles + 1, dtype=torch.int32, device=like.device)
+    return scratch, status
+
+
 def seg_cumsum_i64(flags: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
     """Inclusive segmented int64 running sum. flags True starts a segment
     (row 0 always starts one); flags None is one plain cumsum. Wraps mod
@@ -263,13 +324,12 @@ def seg_cumsum_i64(flags: torch.Tensor | None, x: torch.Tensor) -> torch.Tensor:
         return out
     lib = build()
     ntiles = -(-n // lib.aq_seg_cumsum_i64_tile_rows())
-    tile_v = torch.empty(ntiles, dtype=torch.int64, device=x.device)
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
+        scratch, status = _lookback_scratch(ntiles, 1, x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.aq_seg_cumsum_i64(
             None if flags is None else flags.data_ptr(), x.data_ptr(),
-            out.data_ptr(), tile_v.data_ptr(), tile_f.data_ptr(), n, stream)
+            out.data_ptr(), scratch.data_ptr(), status.data_ptr(), n, stream)
     _check(lib, "seg_cumsum_i64", rc)
     LAUNCHES["seg_cumsum_i64"] += 1
     return out
@@ -311,21 +371,20 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
     if n == 0:
         return outs
     lib = build()
-    ntiles = -(-n // lib.aq_seg_scan_multi_tile_rows())
-    tiles = torch.empty((k, ntiles), dtype=x0.dtype, device=x0.device)
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x0.device)
+    ntiles = -(-n // lib.aq_seg_scan_multi_tile_rows(
+        k, int(x0.element_size() == 8)))
     ptrs = (_vp * k)
     x_ptrs = ptrs(*[x.data_ptr() for x in xs])
     out_ptrs = ptrs(*[o.data_ptr() for o in outs])
-    tile_ptrs = ptrs(*[tiles[j].data_ptr() for j in range(k)])
     codes = (ctypes.c_int * k)(*[_LANE_DTYPES.index(x.dtype) * 3
                                  + _OPS.index(op)
                                  for x, op in zip(xs, ops)])
     with torch.cuda.device(x0.device):
+        scratch, status = _lookback_scratch(ntiles, k, x0)
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         rc = lib.aq_seg_scan_multi(
             None if flags is None else flags.data_ptr(), k, x_ptrs, out_ptrs,
-            tile_ptrs, codes, tile_f.data_ptr(), n, stream)
+            codes, scratch.data_ptr(), status.data_ptr(), n, stream)
     _check(lib, "seg_scan_multi", rc)
     LAUNCHES["seg_scan_multi"] += 1
     return outs

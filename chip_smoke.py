@@ -5,12 +5,26 @@
 
 Phases, in order (any mismatch raises; there is no fallback):
   1. identify the card (nvidia-smi name and power limit, torch, CUDA);
-  2. build the CUDA kernels from aquery2_tpu_torch/csrc/;
+  2. build the CUDA kernels from aquery2_tpu_torch/csrc/, and print
+     ptxas' registers, spills, stack and static shared memory of each;
   3. each of the four kernels against its plain PyTorch version at the
-     main path's shape (12,582,912 rows = bucket_size(1e7)), with timings;
-     seg_scan_multi with its 32-bit and its 64-bit lanes;
+     main path's scale (12,582,912 rows = bucket_size(1e7)): the two
+     single-pass scans over every flag case REPEATS times (seg_scan_multi
+     at every lane set it is timed at and every one the main path
+     launches, 1 to 4 lanes of 32-bit and of 64-bit words), then timings
+     (CUDA events, median of 10, the device's time and the time with the
+     host's gaps) at the main path's shapes beside their bytes, their
+     bound at the H100's 3.35 TB/s and the share of it reached:
+     seg_cumsum_i64 (and an unsegmented torch.cumsum of the same column,
+     not the same function), seg_scan_multi at q7's, q8's, 3 x 32-bit,
+     max_stddevs' 2 x float64 and 3 x 64-bit lanes,
+     onehot_segment_sums at q1's and q9's (and the one index_add_ that
+     computes the same sums, which the port never calls),
+     fused_running_stats;
   4. through connect(device="cuda").execute, each query checked against a
-     numpy oracle with its kernel launches counted from zero:
+     numpy oracle with its kernel launches counted from zero, and the
+     single-pass scans' calls tallied by instantiation (printed with
+     their ptxas report):
      - the h2o group-by queries q1 q2 q3 q4 q5 q6 q7 q8 q9 q10 on
        G1_1e7_1e1_0_0 (1e7 rows, K=10, no NAs, seed 42), and a
        computed-key query (the multikey tier);
@@ -33,6 +47,7 @@ no CUDA card is available or the package is missing.
 
 from __future__ import annotations
 
+import collections
 import json
 import subprocess
 import sys
@@ -94,13 +109,17 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "max_stddevs": ["seg_scan_multi"]}
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
 EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
-ADD_F32_RTOL = 2e-5     # float32 'add' lanes: another order of rounding
+ADD_F32_RTOL = 2e-5     # float32 'add' lanes: |err| ≤ this · running Σ|x|
 RUN_SUM_TOL = 1e-5      # float32 running sums: |err| ≤ this · running Σ|x|
 ADD_F64_TOL = 1e-12     # float64 'add' lanes: |err| ≤ this · running Σ|x|
 # trades: the float64 running sums of integer prices are exact in any
 # order (below 2^53), and the rest is the oracle's own sequence of
 # correctly rounded operations; 1e-12 leaves room for one more rounding
 TRADES_RTOL = 1e-12
+REPEATS = 20            # runs of each scan per flag case (phase 3)
+SLEEP_CYCLES = 2_000_000    # about 1 ms of the card's clock: longer than
+                            # the host takes to enqueue one kernel call
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 
 
 def phase(name: str) -> None:
@@ -108,11 +127,18 @@ def phase(name: str) -> None:
     print(f"# {name}", flush=True)
 
 
-def cuda_ms(fn, reps: int = 10) -> float:
-    """Median of ``reps`` CUDA-event timings of fn() (after one warm-up)."""
+def cuda_ms(fn, reps: int = 10, host_gaps: bool = False) -> float:
+    """Median of ``reps`` CUDA-event timings of one fn() (after one
+    warm-up). By default each run is queued behind a torch.cuda._sleep of
+    SLEEP_CYCLES, so the device is still busy while the host enqueues it
+    and the events time the device alone; with host_gaps=True the device
+    also waits for the host's enqueueing (a wrapper's checks, allocations
+    and ctypes call), as a bare pair of events around one call does."""
     fn()
     times = []
     for _ in range(reps):
+        if not host_gaps:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -137,17 +163,79 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def flag_cases(rng, dev):
-    """Flag arrays of the main path's densities plus lone boundaries."""
+    """Flag arrays of the main path's densities plus lone flags: one in
+    the middle of a tile with no flag in the 3,000-odd tiles before it
+    (the longest look-back), one on the first row of a tile of each
+    single-pass tile size, one on the last row."""
     cases = {"none": None}
     for name, p in (("1e-6", 1e-6), ("0.1", 0.1), ("0.999", 0.999)):
         cases[name] = torch.from_numpy(rng.random(CAP) < p).to(dev)
-    tile = K.build().aq_seg_cumsum_i64_tile_rows()
+    lib = K.build()
+    tile = lib.aq_seg_cumsum_i64_tile_rows()
     lone = torch.zeros(CAP, dtype=torch.bool, device=dev)
-    ntiles = CAP // tile
-    lone[ntiles // 3 * tile + tile // 2 + 3] = True    # mid-tile
-    lone[2 * ntiles // 3 * tile] = True                # first row of a tile
-    cases["lone"] = lone
+    lone[(CAP // tile - 2) * tile + tile // 2 + 3] = True
+    cases["lone_mid"] = lone
+    first = torch.zeros(CAP, dtype=torch.bool, device=dev)
+    for i in range(8):
+        t = lib.aq_seg_scan_multi_tile_rows(i % 4 + 1, i // 4)
+        first[(CAP // t // 2 + 7 * i) * t] = True
+    cases["tile_first_rows"] = first
+    last = torch.zeros(CAP, dtype=torch.bool, device=dev)
+    last[CAP - 1] = True
+    cases["last_row"] = last
     return cases
+
+
+def bound_ms(nbytes: int) -> float:
+    """Least time to move nbytes at the H100's published HBM rate."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def scan_bytes(f, xs) -> int:
+    """A scan's bytes: flags and every lane read once, every lane's
+    output written once."""
+    return (0 if f is None else f.numel()) + 2 * sum(
+        x.numel() * x.element_size() for x in xs)
+
+
+def time_shape(label: str, kernel, plain, nbytes: int) -> dict:
+    """Kernel and plain times (CUDA events, median of 10) beside the bound
+    of nbytes."""
+    ms, pms = cuda_ms(kernel), cuda_ms(plain)
+    host = cuda_ms(kernel, host_gaps=True)
+    b = bound_ms(nbytes)
+    print(f"# {label}: kernel {ms:.4f} ms ({host:.4f} with the host's "
+          f"gaps), plain {pms:.4f} ms (median of 10, {CAP} rows); {nbytes} "
+          f"bytes ({nbytes / CAP:g} B/row), bound {b:.4f} ms at 3.35 TB/s, "
+          f"{b / ms:.1%} of bound", flush=True)
+    return {"shape": label, "ms": ms, "ms_with_host": host, "plain_ms": pms,
+            "bytes": nbytes, "bound_ms": b, "share_of_bound": b / ms}
+
+
+def check_repeated(name, kernel, plain, flags, close) -> float:
+    """kernel(f) against plain(f) for every flag case, REPEATS times each
+    (the plain version once per case): a missing fence shows as an
+    occasional wrong carry. close(got, want, f) says whether one output
+    matches. Returns the max |err|."""
+    err = 0.0
+    for case, f in flags.items():
+        want = plain(f)
+        for rep in range(REPEATS):
+            for lane, (g, w) in enumerate(zip(kernel(f), want)):
+                if g.dtype != w.dtype:
+                    raise AssertionError(f"{name} lane {lane} dtype {g.dtype}")
+                if not close(lane, g, w, f):
+                    raise AssertionError(
+                        f"{name} lane {lane} differs (flags {case}, run "
+                        f"{rep}): max |err| {max_abs_err(g, w)}")
+                err = max(err, max_abs_err(g, w))
+    return err
+
+
+def exact(lane, g, w, f) -> bool:
+    """Equal, NaN where the plain version has NaN."""
+    ok = torch.equal(g.isnan(), w.isnan()) if g.is_floating_point() else True
+    return ok and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
 
 
 def check_kernels(dev) -> list[dict]:
@@ -158,131 +246,138 @@ def check_kernels(dev) -> list[dict]:
     x64 = rng.integers(2**62 - 2**20, 2**62, CAP)
     x64[rng.random(CAP) < 0.3] *= -1
     x64 = torch.from_numpy(x64).to(dev)
-    err64 = 0.0
-    for name, f in flags.items():
-        got = K.seg_cumsum_i64(f, x64)
-        want = K.seg_cumsum_i64_plain(f, x64)
-        if not torch.equal(got, want):
-            raise AssertionError(f"seg_cumsum_i64 differs (flags {name}): "
-                                 f"max |err| {max_abs_err(got, want)}")
-        err64 = max(err64, max_abs_err(got, want))
-
-    # k = 3 lanes: int32 max, float32 min with NaNs, float32 add. The add
-    # lane is integer-valued so its sums stay exact below 2^24.
-    xi = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, CAP,
-                                       dtype=np.int64).astype(np.int32))
-    xf = torch.from_numpy(rng.normal(size=CAP).astype(np.float32))
-    xf[torch.from_numpy(rng.random(CAP) < 1e-4)] = float("nan")
-    xa = torch.from_numpy(rng.integers(0, 2, CAP).astype(np.float32))
-    xs = (xi.to(dev), xf.to(dev), xa.to(dev))
-    ops = ("max", "min", "add")
-    errm = 0.0
-    for name, f in flags.items():
-        got = K.seg_scan_multi(f, xs, ops)
-        want = K.seg_scan_multi_plain(f, xs, ops)
-        for lane, (g, w, op) in enumerate(zip(got, want, ops)):
-            if g.dtype != w.dtype:
-                raise AssertionError(f"lane {lane} dtype {g.dtype}")
-            if op == "add" and g.is_floating_point():
-                ok = torch.allclose(g, w, rtol=ADD_F32_RTOL, atol=0.0)
-            else:
-                ok = torch.equal(g.isnan(), w.isnan()) if \
-                    g.is_floating_point() else True
-                ok = ok and torch.equal(torch.nan_to_num(g),
-                                        torch.nan_to_num(w))
-            errm = max(errm, max_abs_err(g, w))
-            if not ok:
-                raise AssertionError(f"seg_scan_multi lane {lane} ({op}) "
-                                     f"differs (flags {name}): max |err| "
-                                     f"{max_abs_err(g, w)}")
+    err64 = check_repeated(
+        "seg_cumsum_i64", lambda f: (K.seg_cumsum_i64(f, x64),),
+        lambda f: (K.seg_cumsum_i64_plain(f, x64),), flags, exact)
+    errm, err_w, timed_calls = check_multi(rng, dev, flags, x64)
+    print(f"# seg_cumsum_i64 and seg_scan_multi (every lane set above) "
+          f"equal to their plain versions over {len(flags)} flag cases, "
+          f"{REPEATS} runs each (non-integer float32 adds within "
+          f"{ADD_F32_RTOL}, float64 adds within {ADD_F64_TOL} of the "
+          f"running sum of |x|)", flush=True)
     torch.cuda.synchronize()
 
-    err_w, timed_w = check_scan64(rng, dev, flags)
     onehot_err, onehot_timed = check_onehot(rng, dev)
     run_err, run_timed = check_running(rng, dev)
 
-    f = flags["0.1"]               # the q3/q7-like density
+    # the main path's shapes, at the q3/q7-like density of 0.1
+    f = flags["0.1"]
+    sum_row = time_shape(
+        "seg_cumsum_i64, 1 x int64, density 0.1",
+        lambda: K.seg_cumsum_i64(f, x64),
+        lambda: K.seg_cumsum_i64_plain(f, x64), scan_bytes(f, (x64,)))
+    sum_row["cumsum_ms"] = cuda_ms(lambda: torch.cumsum(x64, 0))
+    print(f"# torch.cumsum of the same int64 column (unsegmented, not the "
+          f"same function: the single-pass rate this card reaches): "
+          f"{sum_row['cumsum_ms']:.4f} ms", flush=True)
+    multi_shapes = [time_shape(
+        f"seg_scan_multi, {label}, density 0.1",
+        lambda: K.seg_scan_multi(f, lanes, lops),
+        lambda: K.seg_scan_multi_plain(f, lanes, lops), scan_bytes(f, lanes))
+        for label, lanes, lops in timed_calls]
+    main = next(s for s in multi_shapes if "3 x 32-bit" in s["shape"])
     rows = [
         {"name": "seg_cumsum_i64", "route": "cuda",
          "source": "aquery2_tpu_torch/csrc/seg_cumsum_i64.cu",
          "replaces": "aquery2_tpu/ops/pallas_kernels.py:277",
-         "max_abs_err": err64,
-         "ms": cuda_ms(lambda: K.seg_cumsum_i64(f, x64)),
-         "plain_ms": cuda_ms(lambda: K.seg_cumsum_i64_plain(f, x64))},
+         "max_abs_err": err64, "ms": sum_row["ms"],
+         "ms_with_host": sum_row["ms_with_host"],
+         "plain_ms": sum_row["plain_ms"], "bound_ms": sum_row["bound_ms"],
+         "bound_by": "bytes", "share_of_bound": sum_row["share_of_bound"],
+         "library_ms": None, "cumsum_ms": sum_row["cumsum_ms"]},
         {"name": "seg_scan_multi", "route": "cuda",
          "source": "aquery2_tpu_torch/csrc/seg_scan_multi.cu",
          "replaces": "aquery2_tpu/ops/pallas_kernels.py:339",
-         "max_abs_err": errm,
-         "ms": cuda_ms(lambda: K.seg_scan_multi(f, xs, ops)),
-         "plain_ms": cuda_ms(lambda: K.seg_scan_multi_plain(f, xs, ops)),
-         "max_abs_err_64bit": err_w, **timed_w},
+         "max_abs_err": errm, "max_abs_err_64bit": err_w,
+         "ms": main["ms"], "ms_with_host": main["ms_with_host"],
+         "plain_ms": main["plain_ms"],
+         "bound_ms": main["bound_ms"], "bound_by": "bytes",
+         "share_of_bound": main["share_of_bound"], "library_ms": None,
+         "shapes": multi_shapes},
+        {"name": "onehot_segment_sums", "route": "cuda",
+         "source": "aquery2_tpu_torch/csrc/onehot_segment_sums.cu",
+         "replaces": "aquery2_tpu/ops/pallas_kernels.py:438",
+         "max_abs_err": onehot_err, "bound_by": "bytes", **onehot_timed},
+        {"name": "fused_running_stats", "route": "cuda",
+         "source": "aquery2_tpu_torch/csrc/fused_running_stats.cu",
+         "replaces": "aquery2_tpu/ops/pallas_kernels.py:73",
+         "max_abs_err": run_err, "bound_by": "bytes",
+         "library_ms": None, **run_timed},
     ]
-    for r in rows:
-        print(f"# {r['name']}: kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms (median of 10, {CAP} rows, flag "
-              f"density 0.1), max |err| {r['max_abs_err']}", flush=True)
-    rows.append({"name": "onehot_segment_sums", "route": "cuda",
-                 "source": "aquery2_tpu_torch/csrc/onehot_segment_sums.cu",
-                 "replaces": "aquery2_tpu/ops/pallas_kernels.py:438",
-                 "max_abs_err": onehot_err, **onehot_timed["q9"]})
-    rows.append({"name": "fused_running_stats", "route": "cuda",
-                 "source": "aquery2_tpu_torch/csrc/fused_running_stats.cu",
-                 "replaces": "aquery2_tpu/ops/pallas_kernels.py:73",
-                 "max_abs_err": run_err, **run_timed})
     return rows
 
 
-def check_scan64(rng, dev, flags):
-    """seg_scan_multi's 64-bit lanes against its plain version over the
-    flag cases: int64 add (values near ±2^62, so sums wrap), min, max;
-    float64 min/max with NaNs; an integer-valued float64 add (exact in
-    any order); a normal float64 add, within ADD_F64_TOL of the running
-    Σ|x| (another order of rounding). Timed with 3 lanes (int64 max,
-    float64 min, float64 add), the 32-bit row's shape, at density 0.1."""
-    x64 = rng.integers(2**62 - 2**20, 2**62, CAP)
-    x64[rng.random(CAP) < 0.3] *= -1
-    x64 = torch.from_numpy(x64).to(dev)
-    xd = torch.from_numpy(rng.normal(size=CAP) * 1e3).to(dev)
-    xnan = xd.clone()
-    xnan[torch.from_numpy(rng.random(CAP) < 1e-4).to(dev)] = float("nan")
-    xint = torch.from_numpy(rng.integers(-2**20, 2**20, CAP)
-                            .astype(np.float64)).to(dev)
-    calls = [((x64, x64, x64, xint), ("add", "min", "max", "add")),
-             ((xnan, x64, xd, xnan), ("min", "max", "add", "max"))]
-    err = 0.0
-    for name, f in flags.items():
-        for xs, ops in calls:
-            got = K.seg_scan_multi(f, xs, ops)
-            want = K.seg_scan_multi_plain(f, xs, ops)
-            for lane, (g, w, x, op) in enumerate(zip(got, want, xs, ops)):
-                if g.dtype != w.dtype:
-                    raise AssertionError(f"64-bit lane {lane} dtype {g.dtype}")
-                if op == "add" and x is xd:
-                    scale = K.seg_scan_multi_plain(f, (x.abs(),), ("add",))[0]
-                    ok = bool(((g - w).abs() <= ADD_F64_TOL * scale).all())
-                else:
-                    ok = torch.equal(g.isnan(), w.isnan()) if \
-                        g.is_floating_point() else True
-                    ok = ok and torch.equal(torch.nan_to_num(g),
-                                            torch.nan_to_num(w))
-                err = max(err, max_abs_err(g, w))
-                if not ok:
-                    raise AssertionError(
-                        f"seg_scan_multi 64-bit lane {lane} ({op}, "
-                        f"{g.dtype}) differs (flags {name}): max |err| "
-                        f"{max_abs_err(g, w)}")
-    f = flags["0.1"]
-    xs, ops = (x64, xnan, xd), ("max", "min", "add")
-    timed = {"ms_64bit": cuda_ms(lambda: K.seg_scan_multi(f, xs, ops)),
-             "plain_ms_64bit": cuda_ms(
-                 lambda: K.seg_scan_multi_plain(f, xs, ops))}
-    print(f"# seg_scan_multi, 64-bit lanes (int64 max, float64 min, float64 "
-          f"add): kernel {timed['ms_64bit']:.4f} ms, plain "
-          f"{timed['plain_ms_64bit']:.4f} ms (median of 10, {CAP} rows, flag "
-          f"density 0.1); equal over the flag cases (float64 adds within "
-          f"{ADD_F64_TOL} of the running sum of |x|), max |err| {err}",
-          flush=True)
-    return err, timed
+def check_multi(rng, dev, flags, x64):
+    """seg_scan_multi against its plain version over the flag cases,
+    REPEATS times each, for every lane set it is timed at and every one
+    the main path launches (each (word width, lane count) is its own tile
+    geometry): integer lanes (int64 values near ±2^62, so sums wrap),
+    min/max with NaNs and integer-valued float adds exactly; a normal
+    float32 add within ADD_F32_RTOL and a normal float64 add within
+    ADD_F64_TOL of the running Σ|x| (another order of rounding, and
+    another from run to run). Returns the max |err| of the 32-bit and of
+    the 64-bit calls, and the (label, lanes, ops) of the timed shapes."""
+    def col(a):
+        return torch.from_numpy(a).to(dev)
+    xi = col(rng.integers(-2**31, 2**31 - 1, CAP).astype(np.int32))
+    xf = col(rng.normal(size=CAP).astype(np.float32))
+    xfn = xf.clone()
+    xfn[col(rng.random(CAP) < 1e-4)] = float("nan")
+    xa = col(rng.integers(0, 2, CAP).astype(np.float32))  # exact below 2^24
+    v1 = col(rng.integers(1, 6, CAP).astype(np.int32))
+    v2 = col(rng.integers(1, 16, CAP).astype(np.int32))
+    ones = torch.ones(CAP, dtype=torch.int32, device=dev)
+    xd = col(rng.normal(size=CAP) * 1e3)
+    xdn = xd.clone()
+    xdn[col(rng.random(CAP) < 1e-4)] = float("nan")
+    xint = col(rng.integers(-2**20, 2**20, CAP).astype(np.float64))
+    loose = {id(xf): ADD_F32_RTOL, id(xd): ADD_F64_TOL}
+    # (label, lanes, ops, timed); the main path's: q7's min(v2), max(v1);
+    # q8's (and avgs') in-group positions; the multikey query's float32
+    # max; max_stddevs' float64 sums of x and x² and its float64 max
+    calls = [
+        ("q7: int32 min + int32 max", (v2, v1), ("min", "max"), True),
+        ("q8: 1 x int32 add (positions)", (ones,), ("add",), True),
+        ("1 x float32 max (multikey)", (xfn,), ("max",), False),
+        ("1 x float32 add", (xf,), ("add",), False),
+        ("3 x 32-bit (int32 max, float32 min, float32 add)",
+         (xi, xfn, xa), ("max", "min", "add"), True),
+        ("4 x 32-bit", (xi, xfn, xfn, xi), ("add", "min", "max", "min"),
+         False),
+        ("max_stddevs: 2 x float64 add", (xd, xint), ("add", "add"), True),
+        ("max_stddevs: 1 x float64 max", (xdn,), ("max",), False),
+        ("3 x 64-bit (int64 max, float64 min, float64 add)",
+         (x64, xdn, xd), ("max", "min", "add"), True),
+        ("4 x 64-bit int64", (x64, x64, x64, xint),
+         ("add", "min", "max", "add"), False),
+        ("4 x 64-bit float64", (xdn, x64, xd, xdn),
+         ("min", "max", "add", "max"), False),
+    ]
+    scales = {}
+
+    def close(xs, ops):
+        def ok(lane, g, w, f):
+            tol = loose.get(id(xs[lane]))
+            if tol is None or ops[lane] != "add":
+                return exact(lane, g, w, f)
+            key = (id(xs[lane]), id(f))
+            if key not in scales:
+                scales[key] = K.seg_scan_multi_plain(
+                    f, (xs[lane].abs().double(),), ("add",))[0]
+            diff = (g.double() - w.double()).abs()
+            return bool((diff <= tol * scales[key]).all())
+        return ok
+
+    err = {4: 0.0, 8: 0.0}
+    for label, xs, ops, _ in calls:
+        err[xs[0].element_size()] = max(err[xs[0].element_size()],
+                                        check_repeated(
+            f"seg_scan_multi, {label}",
+            lambda f: K.seg_scan_multi(f, xs, ops),
+            lambda f: K.seg_scan_multi_plain(f, xs, ops), flags,
+            close(xs, ops)))
+    scales.clear()
+    return err[4], err[8], [c[:3] for c in calls if c[3]]
 
 
 def check_onehot(rng, dev):
@@ -325,20 +420,35 @@ def check_onehot(rng, dev):
     for q, (dp, ls) in shapes.items():
         code = torch.where(valid, torch.from_numpy(
             rng.integers(0, dp - 1, CAP).astype(np.int32)).to(dev), dp - 1)
-        if not torch.equal(K.onehot_segment_sums(code, ls, dp),
-                           K.onehot_segment_sums_plain(code, ls, dp)):
+        got = K.onehot_segment_sums(code, ls, dp)
+        if not torch.equal(got, K.onehot_segment_sums_plain(code, ls, dp)):
             raise AssertionError(f"onehot_segment_sums differs at {q}")
-        timed[q] = {
-            "ms": cuda_ms(lambda: K.onehot_segment_sums(code, ls, dp)),
-            "plain_ms": cuda_ms(
-                lambda: K.onehot_segment_sums_plain(code, ls, dp))}
-        print(f"# onehot_segment_sums at {q}'s shape (dp {dp}, "
-              f"{len(ls)} lanes, {CAP} rows): kernel {timed[q]['ms']:.4f} "
-              f"ms, plain {timed[q]['plain_ms']:.4f} ms (median of 10), "
-              f"equal", flush=True)
-    timed["q9"]["q1_ms"] = timed["q1"]["ms"]
-    timed["q9"]["q1_plain_ms"] = timed["q1"]["plain_ms"]
-    return err, timed
+        # the library call for the same function, prepared outside the
+        # timing: one index_add_ of an [n, k] int64 source (the port never
+        # calls it)
+        code64 = code.to(torch.int64)
+        src = torch.stack([x.to(torch.int64) for x in ls], 1)
+
+        def library():
+            return torch.zeros(dp, len(ls), dtype=torch.int64,
+                               device=dev).index_add_(0, code64, src)
+        if not torch.equal(library(), got):
+            raise AssertionError(f"index_add_ differs at {q}")
+        nbytes = (code.numel() * code.element_size()
+                  + sum(x.numel() * x.element_size() for x in ls)
+                  + got.numel() * got.element_size())
+        timed[q] = time_shape(
+            f"onehot_segment_sums at {q}'s shape (dp {dp}, {len(ls)} "
+            f"lanes)", lambda: K.onehot_segment_sums(code, ls, dp),
+            lambda: K.onehot_segment_sums_plain(code, ls, dp), nbytes)
+        timed[q]["library_ms"] = cuda_ms(library)
+        print(f"# index_add_ of the [n, {len(ls)}] int64 source at {q}'s "
+              f"shape: {timed[q]['library_ms']:.4f} ms", flush=True)
+    row = {k: timed["q9"][k] for k in ("ms", "ms_with_host", "plain_ms",
+                                       "bound_ms", "share_of_bound",
+                                       "library_ms")}
+    row["shapes"] = list(timed.values())
+    return err, row
 
 
 def check_running(rng, dev):
@@ -379,12 +489,14 @@ def check_running(rng, dev):
                             float("-inf")).max()
         if not torch.equal(bp, plain):
             raise AssertionError(f"best_profit {bp} vs plain {plain}")
-    timed = {"ms": cuda_ms(lambda: K.fused_running_stats(xn)),
-             "plain_ms": cuda_ms(lambda: K.fused_running_stats_plain(xn))}
-    print(f"# fused_running_stats: kernel {timed['ms']:.4f} ms, plain "
-          f"{timed['plain_ms']:.4f} ms (median of 10, {CAP} rows), max |err| "
-          f"of the sums vs plain {err}; min, max and best_profit equal",
-          flush=True)
+    print(f"# fused_running_stats: max |err| of the sums vs plain {err}; "
+          f"min, max and best_profit equal", flush=True)
+    timed = time_shape("fused_running_stats",
+                       lambda: K.fused_running_stats(xn),
+                       lambda: K.fused_running_stats_plain(xn),
+                       4 * xn.numel() * xn.element_size())
+    timed.pop("shape")
+    timed.pop("bytes")
     return err, timed
 
 
@@ -692,6 +804,37 @@ def run_best_profit(dev) -> dict[str, int]:
     return launches
 
 
+def ptxas_line(r: dict) -> str:
+    return (f"{r['registers']} registers, {r['spill_stores']} B spill "
+            f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
+            f"stack, {r['smem']} B static shared memory")
+
+
+def tally_scans(calls: collections.Counter):
+    """Wrap K.seg_cumsum_i64 and K.seg_scan_multi, which the engine calls
+    through the module, so that calls tallies each call by the name of
+    the instantiation it runs, as ptxas_report names it (the wrappers
+    still count their launches). Returns the function that unwraps
+    them."""
+    cumsum, multi = K.seg_cumsum_i64, K.seg_scan_multi
+
+    def seg_cumsum_i64(flags, x):
+        calls[f"seg_cumsum_i64, flags {int(flags is not None)}"] += 1
+        return cumsum(flags, x)
+
+    def seg_scan_multi(flags, xs, ops):
+        xs = tuple(xs)
+        calls[f"seg_scan_multi {len(xs)} x {8 * xs[0].element_size()}-bit, "
+              f"flags {int(flags is not None)}"] += 1
+        return multi(flags, xs, ops)
+
+    K.seg_cumsum_i64, K.seg_scan_multi = seg_cumsum_i64, seg_scan_multi
+
+    def untally():
+        K.seg_cumsum_i64, K.seg_scan_multi = cumsum, multi
+    return untally
+
+
 def reset_launches() -> None:
     for k in K.LAUNCHES:
         K.LAUNCHES[k] = 0
@@ -716,16 +859,19 @@ def main() -> int:
     phase("2. build")
     print(f"# built {K.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
-    for line in K.library_path().with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"# ptxas {line.strip()}")
+    ptxas = {r["kernel"]: r for r in K.ptxas_report()}
+    for r in ptxas.values():
+        print(f"# ptxas {r['kernel']}: {ptxas_line(r)}")
 
     rows = check_kernels(dev)
     phase("3. kernels vs plain: equal")
 
+    scans = collections.Counter()
+    untally = tally_scans(scans)
     launches = run_slice(dev)
     launches.update(run_trades(dev))
     launches.update(run_nas(dev))
+    untally()
     launches["best_profit"] = run_best_profit(dev)
     phase(f"4. slice: {len(launches) - 1} queries and best_profit match the "
           f"oracles")
@@ -737,6 +883,9 @@ def main() -> int:
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())
+    for name, calls in sorted(scans.items()):
+        print(f"# phase 4 called {name} {calls} times; ptxas: "
+              f"{ptxas_line(ptxas[name])}", flush=True)
     phase("5. each query launched its path's kernels, best_profit "
           "fused_running_stats")
 

@@ -156,6 +156,144 @@ def test_scan_dispatch(rng):
         S.seg_cumsum(x64.to(torch.int16), flags)
 
 
+# --- the single-pass look-back of csrc/segscan.cuh, modelled ----------------
+
+_EMPTY, _AGG, _INC, _AGG_FLAG = 0, 1, 2, 3     # segscan.cuh's status words
+
+
+def _fold(vals, flags, comb, ident):
+    """(flag-seen, value since the last flag) of a span of rows."""
+    f, v = False, ident
+    for x, fl in zip(vals, flags):
+        f, v = f or fl, x if fl else comb(v, x)
+    return f, v
+
+
+def _lookback_model(flags, lanes, tile, rng, p_inc, window=32):
+    """segscan_lookback, one tile at a time in tile order, but with each
+    predecessor's status as a look-back could find it at any timing: its
+    aggregate or, with probability p_inc, already its inclusive prefix
+    (tile 0 is always inclusive); a tile before the window's nearest stop
+    may not have published at all (the walk does not wait for it), here
+    with probability 1/2. Each walk reads `window` predecessors at a time,
+    stops at the nearest inclusive prefix or flagged aggregate, and folds
+    the window in tile order (earlier . later), windows further back in
+    front. lanes: (values, comb, identity) with each value a shape-(1,)
+    array, so that numpy's adds wrap silently."""
+    n = len(lanes[0][0])
+    flags = np.zeros(n, bool) if flags is None else flags
+    ntiles = -(-n // tile)
+
+    def seg(a, b):                       # (fa, va) . (fb, vb), per lane
+        return (a[0] or b[0],
+                b[1] if b[0] else [c(x, y) for (_, c, _), x, y
+                                   in zip(lanes, a[1], b[1])])
+
+    ident = (False, [i for _, _, i in lanes])
+    aggs, incs, out = [], [], [np.empty(n, v.dtype) for v, _, _ in lanes]
+    for t in range(ntiles):
+        rows = range(t * tile, min(n, (t + 1) * tile))
+        agg = (bool(flags[rows].any()), [
+            _fold([v[r:r + 1] for r in rows], flags[rows], c, i)[1]
+            for v, c, i in lanes])
+        run, end = ident, t
+        while t > 0:
+            ps = range(end - window, end)
+            st = {p: (_EMPTY if p < 0 else _INC if p == 0
+                      or rng.random() < p_inc else
+                      _AGG_FLAG if aggs[p][0] else _AGG) for p in ps}
+            stops = [p for p in ps if st[p] >= _INC]
+            for p in ps:
+                if stops and p < stops[-1] and rng.random() < 0.5:
+                    st[p] = _EMPTY
+            w = ident
+            for p in ps:                  # lanes in tile order
+                if p >= (stops[-1] if stops else end - window) \
+                        and st[p] > _EMPTY:
+                    w = seg(w, (True, incs[p]) if st[p] == _INC
+                            else aggs[p])
+            run = seg(w, run)
+            if stops:
+                break
+            end -= window
+        incs.append(seg(run, agg)[1])
+        aggs.append(agg)
+        acc = run[1]
+        for r in rows:
+            acc = [v[r:r + 1] if flags[r] else c(a, v[r:r + 1])
+                   for (v, c, _), a in zip(lanes, acc)]
+            for o, a in zip(out, acc):
+                o[r] = a[0]
+    return out
+
+
+def _model_flags(case, n, tile, rng):
+    """The flag cases of chip_smoke.py at the model's size: none, the
+    main path's density, nearly every row, and lone flags (in the middle
+    of a tile after many flagless tiles, on a tile's first row, on the
+    last row)."""
+    if case == "none":
+        return None
+    if case in ("0.1", "0.999"):
+        return rng.random(n) < float(case)
+    f = np.zeros(n, bool)
+    f[{"lone_mid": (n // tile - 2) * tile + tile // 2 + 1,
+       "tile_first_row": (n // tile // 2) * tile,
+       "last_row": n - 1}[case]] = True
+    return f
+
+
+_MODEL_CASES = ["none", "0.1", "0.999", "lone_mid", "tile_first_row",
+                "last_row"]
+
+
+@pytest.mark.parametrize("tile", [4, 16, 64])
+@pytest.mark.parametrize("case", _MODEL_CASES)
+def test_lookback_model_matches_plain(case, tile, rng):
+    """The segmented look-back rule (stop at an inclusive prefix or a
+    flagged aggregate, combine earlier . later) equals the plain versions:
+    seg_cumsum_i64 with int64 sums that wrap, and seg_scan_multi with int32
+    add, float32 min/max with NaNs and an integer-valued float32 add. 40+
+    tiles, so a walk spans more than one window of 32."""
+    n = 41 * tile + tile // 3 + 1
+    flags = _model_flags(case, n, tile, rng)
+    tflags = None if flags is None else torch.from_numpy(flags)
+    x64 = rng.integers(2**62 - 2**20, 2**62, n)
+    x64[rng.random(n) < 0.3] *= -1               # running sums wrap
+    want = K.seg_cumsum_i64_plain(tflags, torch.from_numpy(x64)).numpy()
+    for p_inc in (0.5, 0.0):
+        got = _lookback_model(flags, [(x64, np.add, np.zeros(1, np.int64))],
+                              tile, rng, p_inc)[0]
+        np.testing.assert_array_equal(got, want)
+
+    xi = rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    xf = rng.normal(size=n).astype(np.float32)
+    xf[rng.random(n) < 0.02] = np.nan
+    xa = rng.integers(-50, 50, n).astype(np.float32)
+    inf = np.array([np.inf], np.float32)
+    lanes = [(xi, np.add, np.zeros(1, np.int32)), (xf, np.minimum, inf),
+             (xf, np.maximum, -inf), (xa, np.add, np.zeros(1, np.float32))]
+    want = K.seg_scan_multi_plain(
+        tflags, tuple(torch.from_numpy(x) for x, _, _ in lanes),
+        ("add", "min", "max", "add"))
+    for p_inc in (0.5, 0.0):
+        got = _lookback_model(flags, lanes, tile, rng, p_inc)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w.numpy())
+
+
+def test_lookback_model_walks_past_one_window(rng):
+    """With no inclusive prefix seen but tile 0's, a walk crosses
+    windows; a window of 3 does it many times on a short input."""
+    tile, n = 4, 4 * 30 + 2
+    flags = np.zeros(n, bool)
+    flags[5] = True
+    x = rng.integers(-9, 9, n)
+    got = _lookback_model(flags, [(x, np.add, np.zeros(1, np.int64))], tile,
+                          rng, 0.0, window=3)[0]
+    np.testing.assert_array_equal(got, _seg_oracle_i64(x, flags))
+
+
 def test_wrappers_check_inputs_and_count_only_launches():
     before = dict(K.LAUNCHES)
     x = torch.arange(10, dtype=torch.int64)
