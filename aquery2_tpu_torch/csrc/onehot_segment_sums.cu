@@ -8,110 +8,383 @@
 // the MXU stays exact, and returns f32 superblock partials; the card adds
 // int64 natively, so the digits, the superblocks and the matmul go.
 //
-// Bound: device memory, about 4 B/row of codes plus each lane's width
-// (8, 4 or 1 B/row), read once. The trap is contention: the dense tier has
-// few slots (h2o q1: 10 live slots for 12.6M rows), so one accumulator per
-// slot serialises every add. Each block therefore keeps `ncopies` copies
-// of the [dp][k] accumulators in shared memory, interleaved so that copy c
-// of entry e sits at e * ncopies + c; thread t adds into copy t % ncopies.
-// With ncopies >= 32 the 32 threads of a warp never share a word, so their
-// atomics never wait on each other. After the grid-stride loop the block folds its copies and adds
-// each nonzero (slot, lane) total into the zeroed output with one global
-// atomic. Integer addition in any order gives the same sum, so the result
-// is deterministic and equal to the plain version's bit for bit.
-#include <cstdint>
-#include <cuda_runtime.h>
+// Bound: device memory, 4 B/row of codes plus each lane's width (8, 4 or
+// 1 B/row), read once (h2o q1: 9 B/row, q9: 37 B/row). The design:
+//   * Tiles staged in shared memory. A persistent grid (the blocks an SM
+//     holds, on every SM) walks tiles of tile_rows rows (a multiple of
+//     1024, about 32 KB of staging); each block copies the codes and every
+//     lane of its next tile with 16-byte cp.async, neighbouring threads on
+//     neighbouring chunks, into the other of two stage buffers before it
+//     adds the current tile. An array whose pointer is not 16-byte aligned
+//     (a view such as x[3:]) is copied from the aligned chunk below its
+//     tile's first byte and read at that offset; a chunk that would reach
+//     outside the array (its first or last, for a misaligned pointer or a
+//     ragged n) is copied byte by byte. No input is routed elsewhere.
+//   * Lane dtypes are fixed outside the row loop: each thread reads its 4
+//     rows' codes, then each lane's 4 values, with one dtype switch per lane
+//     per 4 rows, widened to int64 in registers; the adds that follow see
+//     int64 only.
+//   * Adds by what fits. Private route, where one copy of the [dp][k]
+//     accumulators per thread fits beside the staging (h2o q1 and q4, dp
+//     11): thread t owns entry e at acc[e * threads + t] (a warp's 64-bit
+//     words on consecutive banks) and adds with a plain load, add and store,
+//     no atomic. Shared route (q2 and q9, dp 101, up to dp 513): one copy
+//     per warp, copy-major, so an atomic waits only on lanes of its own
+//     warp that hit the same slot (fewer copies, each shared by warps,
+//     where that lets an SM hold more blocks); each entry is a low and a high 32-bit
+//     word added by native 32-bit shared atomics with the carry passed on
+//     (add_split), since a 64-bit shared atomic add is a CAS loop here.
+//   * Epilogue: the block folds its copies (a warp's shuffles for the
+//     private route) and adds each nonzero (slot, lane) total into the
+//     zeroed output with one global atomic. Integer addition in any order
+//     gives the same sum, so the result equals the plain version's bit for
+//     bit.
+#include "segscan.cuh"
 
 namespace aq_onehot {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerThread = 4;               // rows a thread adds per step
+constexpr int kChunkRows = kThreads * kRowsPerThread;   // tile_rows' unit
+constexpr int kStages = 2;                      // stage buffers
+constexpr int kStageTarget = 32 * 1024;         // staging bytes per tile
 constexpr int kMaxLanes = 8;
-constexpr int kCopyBudget = 48 * 1024;     // shared bytes per block, above one copy
-constexpr int kMaxShared = 232448;         // Hopper's opt-in maximum per block
+constexpr int kMaxShared = 232448;              // Hopper's opt-in maximum per block
+constexpr int kMaxRowBytes = 4 + 8 * kMaxLanes;
 
 // Lane dtype codes, as ops/kernels.py passes them.
 enum : int { kI64 = 0, kI32 = 1, kBool = 2 };
 
-struct Lanes {
-  const void* x[kMaxLanes];
+__host__ __device__ constexpr int dtype_bytes(int dt) {
+  return dt == kI64 ? 8 : dt == kI32 ? 4 : 1;
+}
+
+// Staging bytes of one tile: every array's rows, plus 16 for a misaligned
+// start.
+__host__ __device__ constexpr int64_t stage_bytes(int64_t rows, int row_bytes,
+                                                  int arrays) {
+  return rows * row_bytes + 16 * arrays;
+}
+
+// The most entries (slots x lanes) one copy may hold: one copy beside the
+// staging of kChunkRows rows of 8 int64 lanes in every stage buffer.
+constexpr int kMaxEntries =
+    (kMaxShared - kStages * (int)stage_bytes(kChunkRows, kMaxRowBytes,
+                                             kMaxLanes + 1)) / 8;
+
+struct Params {
+  const unsigned char* ptr[kMaxLanes + 1];   // [0] the codes, then the lanes
+  int width[kMaxLanes + 1];                  // bytes per row
+  int seg[kMaxLanes + 1];                    // array's offset in a stage
   int dtype[kMaxLanes];
+  int dp;
+  int tile_rows;
+  int stage;                                 // bytes of one stage buffer
+  int acc_bytes;                             // accumulators, 16-byte padded
+  int copies;                                // shared route: copies per block
+  int64_t n;
+  int64_t ntiles;
+  unsigned long long* out;
 };
 
-__device__ __forceinline__ unsigned long long lane_value(const Lanes& l, int j,
-                                                         int64_t row) {
-  switch (l.dtype[j]) {
-    case kI64:
-      return static_cast<const unsigned long long*>(l.x[j])[row];
-    case kI32:  // sign-extend, then wrap as unsigned
-      return (unsigned long long)(long long)static_cast<const int32_t*>(l.x[j])[row];
-    default:
-      return static_cast<const uint8_t*>(l.x[j])[row] != 0;
-  }
+__device__ __forceinline__ void commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int K>
-__global__ void __launch_bounds__(kThreads)
-onehot_sums(const int32_t* __restrict__ code, Lanes lanes, int dp, int ncopies,
-            int64_t n, unsigned long long* __restrict__ out) {
-  extern __shared__ unsigned long long acc[];   // [dp * K][ncopies]
-  const int entries = dp * K;
-  for (int i = threadIdx.x; i < entries * ncopies; i += blockDim.x) acc[i] = 0ull;
-  __syncthreads();
+template <int N>
+__device__ __forceinline__ void wait_prior() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
-  const int copy = threadIdx.x % ncopies;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t row = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; row < n;
-       row += stride) {
-    const int s = code[row];
-    if ((unsigned)s >= (unsigned)dp) continue;   // outside the contract: dropped
-    unsigned long long* base = acc + (int64_t)s * K * ncopies + copy;
+// Rows of tile `tile`: tile_rows, fewer in the last.
+__device__ __forceinline__ int64_t tile_rows_of(const Params& p, int64_t tile) {
+  const int64_t left = p.n - tile * p.tile_rows;
+  return left < p.tile_rows ? left : p.tile_rows;
+}
+
+// Issue the copies of tile `tile` (if it exists) into stage buffer `st`.
+template <int K>
+__device__ __forceinline__ void load_tile(const Params& p, int64_t tile,
+                                          unsigned char* st) {
+  if (tile >= p.ntiles) return;
+  const int64_t row0 = tile * p.tile_rows;
+  const int64_t rows = tile_rows_of(p, tile);
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
-      const unsigned long long v = lane_value(lanes, j, row);
-      if (v != 0ull) atomicAdd(base + j * ncopies, v);
+  for (int a = 0; a <= K; ++a) {
+    const int w = p.width[a];
+    const uintptr_t lo = (uintptr_t)p.ptr[a];
+    const uintptr_t hi = lo + (uintptr_t)(p.n * w);
+    const uintptr_t first = (lo + (uintptr_t)(row0 * w)) & ~(uintptr_t)15;
+    const int chunks = (int)((lo + row0 * w + rows * w - first + 15) >> 4);
+    unsigned char* dst = st + p.seg[a];
+    for (int c = threadIdx.x; c < chunks; c += kThreads) {
+      const uintptr_t g = first + 16 * (uintptr_t)c;
+      if (g >= lo && g + 16 <= hi) {
+        aq::cp_async16(dst + 16 * c, (const void*)g);
+      } else {                      // the array's first or last chunk
+        for (int b = 0; b < 16; ++b)
+          if (g + b >= lo && g + b < hi)
+            dst[16 * c + b] = *(const unsigned char*)(g + b);
+      }
     }
   }
+}
+
+// Array a's row r in a stage buffer: its segment, the pointer's offset
+// within 16 bytes, then r rows.
+template <class T>
+__device__ __forceinline__ const T* staged(const Params& p,
+                                           const unsigned char* st, int a) {
+  return reinterpret_cast<const T*>(st + p.seg[a] +
+                                    ((uintptr_t)p.ptr[a] & 15));
+}
+
+// x += v mod 2^64 for an entry kept as two 32-bit shared words, by native
+// 32-bit shared atomics; the low word's carry goes into the high word.
+// (Hopper has no 64-bit shared atomic add: atomicAdd on a 64-bit shared
+// word compiles to a compare-and-swap loop, ATOMS.CAST.SPIN.64, which
+// retries while lanes of a warp hit one slot.)
+__device__ __forceinline__ void add_split(unsigned* lo, unsigned* hi,
+                                          unsigned long long v) {
+  const unsigned l = (unsigned)v;
+  unsigned h = (unsigned)(v >> 32);
+  if (l != 0u) {
+    const unsigned old = atomicAdd(lo, l);
+    h += old + l < old;
+  }
+  if (h != 0u) atomicAdd(hi, h);
+}
+
+template <int K, bool kPrivate>
+__global__ void __launch_bounds__(kThreads, 2)
+onehot_sums(Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
+  unsigned char* stages = smem + p.acc_bytes;
+  const int entries = p.dp * K;
+  const int t = threadIdx.x;
+  for (int i = t; i < p.acc_bytes / 8; i += kThreads) acc[i] = 0ull;
+
+  const int64_t G = gridDim.x;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    load_tile<K>(p, blockIdx.x + s * G, stages + s * p.stage);
+    commit();
+  }
+  // shared route: the copies' low 32-bit words, then their high words;
+  // this warp's copy
+  unsigned* const lo0 = reinterpret_cast<unsigned*>(acc);
+  unsigned* const hi0 = lo0 + (int64_t)p.copies * entries;
+  const int64_t mine = (int64_t)((t >> 5) % p.copies) * entries;
+  unsigned* lo = lo0 + mine;
+  unsigned* hi = hi0 + mine;
+
+  int buf = 0;
+  for (int64_t tile = blockIdx.x; tile < p.ntiles; tile += G) {
+    const int next = (buf + kStages - 1) % kStages;
+    load_tile<K>(p, tile + (kStages - 1) * G, stages + next * p.stage);
+    commit();
+    wait_prior<kStages - 1>();
+    __syncthreads();
+
+    const unsigned char* st = stages + buf * p.stage;
+    const int rows = (int)tile_rows_of(p, tile);
+    const int32_t* codes = staged<int32_t>(p, st, 0);
+    for (int base = 0; base < rows; base += kChunkRows) {
+      int slot[kRowsPerThread];
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        const int r = base + t + i * kThreads;
+        const int s = codes[r];               // in the buffer even past rows
+        slot[i] = (r < rows && (unsigned)s < (unsigned)p.dp) ? s : -1;
+      }
+      unsigned long long v[K][kRowsPerThread];
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int r0 = base + t;
+        switch (p.dtype[j]) {                 // once per lane per 4 rows
+          case kI64: {
+            const unsigned long long* x =
+                staged<unsigned long long>(p, st, j + 1) + r0;
+#pragma unroll
+            for (int i = 0; i < kRowsPerThread; ++i) v[j][i] = x[i * kThreads];
+            break;
+          }
+          case kI32: {                        // sign-extend, wrap as unsigned
+            const int32_t* x = staged<int32_t>(p, st, j + 1) + r0;
+#pragma unroll
+            for (int i = 0; i < kRowsPerThread; ++i)
+              v[j][i] = (unsigned long long)(long long)x[i * kThreads];
+            break;
+          }
+          default: {
+            const unsigned char* x = staged<unsigned char>(p, st, j + 1) + r0;
+#pragma unroll
+            for (int i = 0; i < kRowsPerThread; ++i)
+              v[j][i] = x[i * kThreads] != 0;
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        if (slot[i] < 0) continue;            // outside [0, dp): dropped
+        const int e = slot[i] * K;
+        if (kPrivate) {
+          unsigned long long* q = acc + (int64_t)e * kThreads + t;
+          unsigned long long a[K];
+#pragma unroll
+          for (int j = 0; j < K; ++j) a[j] = q[j * kThreads];
+#pragma unroll
+          for (int j = 0; j < K; ++j) q[j * kThreads] = a[j] + v[j][i];
+        } else {
+#pragma unroll
+          for (int j = 0; j < K; ++j) add_split(lo + e + j, hi + e + j, v[j][i]);
+        }
+      }
+    }
+    __syncthreads();                          // the buffer may be refilled
+    buf = (buf + 1) % kStages;
+  }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < entries; e += blockDim.x) {
-    unsigned long long total = 0ull;
-    const unsigned long long* p = acc + (int64_t)e * ncopies;
-    for (int c = 0; c < ncopies; ++c) total += p[c];
-    if (total != 0ull) atomicAdd(out + e, total);
+  if (kPrivate) {                             // a warp folds one entry at a time
+    const int lane = t & 31;
+    for (int e = t >> 5; e < entries; e += kWarps) {
+      unsigned long long total = 0ull;
+#pragma unroll
+      for (int m = 0; m < kThreads; m += 32)
+        total += acc[(int64_t)e * kThreads + m + lane];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        total += __shfl_xor_sync(0xffffffffu, total, o);
+      if (lane == 0 && total != 0ull) atomicAdd(p.out + e, total);
+    }
+  } else {
+    for (int e = t; e < entries; e += kThreads) {
+      unsigned long long total = 0ull;
+      for (int c = 0; c < p.copies; ++c)
+        total += lo0[(int64_t)c * entries + e] +
+                 ((unsigned long long)hi0[(int64_t)c * entries + e] << 32);
+      if (total != 0ull) atomicAdd(p.out + e, total);
+    }
   }
 }
 
-// Copies per block: the most that fit kCopyBudget, a power of two, at most
-// one per thread; 1 when a single copy is larger than the budget.
-inline int copies_for(int dp, int k) {
-  const int64_t one = (int64_t)dp * k * 8;
-  int c = 1;
-  while (c * 2 <= kThreads && one * c * 2 <= kCopyBudget) c *= 2;
-  return c;
-}
+// The launch for (dp, lane dtypes, n): route, copies, tile rows, shared
+// memory and grid.
+struct Plan {
+  bool priv;
+  int copies, tile_rows, stage, acc_bytes, smem, per_sm, blocks;
+};
 
-template <int K>
-cudaError_t run(const int32_t* code, const Lanes& lanes, int dp, int64_t n,
-                unsigned long long* out, cudaStream_t s) {
-  const int ncopies = copies_for(dp, K);
-  const size_t shmem = (size_t)dp * K * 8 * ncopies;
+inline int64_t pad16(int64_t b) { return (b + 15) / 16 * 16; }
+
+template <int K, bool kPrivate>
+cudaError_t grid_for(Plan& pl, int64_t n) {
   cudaError_t err = cudaFuncSetAttribute(
-      onehot_sums<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      onehot_sums<K, kPrivate>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      pl.smem);
   if (err != cudaSuccess) return err;
-  int device = 0, sms = 0, per_sm = 0;
+  int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     device)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, onehot_sums<K>, kThreads, shmem)) != cudaSuccess)
+           &pl.per_sm, onehot_sums<K, kPrivate>, kThreads, pl.smem)) !=
+      cudaSuccess)
     return err;
-  const int64_t want = (n + kThreads - 1) / kThreads;
-  const int64_t fill = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
-  const int blocks = (int)(want < fill ? want : fill);
-  onehot_sums<K><<<blocks, kThreads, shmem, s>>>(code, lanes, dp, ncopies, n,
-                                                 out);
+  const int64_t ntiles = (n + pl.tile_rows - 1) / pl.tile_rows;
+  const int64_t fill = (int64_t)sms * (pl.per_sm > 0 ? pl.per_sm : 1);
+  pl.blocks = (int)(ntiles < fill ? (ntiles > 0 ? ntiles : 1) : fill);
+  return cudaSuccess;
+}
+
+template <int K>
+cudaError_t plan_for(Plan& pl, int dp, int row_bytes, int64_t n) {
+  int64_t rows = kStageTarget / row_bytes / kChunkRows * kChunkRows;
+  if (rows < kChunkRows) rows = kChunkRows;
+  auto total = [&](int64_t acc, int64_t r) {
+    return pad16(acc) + kStages * stage_bytes(r, row_bytes, K + 1);
+  };
+  const int64_t one = (int64_t)dp * K * 8;
+  pl.priv = total(one * kThreads, kChunkRows) <= kMaxShared;
+  pl.copies = pl.priv ? kThreads : kWarps;
+  if (!pl.priv) {
+    while (pl.copies > 1 && total(one * pl.copies, rows) > kMaxShared)
+      pl.copies /= 2;
+  }
+  while (rows > kChunkRows && total(one * pl.copies, rows) > kMaxShared)
+    rows -= kChunkRows;
+  if (total(one * pl.copies, rows) > kMaxShared) return cudaErrorInvalidValue;
+  pl.tile_rows = (int)rows;
+  pl.stage = (int)stage_bytes(rows, row_bytes, K + 1);
+  pl.acc_bytes = (int)pad16(one * pl.copies);
+  pl.smem = (int)total(one * pl.copies, rows);
+  if (pl.priv) return grid_for<K, true>(pl, n);
+  cudaError_t err = grid_for<K, false>(pl, n);
+  // fewer copies where that lets an SM hold more blocks (h2o q9 with NAs:
+  // 7 lanes at dp 101 hold one block of 8 copies an SM, two of 4)
+  for (Plan fewer = pl; err == cudaSuccess && fewer.copies > 1;) {
+    fewer.copies /= 2;
+    fewer.acc_bytes = (int)pad16(one * fewer.copies);
+    fewer.smem = (int)total(one * fewer.copies, rows);
+    err = grid_for<K, false>(fewer, n);
+    if (err == cudaSuccess && fewer.per_sm > pl.per_sm) pl = fewer;
+  }
+  // the kernel's shared-memory limit back to the chosen plan's
+  return err == cudaSuccess ? grid_for<K, false>(pl, n) : err;
+}
+
+template <int K>
+cudaError_t run(Params& p, const Plan& pl, cudaStream_t s) {
+  const size_t smem = pl.smem;
+  if (pl.priv)
+    onehot_sums<K, true><<<pl.blocks, kThreads, smem, s>>>(p);
+  else
+    onehot_sums<K, false><<<pl.blocks, kThreads, smem, s>>>(p);
   return cudaGetLastError();
+}
+
+// Checks the arguments and makes the plan; fills p's layout when p is
+// given.
+inline cudaError_t plan(int k, const int* dtypes, int dp, int64_t n, Plan& pl,
+                        Params* p) {
+  if (k < 1 || k > kMaxLanes || dp < 1 || (int64_t)dp * k > kMaxEntries)
+    return cudaErrorInvalidValue;
+  int row_bytes = 4;
+  for (int j = 0; j < k; ++j) {
+    if (dtypes[j] < kI64 || dtypes[j] > kBool) return cudaErrorInvalidValue;
+    row_bytes += dtype_bytes(dtypes[j]);
+  }
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (k) {
+    case 1: err = plan_for<1>(pl, dp, row_bytes, n); break;
+    case 2: err = plan_for<2>(pl, dp, row_bytes, n); break;
+    case 3: err = plan_for<3>(pl, dp, row_bytes, n); break;
+    case 4: err = plan_for<4>(pl, dp, row_bytes, n); break;
+    case 5: err = plan_for<5>(pl, dp, row_bytes, n); break;
+    case 6: err = plan_for<6>(pl, dp, row_bytes, n); break;
+    case 7: err = plan_for<7>(pl, dp, row_bytes, n); break;
+    case 8: err = plan_for<8>(pl, dp, row_bytes, n); break;
+  }
+  if (err != cudaSuccess || p == nullptr) return err;
+  int seg = 0;
+  for (int a = 0; a <= k; ++a) {
+    p->width[a] = a == 0 ? 4 : dtype_bytes(dtypes[a - 1]);
+    p->seg[a] = seg;
+    seg += pl.tile_rows * p->width[a] + 16;
+    if (a > 0) p->dtype[a - 1] = dtypes[a - 1];
+  }
+  p->dp = dp;
+  p->tile_rows = pl.tile_rows;
+  p->stage = pl.stage;
+  p->acc_bytes = pl.acc_bytes;
+  p->copies = pl.copies;
+  p->n = n;
+  p->ntiles = (n + pl.tile_rows - 1) / pl.tile_rows;
+  return cudaSuccess;
 }
 
 }  // namespace aq_onehot
@@ -120,38 +393,52 @@ extern "C" {
 
 // code: int32[n] slots in [0, dp). k in 1..8 lanes: xs holds k device
 // pointers to n-row lanes, dtypes their codes (0 int64, 1 int32, 2 bool);
-// both arrays live in host memory. out: int64[dp * k], zeroed by the
-// caller, row-major [dp][k]. Returns the cudaError_t of the launch
-// (cudaErrorInvalidValue for a bad k or dtype, or a dp whose one copy of
-// the accumulators does not fit a block's shared memory); allocates nothing and
-// does not synchronise.
+// both arrays live in host memory. Any pointer alignment and any n >= 1.
+// out: int64[dp * k], zeroed by the caller, row-major [dp][k]. Returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for a bad k or dtype,
+// or a dp * k above aq_onehot_max_entries()); allocates nothing and does
+// not synchronise.
 int aq_onehot_segment_sums(const void* code, int k, void* const* xs,
                            const int* dtypes, int dp, int64_t n, void* out,
                            void* stream) {
-  if (k < 1 || k > aq_onehot::kMaxLanes || dp < 1 ||
-      (int64_t)dp * k * 8 > aq_onehot::kMaxShared)
-    return (int)cudaErrorInvalidValue;
-  aq_onehot::Lanes lanes{};
-  for (int j = 0; j < k; ++j) {
-    if (dtypes[j] < aq_onehot::kI64 || dtypes[j] > aq_onehot::kBool)
-      return (int)cudaErrorInvalidValue;
-    lanes.x[j] = xs[j];
-    lanes.dtype[j] = dtypes[j];
-  }
-  const int32_t* c = static_cast<const int32_t*>(code);
-  auto* o = static_cast<unsigned long long*>(out);
+  aq_onehot::Plan pl{};
+  aq_onehot::Params p{};
+  cudaError_t err = aq_onehot::plan(k, dtypes, dp, n, pl, &p);
+  if (err != cudaSuccess) return (int)err;
+  p.ptr[0] = static_cast<const unsigned char*>(code);
+  for (int j = 0; j < k; ++j)
+    p.ptr[j + 1] = static_cast<const unsigned char*>(xs[j]);
+  p.out = static_cast<unsigned long long*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (k) {
-    case 1: return (int)aq_onehot::run<1>(c, lanes, dp, n, o, s);
-    case 2: return (int)aq_onehot::run<2>(c, lanes, dp, n, o, s);
-    case 3: return (int)aq_onehot::run<3>(c, lanes, dp, n, o, s);
-    case 4: return (int)aq_onehot::run<4>(c, lanes, dp, n, o, s);
-    case 5: return (int)aq_onehot::run<5>(c, lanes, dp, n, o, s);
-    case 6: return (int)aq_onehot::run<6>(c, lanes, dp, n, o, s);
-    case 7: return (int)aq_onehot::run<7>(c, lanes, dp, n, o, s);
-    case 8: return (int)aq_onehot::run<8>(c, lanes, dp, n, o, s);
+    case 1: return (int)aq_onehot::run<1>(p, pl, s);
+    case 2: return (int)aq_onehot::run<2>(p, pl, s);
+    case 3: return (int)aq_onehot::run<3>(p, pl, s);
+    case 4: return (int)aq_onehot::run<4>(p, pl, s);
+    case 5: return (int)aq_onehot::run<5>(p, pl, s);
+    case 6: return (int)aq_onehot::run<6>(p, pl, s);
+    case 7: return (int)aq_onehot::run<7>(p, pl, s);
+    case 8: return (int)aq_onehot::run<8>(p, pl, s);
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The launch aq_onehot_segment_sums makes for these arguments, into
+// info[8]: private route (1) or shared (0), accumulator copies per block,
+// threads per block, blocks, tile rows, dynamic shared memory per block
+// (bytes), blocks an SM holds, and one stage buffer's bytes. Returns a
+// cudaError_t as aq_onehot_segment_sums does.
+int aq_onehot_route(int k, const int* dtypes, int dp, int64_t n, int* info) {
+  aq_onehot::Plan pl{};
+  const cudaError_t err = aq_onehot::plan(k, dtypes, dp, n, pl, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  const int vals[8] = {pl.priv ? 1 : 0, pl.copies, aq_onehot::kThreads,
+                       pl.blocks, pl.tile_rows, pl.smem, pl.per_sm, pl.stage};
+  for (int i = 0; i < 8; ++i) info[i] = vals[i];
+  return 0;
+}
+
+// The most entries (dp * k) a call takes.
+int aq_onehot_max_entries() { return aq_onehot::kMaxEntries; }
 
 }  // extern "C"

@@ -39,9 +39,10 @@ each launch. Float add lanes are not bit-reproducible from run to run
 and integer-valued float sums are exact. fused_running_stats still takes
 the three-phase scan (fold each tile, scan the folds in one block, rescan
 each tile), which reads its input twice: 20 B/row.
-onehot_segment_sums reads its inputs once; it keeps per-block copies of
-the accumulators in shared memory so that few slots do not serialise the
-adds.
+onehot_segment_sums reads its inputs once, in tiles staged by 16-byte
+copies (any pointer alignment, any length), and adds into private
+per-thread copies of the accumulators where they fit, else into one copy
+per warp with shared atomics (``onehot_route`` reports the launch).
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
 use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
@@ -83,8 +84,11 @@ _MAX_LANES = 4
 ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool)   # lane dtype codes
 ONEHOT_MAX_LANES = 8
 # One copy of the [dp][k] int64 accumulators must fit a block's shared
-# memory (232,448 bytes on Hopper, kMaxShared in onehot_segment_sums.cu).
-ONEHOT_MAX_ENTRIES = 232448 // 8
+# memory (232,448 bytes on Hopper) beside two stage buffers of 1024 rows of
+# codes and 8 int64 lanes: kMaxEntries in onehot_segment_sums.cu.
+ONEHOT_MAX_ENTRIES = (232448 - 2 * (1024 * (4 + 8 * 8) + 16 * 9)) // 8
+ONEHOT_ROUTE_KEYS = ("private", "copies", "threads", "blocks", "tile_rows",
+                     "smem", "blocks_per_sm", "stage_bytes")
 
 _vp = ctypes.c_void_p
 
@@ -157,6 +161,10 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
                                            ctypes.c_int, ctypes.c_int64, _vp,
                                            _vp]
     lib.aq_onehot_segment_sums.restype = ctypes.c_int
+    lib.aq_onehot_route.argtypes = [ctypes.c_int, _vp, ctypes.c_int,
+                                    ctypes.c_int64, _vp]
+    lib.aq_onehot_route.restype = ctypes.c_int
+    lib.aq_onehot_max_entries.restype = ctypes.c_int
     lib.aq_fused_running_stats_tile_rows.restype = ctypes.c_int
     lib.aq_fused_running_stats.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp,
                                            ctypes.c_int64, _vp]
@@ -166,7 +174,11 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name in ptxas' report, the single-pass scans by their
-    lanes and flags."""
+    lanes and flags, onehot_segment_sums by its lanes and route."""
+    m = re.search(r"onehot_sumsILi(\d)ELb(\d)E", mangled)
+    if m:
+        return (f"onehot_segment_sums {m[1]} lanes, "
+                f"{'private' if m[2] == '1' else 'shared'}")
     m = re.search(r"segscan_lookbackIN6aq_i646AddI64ELb(\d)", mangled)
     if m:
         return f"seg_cumsum_i64, flags {m[1]}"
@@ -437,6 +449,21 @@ def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
     _check(lib, "onehot_segment_sums", rc)
     LAUNCHES["onehot_segment_sums"] += 1
     return out
+
+
+def onehot_route(dp: int, dtypes: tuple[torch.dtype, ...],
+                 n: int) -> dict[str, int]:
+    """The launch onehot_segment_sums makes on the card for dp slots, lanes
+    of these dtypes and n rows: private (1: one copy of the accumulators
+    per thread, plain adds) or shared (0: copies shared by a warp, shared
+    atomics), copies per block, threads, blocks, tile rows, dynamic shared
+    memory per block, blocks an SM holds and one stage buffer's bytes."""
+    lib = build()
+    k = len(dtypes)
+    codes = (ctypes.c_int * k)(*[ONEHOT_DTYPES.index(d) for d in dtypes])
+    info = (ctypes.c_int * len(ONEHOT_ROUTE_KEYS))()
+    _check(lib, "onehot_route", lib.aq_onehot_route(k, codes, dp, n, info))
+    return dict(zip(ONEHOT_ROUTE_KEYS, info))
 
 
 def fused_running_stats(x: torch.Tensor):

@@ -49,9 +49,11 @@ from __future__ import annotations
 
 import collections
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -93,6 +95,7 @@ TRADES = {
     "max_stddevs": ("SELECT stocksymbol, MAX(stddevs(3, price)) AS m "
                     "FROM trades ASSUMING ASC time GROUP BY stocksymbol"),
 }
+ONEHOT_SHAPES = ("q1", "q2", "q4", "q9")   # the dense tier's queries
 NAS_QUERIES = ("q1", "q2", "q3", "q4", "q5", "q7", "q9", "q10")
 KEYS = {"q1": ["id1"], "q2": ["id1", "id2"], "q3": ["id3"], "q4": ["id4"],
         "q5": ["id6"], "q6": ["id4", "id5"], "q7": ["id3"], "q8": ["id6"],
@@ -238,7 +241,7 @@ def exact(lane, g, w, f) -> bool:
     return ok and torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
 
 
-def check_kernels(dev) -> list[dict]:
+def check_kernels(dev, data) -> list[dict]:
     rng = np.random.default_rng(SEED)
     flags = flag_cases(rng, dev)
 
@@ -257,7 +260,7 @@ def check_kernels(dev) -> list[dict]:
           f"running sum of |x|)", flush=True)
     torch.cuda.synchronize()
 
-    onehot_err, onehot_timed = check_onehot(rng, dev)
+    onehot_err, onehot_timed = check_onehot(rng, dev, data)
     run_err, run_timed = check_running(rng, dev)
 
     # the main path's shapes, at the q3/q7-like density of 0.1
@@ -380,46 +383,115 @@ def check_multi(rng, dev, flags, x64):
     return err[4], err[8], [c[:3] for c in calls if c[3]]
 
 
-def check_onehot(rng, dev):
+def capture_onehot(dev, data) -> dict:
+    """The (code, lanes, dp) of the first onehot_segment_sums call of each
+    dense query (q1 q2 q4 q9) on G1_1e7_1e1_0_0: the main path's inputs,
+    its lanes as fused_groupby._build_lanes builds them."""
+    db = connect(device=dev)
+    load(db, "source", data, dev)
+    real, calls, query = K.onehot_segment_sums, {}, [None]
+
+    def spy(code, lanes, dp):
+        calls.setdefault(query[0], (code, tuple(lanes), dp))
+        return real(code, lanes, dp)
+    K.onehot_segment_sums = spy
+    try:
+        for q in ONEHOT_SHAPES:
+            query[0] = q
+            db.execute(QUERIES[q])
+    finally:
+        K.onehot_segment_sums = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def route_line(dp, lanes, n) -> str:
+    r = K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
+    return (f"{'private' if r['private'] else 'shared'} route, "
+            f"{r['copies']} copies, {r['threads']} threads x {r['blocks']} "
+            f"blocks ({r['blocks_per_sm']} an SM), {r['tile_rows']}-row "
+            f"tiles, {r['smem']} B shared memory a block")
+
+
+def private_limit(dtypes) -> int:
+    """The largest dp whose lanes of these dtypes take the private route."""
+    dp = 1
+    while K.onehot_route(dp + 1, dtypes, CAP)["private"]:
+        dp += 1
+    return dp
+
+
+def check_onehot(rng, dev, data):
     """onehot_segment_sums equal to its plain version (torch.equal) over
-    dp 2, 11, 101, 513 with 6 mixed lanes, and with every row in one slot;
-    then timed at the shapes q1 and q9 give it."""
-    x64 = rng.integers(2**62 - 2**20, 2**62, CAP)
-    x64[rng.random(CAP) < 0.3] *= -1                 # sums wrap past ±2^63
-    lanes = (torch.from_numpy(x64).to(dev),
-             torch.from_numpy(rng.integers(-2**31, 2**31 - 1, CAP)
-                              .astype(np.int32)).to(dev),
-             torch.from_numpy(rng.random(CAP) < 0.5).to(dev),
-             torch.from_numpy(rng.integers(-5, 6, CAP)).to(dev),
-             torch.from_numpy(rng.integers(0, 15, CAP).astype(np.int32)
-                              ).to(dev),
-             torch.from_numpy(rng.random(CAP) < 0.999).to(dev))
-    cases = [(dp, torch.from_numpy(rng.integers(0, dp, CAP).astype(np.int32)
-                                   ).to(dev)) for dp in (2, 11, 101, 513)]
-    cases.append((513, torch.full((CAP,), 7, dtype=torch.int32, device=dev)))
+    dp 2, 11, 101, 513 with 6 mixed lanes; every row in one slot on each
+    route; q4's 8-lane mix of the NA variant (4 bool, 2 int32, 2 int64);
+    dp x k at the private route's limit and one past it; codes and lanes
+    that are views at odd offsets; and 1, 15, 17, a tile - 1, a tile, a
+    tile + 1 and five tiles + 123 rows on each route, aligned and not.
+    Then timed at the inputs the main path gives it at q1 q2 q4 q9, each
+    beside its route and the one index_add_ that computes the same sums."""
+    def col(a):
+        return torch.from_numpy(a).to(dev)
+    x64 = rng.integers(2**62 - 2**20, 2**62, CAP + 3)
+    x64[rng.random(CAP + 3) < 0.3] *= -1             # sums wrap past ±2^63
+    x64 = col(x64)
+    x32 = col(rng.integers(-2**31, 2**31 - 1, CAP + 3).astype(np.int32))
+    b50 = col(rng.random(CAP + 3) < 0.5)
+    lanes = (x64[:CAP], x32[:CAP], b50[:CAP],
+             col(rng.integers(-5, 6, CAP)),
+             col(rng.integers(0, 15, CAP).astype(np.int32)),
+             col(rng.random(CAP) < 0.999))
+    # q4 with NAs: counts, then (:cnt, :sum) for v1 and v2, (:cnt, #A, #B)
+    # for v3
+    na8 = (b50[:CAP], lanes[5], x32[:CAP], b50[1:CAP + 1], lanes[4],
+           lanes[5], x64[:CAP], lanes[3])
+    q4 = (b50[:CAP], x32[:CAP], lanes[4], x64[:CAP], lanes[3])
+    codes = {dp: col(rng.integers(0, dp, CAP + 1).astype(np.int32))
+             for dp in (2, 11, 101, 513)}
+    cases = [(f"dp {dp}, 6 lanes", codes[dp][:CAP], lanes, dp)
+             for dp in codes]
+    cases += [
+        ("every row in slot 7, dp 513", torch.full(
+            (CAP,), 7, dtype=torch.int32, device=dev), lanes, 513),
+        ("every row in slot 3, dp 11", torch.full(
+            (CAP,), 3, dtype=torch.int32, device=dev), q4, 11),
+        ("q4's 8-lane NA mix, dp 11", codes[11][:CAP], na8, 11),
+        ("q4's 8-lane NA mix, dp 101 (copies shared by warps)",
+         codes[101][:CAP], na8, 101)]
+    lim = private_limit(tuple(x.dtype for x in q4))
+    for dp in (lim, lim + 1):
+        c = col(rng.integers(0, dp, CAP).astype(np.int32))
+        cases.append((f"q4's lanes at dp {dp} ({'at' if dp == lim else 'one past'}"
+                      f" the private route's limit)", c, q4, dp))
+    n = CAP - 3
+    odd = (x64[3:n + 3], x32[1:n + 1], b50[3:n + 3], x64[1:n + 1],
+           b50[1:n + 1])
+    for dp in (11, 101):
+        cases.append((f"views at offsets 1 and 3, dp {dp}",
+                      codes[dp][1:n + 1], odd, dp))
+    for dp in (11, 101):
+        tile = K.onehot_route(dp, tuple(x.dtype for x in q4), CAP)["tile_rows"]
+        for n in (1, 15, 17, tile - 1, tile, tile + 1, 5 * tile + 123):
+            for off in (0, 3):
+                cases.append((f"{n} rows at offset {off}, dp {dp}",
+                              codes[dp][off:off + n],
+                              tuple(x[off:off + n] for x in q4), dp))
     err = 0.0
-    for dp, code in cases:
-        got = K.onehot_segment_sums(code, lanes, dp)
-        want = K.onehot_segment_sums_plain(code, lanes, dp)
+    for label, code, ls, dp in cases:
+        got = K.onehot_segment_sums(code, ls, dp)
+        want = K.onehot_segment_sums_plain(code, ls, dp)
         err = max(err, max_abs_err(got, want))
         if not torch.equal(got, want):
-            raise AssertionError(f"onehot_segment_sums differs (dp {dp}): "
+            raise AssertionError(f"onehot_segment_sums differs ({label}): "
                                  f"max |err| {max_abs_err(got, want)}")
+    print(f"# onehot_segment_sums equal to its plain version in {len(cases)} "
+          f"cases; q4's lanes take the private route up to dp {lim} "
+          f"({lim * len(q4)} entries): dp {lim} {route_line(lim, q4, CAP)}; "
+          f"dp {lim + 1} {route_line(lim + 1, q4, CAP)}; the 8-lane NA mix "
+          f"at dp 101: {route_line(101, na8, CAP)}", flush=True)
 
-    # the main path's shapes: codes of 1e7 valid rows, the rest in the
-    # overflow slot; q1 = (counts, sum(v1)); q9 = counts and corr's five
-    # sums (int32 sx, sy; int64 sxy, sx2, sy2)
-    valid = torch.arange(CAP, device=dev) < ROWS
-    v1 = torch.from_numpy(rng.integers(1, 6, CAP).astype(np.int32)).to(dev)
-    v2 = torch.from_numpy(rng.integers(1, 16, CAP).astype(np.int32)).to(dev)
-    v1, v2 = v1 * valid, v2 * valid
-    w1, w2 = v1.to(torch.int64), v2.to(torch.int64)
-    shapes = {"q1": (11, (valid, v1)),
-              "q9": (101, (valid, v1, v2, w1 * w2, w1 * w1, w2 * w2))}
     timed = {}
-    for q, (dp, ls) in shapes.items():
-        code = torch.where(valid, torch.from_numpy(
-            rng.integers(0, dp - 1, CAP).astype(np.int32)).to(dev), dp - 1)
+    for q, (code, ls, dp) in capture_onehot(dev, data).items():
         got = K.onehot_segment_sums(code, ls, dp)
         if not torch.equal(got, K.onehot_segment_sums_plain(code, ls, dp)):
             raise AssertionError(f"onehot_segment_sums differs at {q}")
@@ -437,18 +509,52 @@ def check_onehot(rng, dev):
         nbytes = (code.numel() * code.element_size()
                   + sum(x.numel() * x.element_size() for x in ls)
                   + got.numel() * got.element_size())
+        kinds = ", ".join(str(x.dtype).removeprefix("torch.") for x in ls)
+        print(f"# onehot_segment_sums at {q}: {code.numel()} rows, dp {dp}, "
+              f"lanes ({kinds}): {route_line(dp, ls, code.numel())}",
+              flush=True)
         timed[q] = time_shape(
-            f"onehot_segment_sums at {q}'s shape (dp {dp}, {len(ls)} "
+            f"onehot_segment_sums at {q}'s inputs (dp {dp}, {len(ls)} "
             f"lanes)", lambda: K.onehot_segment_sums(code, ls, dp),
             lambda: K.onehot_segment_sums_plain(code, ls, dp), nbytes)
         timed[q]["library_ms"] = cuda_ms(library)
-        print(f"# index_add_ of the [n, {len(ls)}] int64 source at {q}'s "
-              f"shape: {timed[q]['library_ms']:.4f} ms", flush=True)
+        timed[q]["route"] = K.onehot_route(dp, tuple(x.dtype for x in ls),
+                                           code.numel())
+        print(f"# index_add_ of the [n, {len(ls)}] int64 source at {q}: "
+              f"{timed[q]['library_ms']:.4f} ms", flush=True)
+    if sorted(timed) != sorted(ONEHOT_SHAPES):
+        raise AssertionError(f"dense queries called onehot_segment_sums: "
+                             f"{sorted(timed)}")
     row = {k: timed["q9"][k] for k in ("ms", "ms_with_host", "plain_ms",
                                        "bound_ms", "share_of_bound",
                                        "library_ms")}
     row["shapes"] = list(timed.values())
     return err, row
+
+
+def sass_atomics() -> dict[str, collections.Counter]:
+    """The atomic instructions of each onehot_segment_sums instantiation in
+    the built library's SASS (cuobjdump -sass): whether its shared 64-bit
+    add is one ATOMS.ADD.64 or a compare-and-swap loop. Empty when the
+    toolkit has no cuobjdump."""
+    tool = Path(K._nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(K.library_path())],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    per, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = K._kernel_name(m[1]) if "onehot" in m[1] else None
+            if name:
+                per[name] = collections.Counter()
+        elif name:
+            m = re.search(r"\b(?:ATOMS|ATOMG|ATOM|RED)\.[\w.]+", line)
+            if m:
+                per[name][m[0]] += 1
+    return per
 
 
 def check_running(rng, dev):
@@ -700,9 +806,8 @@ def load(db, name, arrays, dev, **kw) -> None:
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def run_slice(dev) -> dict[str, dict[str, int]]:
+def run_slice(dev, data) -> dict[str, dict[str, int]]:
     """The h2o queries and the computed-key query on G1_1e7_1e1_0_0."""
-    data = h2o_g1(ROWS, K_GROUPS, SEED)
     db = connect(device=dev)
     load(db, "source", data, dev)
 
@@ -855,20 +960,25 @@ def main() -> int:
           f"python {sys.version.split()[0]}", flush=True)
 
     t0 = time.perf_counter()
-    K.build()
+    lib = K.build()
     phase("2. build")
     print(f"# built {K.library_path().name} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     ptxas = {r["kernel"]: r for r in K.ptxas_report()}
     for r in ptxas.values():
         print(f"# ptxas {r['kernel']}: {ptxas_line(r)}")
+    for name, ops in sass_atomics().items():
+        print(f"# SASS atomics of {name}: {dict(sorted(ops.items()))}")
+    if lib.aq_onehot_max_entries() != K.ONEHOT_MAX_ENTRIES:
+        raise AssertionError("ONEHOT_MAX_ENTRIES differs from the kernel's")
 
-    rows = check_kernels(dev)
+    data = h2o_g1(ROWS, K_GROUPS, SEED)
+    rows = check_kernels(dev, data)
     phase("3. kernels vs plain: equal")
 
     scans = collections.Counter()
     untally = tally_scans(scans)
-    launches = run_slice(dev)
+    launches = run_slice(dev, data)
     launches.update(run_trades(dev))
     launches.update(run_nas(dev))
     untally()

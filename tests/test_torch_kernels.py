@@ -325,6 +325,25 @@ def _onehot_case(name, rng):
         n, dp = 32768, 8
         return ((np.arange(n) % dp).astype(np.int32),
                 {"s": np.full(n, 63, np.int32)}, dp, {"s": 63})
+    if name in ("q4_lanes", "na8_lanes", "ragged_16383", "ragged_1009"):
+        # q4's lanes as the dense tier builds them: counts, avg(v1) and
+        # avg(v2) sums, v3's two float32 limbs; with NAs each aggregate
+        # adds its bool :cnt lane
+        n = {"ragged_16383": 16383, "ragged_1009": 1009}.get(name, n)
+        dp = 11
+        code = rng.integers(0, dp, n).astype(np.int32)
+        cnt = rng.random(n) < 0.95
+        lanes = {"__counts__": cnt}
+        for v, hi in (("v1", 6), ("v2", 16)):
+            if name == "na8_lanes":
+                lanes[v + ":cnt"] = cnt & (rng.random(n) < 0.95)
+            lanes[v + ":sum"] = np.where(cnt, rng.integers(1, hi, n),
+                                         0).astype(np.int32)
+        if name == "na8_lanes":
+            lanes["v3:cnt"] = cnt & (rng.random(n) < 0.95)
+        lanes["v3#A"] = rng.integers(0, 100 << 14, n)
+        lanes["v3#B"] = rng.integers(-2**37, 2**37, n)
+        return code, lanes, dp, {}
     dp = {"dp2": 2, "dp16": 16, "dp101_six_lanes": 101, "dp513": 513,
           "one_slot": 11}[name]
     code = rng.integers(0, dp, n).astype(np.int32)
@@ -348,17 +367,44 @@ def _add_at(code, v, dp):
     return out
 
 
+def _views(code, lanes):
+    """The codes as a view at offset 1 and the lanes at 3, 1, 0, 3, ...
+    (torch slices of longer tensors), with the numpy rows they hold."""
+    n = len(code) - 3
+    tcode = torch.from_numpy(code)[1:1 + n]
+    tl, nl = [], {}
+    for j, (t, v) in enumerate(lanes.items()):
+        off = (3, 1, 0)[j % 3]
+        tl.append(torch.from_numpy(v)[off:off + n])
+        nl[t] = v[off:off + n]
+    return tcode, tl, code[1:1 + n], nl
+
+
 @pytest.mark.parametrize("case", ["dp2", "dp16", "dp101_six_lanes", "dp513",
-                                  "one_slot", "superblock"])
+                                  "one_slot", "superblock", "q4_lanes",
+                                  "na8_lanes", "odd_offsets", "ragged_16383",
+                                  "ragged_1009"])
 def test_onehot_segment_sums_matches_pallas(case, rng):
-    code, lanes, dp, bounds = _onehot_case(case, rng)
+    """The port against _pallas_onehot_reduce and np.add.at: slot counts
+    and lane dtypes, q4's lanes and the NA variant's 8-lane mix, views at
+    odd offsets and lengths that are not a multiple of 16."""
+    code, lanes, dp, bounds = _onehot_case(
+        "dp101_six_lanes" if case == "odd_offsets" else case, rng)
     tags = list(lanes)
-    got = K.onehot_segment_sums(torch.from_numpy(code),
-                                tuple(torch.from_numpy(lanes[t])
-                                      for t in tags), dp)
+    if case == "odd_offsets":
+        tcode, tlanes, code, lanes = _views(code, lanes)
+        assert tcode.storage_offset() == 1 and tcode.is_contiguous()
+    else:
+        tcode = torch.from_numpy(code)
+        tlanes = [torch.from_numpy(lanes[t]) for t in tags]
+    got = K.onehot_segment_sums(tcode, tuple(tlanes), dp)
     assert got.dtype == torch.int64 and tuple(got.shape) == (dp, len(tags))
+    # the Pallas kernel takes whole 1024-row blocks: rows of zeros in slot
+    # 0 pad it there and add nothing
+    pad = -len(code) % 1024
     want = JR._pallas_onehot_reduce(
-        jnp.asarray(code), {t: jnp.asarray(v) for t, v in lanes.items()},
+        jnp.asarray(np.pad(code, (0, pad))),
+        {t: jnp.asarray(np.pad(v, (0, pad))) for t, v in lanes.items()},
         dp - 1, bounds=bounds, interpret=True)
     for j, t in enumerate(tags):
         np.testing.assert_array_equal(got[:, j].numpy(), np.asarray(want[t]),

@@ -97,6 +97,13 @@ def test_ptxas_report_names_the_scans(tmp_path, monkeypatch):
          "spill_stores": 0, "spill_loads": 0, "registers": 32}]
 
 
+def test_ptxas_report_names_onehot_routes():
+    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi5ELb1EEEvNS_6Params"
+                          "E") == "onehot_segment_sums 5 lanes, private"
+    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi8ELb0EEEvNS_6Params"
+                          "E") == "onehot_segment_sums 8 lanes, shared"
+
+
 def test_lookback_diag_summarizes_tile_records():
     """Two SMs, each holding two blocks at a time over its span: two blocks
     resident; the phases' shares of the blocks' cycles."""
@@ -144,6 +151,38 @@ def _assert_equal(got, want):
         if g.is_floating_point():
             assert torch.equal(g.isnan(), w.isnan())
         assert torch.equal(torch.nan_to_num(g), torch.nan_to_num(w))
+
+
+_Q4_LANES = (torch.bool, torch.int32, torch.int32, torch.int64, torch.int64)
+_NA8_LANES = (torch.bool,) * 4 + (torch.int32,) * 2 + (torch.int64,) * 2
+
+
+def _onehot_views(rng, case, dev):
+    """onehot_segment_sums at the case's rows counted in its own tiles, on
+    q4's lanes and the NA variant's 8-lane mix: the codes as views at
+    offsets 0, 1 and 3 and each lane at another offset in 0..3 (aligned
+    and not), at dp 11 and 101 (each route) and at the
+    private route's limit for q4's lanes and one past it."""
+    lim = 1
+    while K.onehot_route(lim + 1, _Q4_LANES, 1 << 20)["private"]:
+        lim += 1
+    for dtypes in (_Q4_LANES, _NA8_LANES):
+        for dp in (11, 101, lim, lim + 1):
+            n = _rows(case, K.onehot_route(dp, dtypes, 1 << 20)["tile_rows"])
+            cols = [torch.from_numpy(
+                rng.random(n + 3) < 0.5 if dt == torch.bool
+                else rng.integers(-2**62, 2**62, n + 3) if dt == torch.int64
+                else rng.integers(-2**31, 2**31 - 1, n + 3).astype(np.int32)
+            ).to(dev) for dt in dtypes]
+            code = torch.from_numpy(
+                rng.integers(0, dp, n + 3).astype(np.int32)).to(dev)
+            for off in (0, 1, 3):
+                c = code[off:off + n]
+                ls = tuple(x[(off + j) % 4:(off + j) % 4 + n]
+                           for j, x in enumerate(cols))
+                assert torch.equal(K.onehot_segment_sums(c, ls, dp),
+                                   K.onehot_segment_sums_plain(c, ls, dp)), (
+                    dtypes, dp, n, off)
 
 
 @pytest.mark.gpu
@@ -214,6 +253,7 @@ def test_kernels_match_plain_on_card(case):
         code = torch.from_numpy(rng.integers(0, dp, n).astype(np.int32)).to(dev)
         assert torch.equal(K.onehot_segment_sums(code, lanes4, dp),
                            K.onehot_segment_sums_plain(code, lanes4, dp))
+    _onehot_views(rng, case, dev)
     xr = torch.nan_to_num(xf)               # NaN-free sums; NaN min/max
     got = K.fused_running_stats(xr)
     exact = torch.cumsum(xr.double(), 0)
