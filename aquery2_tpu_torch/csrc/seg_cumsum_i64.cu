@@ -31,6 +31,7 @@ struct AddI64 {
   using W = unsigned long long;
   using V = aq::Words<W, 1>;
   static constexpr int kLanes = 1;
+  static constexpr bool kOneInput = false;
   const W* x[1];
   W* out[1];
 
@@ -56,6 +57,11 @@ extern "C" {
 // Rows per tile: the wrapper sizes its scratch from ntiles = ceil(n / tile).
 int aq_seg_cumsum_i64_tile_rows() {
   return aq::lookback_rows<AddI64::W, AddI64::kLanes>();
+}
+
+// out[0] threads and out[1] bytes of dynamic shared memory of a block.
+int aq_seg_cumsum_i64_block(int* out) {
+  return aq::lookback_block<AddI64>(out);
 }
 
 // flags: uint8[n] or NULL (one unsegmented sum). x, out: int64[n].

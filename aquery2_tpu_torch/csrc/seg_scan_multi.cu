@@ -15,10 +15,9 @@
 // sums of ops/scan.py. The card has native 64-bit words, so those lanes take
 // the same scan.
 //
-// min/max propagate NaN as jnp.minimum/jnp.maximum do, keeping the earlier
-// NaN (fminf/fmaxf and fmin/fmax drop NaN, so they are not used). int32 add
-// wraps mod 2^32 and int64 add mod 2^64 (unsigned words, as seg_cumsum_i64
-// adds).
+// The ops (lane_ops.cuh, shared with fused_running_stats.cu): min/max
+// propagate NaN as jnp.minimum/jnp.maximum do, keeping the earlier NaN;
+// int32 add wraps mod 2^32 and int64 add mod 2^64.
 //
 // Bound: bytes. Per 32-bit lane 8 B/row and per 64-bit lane 16 B/row (read
 // once, written once) plus 1 B/row of flags: 3 x 32-bit lanes 25 B/row,
@@ -33,105 +32,12 @@
 // look-back meets a predecessor's aggregate or its inclusive prefix depends
 // on timing, and so does the association of the float adds across tiles.
 // Integer lanes, min/max and integer-valued float sums are exact.
+#include "lane_ops.cuh"
 #include "segscan.cuh"
 
 namespace aq_multi {
 
-using U64 = unsigned long long;
-
-// code = dtype * 3 + op; dtype 0 = float32, 1 = int32, 2 = float64,
-// 3 = int64; op 0 = add, 1 = min, 2 = max. Values travel as their bit
-// patterns in words of the lane's width.
-enum : int {
-  kAddF32 = 0, kMinF32 = 1, kMaxF32 = 2,
-  kAddI32 = 3, kMinI32 = 4, kMaxI32 = 5,
-  kAddF64 = 6, kMinF64 = 7, kMaxF64 = 8,
-  kAddI64 = 9, kMinI64 = 10, kMaxI64 = 11,
-};
-
-__device__ __forceinline__ float as_f(uint32_t u) { return __uint_as_float(u); }
-__device__ __forceinline__ uint32_t as_u(float f) { return __float_as_uint(f); }
-__device__ __forceinline__ double as_d(U64 u) {
-  return __longlong_as_double((long long)u);
-}
-__device__ __forceinline__ U64 as_u(double d) {
-  return (U64)__double_as_longlong(d);
-}
-
-__device__ __forceinline__ uint32_t identity1(int code, uint32_t) {
-  switch (code) {
-    case kMinF32: return 0x7f800000u;          // +inf
-    case kMaxF32: return 0xff800000u;          // -inf
-    case kMinI32: return 0x7fffffffu;          // INT32_MAX
-    case kMaxI32: return 0x80000000u;          // INT32_MIN
-    default: return 0u;                        // 0 and 0.0f
-  }
-}
-
-__device__ __forceinline__ U64 identity1(int code, U64) {
-  switch (code) {
-    case kMinF64: return 0x7ff0000000000000ull;   // +inf
-    case kMaxF64: return 0xfff0000000000000ull;   // -inf
-    case kMinI64: return 0x7fffffffffffffffull;   // INT64_MAX
-    case kMaxI64: return 0x8000000000000000ull;   // INT64_MIN
-    default: return 0ull;                         // 0 and 0.0
-  }
-}
-
-// NaN-propagating min/max of two floating values given as words.
-template <class F, class W>
-__device__ __forceinline__ W nan_pick(W a, W b, F x, F y, bool is_min) {
-  if (x != x) return a;
-  if (y != y) return b;
-  return (is_min ? y < x : y > x) ? b : a;
-}
-
-__device__ __forceinline__ uint32_t combine1(int code, uint32_t a, uint32_t b) {
-  switch (code) {
-    case kAddF32:
-      return as_u(as_f(a) + as_f(b));
-    case kMinF32:
-      return nan_pick(a, b, as_f(a), as_f(b), true);
-    case kMaxF32:
-      return nan_pick(a, b, as_f(a), as_f(b), false);
-    case kAddI32:
-      return a + b;
-    case kMinI32:
-      return (int32_t)b < (int32_t)a ? b : a;
-    case kMaxI32:
-      return (int32_t)b > (int32_t)a ? b : a;
-  }
-  return a;
-}
-
-__device__ __forceinline__ U64 combine1(int code, U64 a, U64 b) {
-  switch (code) {
-    case kAddF64:
-      return as_u(as_d(a) + as_d(b));
-    case kMinF64:
-      return nan_pick(a, b, as_d(a), as_d(b), true);
-    case kMaxF64:
-      return nan_pick(a, b, as_d(a), as_d(b), false);
-    case kAddI64:
-      return a + b;
-    case kMinI64:
-      return (long long)b < (long long)a ? b : a;
-    case kMaxI64:
-      return (long long)b > (long long)a ? b : a;
-  }
-  return a;
-}
-
-// One lane code as a type, for the row loops: the switches above fold away.
-template <int CODE, class W>
-struct Op {
-  static __device__ __forceinline__ W identity() {
-    return identity1(CODE, W());
-  }
-  static __device__ __forceinline__ W combine(W a, W b) {
-    return combine1(CODE, a, b);
-  }
-};
+using namespace aq_ops;   // the lane codes and their ops
 
 // The lane type of segscan.cuh: K lanes of words W (uint32_t or U64).
 template <class W_, int K>
@@ -139,6 +45,7 @@ struct Multi {
   using W = W_;
   using V = aq::Words<W, K>;
   static constexpr int kLanes = K;
+  static constexpr bool kOneInput = false;
   const W* x[K];
   W* out[K];
   int code[K];
@@ -214,6 +121,17 @@ int tile_rows(int k) {
   return 0;
 }
 
+template <class W>
+int block(int k, int* out) {
+  switch (k) {
+    case 1: return aq::lookback_block<Multi<W, 1>>(out);
+    case 2: return aq::lookback_block<Multi<W, 2>>(out);
+    case 3: return aq::lookback_block<Multi<W, 3>>(out);
+    case 4: return aq::lookback_block<Multi<W, 4>>(out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace aq_multi
 
 extern "C" {
@@ -224,6 +142,13 @@ extern "C" {
 int aq_seg_scan_multi_tile_rows(int k, int wide) {
   return wide ? aq_multi::tile_rows<aq_multi::U64>(k)
               : aq_multi::tile_rows<uint32_t>(k);
+}
+
+// out[0] threads and out[1] bytes of dynamic shared memory of a block of
+// that call. Returns cudaErrorInvalidValue for a bad k.
+int aq_seg_scan_multi_block(int k, int wide, int* out) {
+  return wide ? aq_multi::block<aq_multi::U64>(k, out)
+              : aq_multi::block<uint32_t>(k, out);
 }
 
 // flags: uint8[n] or NULL. k in 1..4. xs, outs: k device pointers to lanes

@@ -1,39 +1,25 @@
-// Inclusive segmented scans, shared by seg_cumsum_i64.cu, seg_scan_multi.cu
-// and fused_running_stats.cu.
+// Inclusive segmented scans in one pass, shared by seg_cumsum_i64.cu,
+// seg_scan_multi.cu and fused_running_stats.cu.
 //
 // A row whose flag is set starts a new segment; row 0 always starts fresh.
 // Segments combine as pairs (flag-seen, value-since-last-flag). The scans
-// are memory-bound, so the design is about device-memory passes. Two
-// routines:
+// are memory-bound, so the design is about device-memory passes:
+// launch_lookback makes one launch, one read of every input byte and one
+// write of every output byte: the single-pass scan with decoupled
+// look-back of Merrill & Garland, "Single-pass Parallel Prefix Scan with
+// Decoupled Look-back" (NVIDIA, 2016), with the segmented stopping rule.
+// See segscan_lookback below.
 //
-// * launch_lookback (seg_cumsum_i64, seg_scan_multi): one launch, one read
-//   of every input byte, one write of every output byte: the single-pass
-//   scan with decoupled look-back of Merrill & Garland, "Single-pass
-//   Parallel Prefix Scan with Decoupled Look-back" (NVIDIA, 2016), with
-//   the segmented stopping rule. See segscan_lookback below.
-// * launch_segscan (fused_running_stats): three phases, which read the
-//   input twice:
-//     1. tile_reduce:  each block folds one tile of kTile rows into a pair.
-//     2. tile_scan:    one block scans those pairs across tiles and leaves
-//                      each tile's carry-in in place of its pair.
-//     3. tile_rescan:  each block reloads its tile into registers, scans it
-//                      with the carry-in, then writes the outputs.
-//   Rows are blocked per thread (kItems consecutive rows each) and loaded
-//   straight from device memory, so a warp's load touches 32 rows kItems
-//   apart: uncoalesced. Its redesign is a later change.
-//
-// A lane type L describes the values being scanned:
-//   typename L::V                      the per-row value (all lanes of a row)
+// A lane type L describes the values being scanned: K lanes of words W
+// (V = Words<W, K>), each lane its own output array of n words:
+//   typename L::W, typename L::V, static constexpr int kLanes = K
+//   static constexpr bool kOneInput     false: K inputs, lane j reads x[j];
+//                                       true: every lane reads the one
+//                                       column x[0] (fused_running_stats)
+//   const W* x[K] (x[1] if kOneInput); W* out[K]
 //   V identity() const                 identity of combine
 //   V combine(V a, V b) const          associative; a is the earlier value
 //   V shfl_up(V v, int delta) const    __shfl_up_sync over every word of v
-// for launch_segscan also
-//   V load(int64_t row) const / void store(int64_t row, V v) const
-//   V load_tile(int t) const / void store_tile(int t, V v) const
-// and for launch_lookback, where V is Words<W, K> (K lanes of words W,
-// each lane its own array of n words):
-//   typename L::W, static constexpr int kLanes = K
-//   const W* x[K]; W* out[K];           the lanes' inputs and outputs
 //   void with_op(int j, F f) const      calls f(op) with an op type of lane
 //                                       j: static W identity(), static W
 //                                       combine(W a, W b)
@@ -60,10 +46,6 @@ __device__ __forceinline__ Words<W, K> words_shfl_up(const Words<W, K>& v,
   return r;
 }
 
-constexpr int kThreads = 256;                 // threads per block, phases 1 and 3
-constexpr int kItems = 16;                    // rows per thread
-constexpr int kTile = kThreads * kItems;      // rows per tile
-constexpr int kScanThreads = 1024;            // threads of the one phase-2 block
 constexpr unsigned kFull = 0xffffffffu;
 
 template <class L>
@@ -143,114 +125,6 @@ __device__ Seg<L> block_exclusive_scan(const L& lanes, const Seg<L>& x,
   return out;
 }
 
-// Phase 1: fold each tile into one pair.
-template <class L, bool HAS_FLAGS>
-__global__ void __launch_bounds__(kThreads)
-tile_reduce(L lanes, const uint8_t* __restrict__ flags,
-            int32_t* __restrict__ tile_f, int64_t n) {
-  const int64_t base =
-      (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  Seg<L> agg = seg_identity(lanes);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t row = base + i;
-    if (row < n) {
-      Seg<L> x;
-      x.v = lanes.load(row);
-      x.f = HAS_FLAGS ? (int)(flags[row] != 0) : 0;
-      agg = seg_combine(lanes, agg, x);
-    }
-  }
-  Seg<L> total;
-  block_exclusive_scan(lanes, agg, &total);
-  if (threadIdx.x == 0) {
-    lanes.store_tile(blockIdx.x, total.v);
-    tile_f[blockIdx.x] = total.f;
-  }
-}
-
-// Phase 2: one block turns the tile pairs into exclusive carry-ins.
-template <class L>
-__global__ void __launch_bounds__(kScanThreads)
-tile_scan(L lanes, int32_t* __restrict__ tile_f, int ntiles) {
-  Seg<L> running = seg_identity(lanes);
-  for (int start = 0; start < ntiles; start += blockDim.x) {
-    const int t = start + threadIdx.x;
-    Seg<L> x = seg_identity(lanes);
-    if (t < ntiles) {
-      x.v = lanes.load_tile(t);
-      x.f = tile_f[t];
-    }
-    Seg<L> total;
-    Seg<L> exc = block_exclusive_scan(lanes, x, &total);
-    if (t < ntiles) {
-      Seg<L> carry = seg_combine(lanes, running, exc);
-      lanes.store_tile(t, carry.v);
-      tile_f[t] = carry.f;
-    }
-    running = seg_combine(lanes, running, total);
-  }
-}
-
-// Phase 3: rescan each tile from registers with its carry-in.
-template <class L, bool HAS_FLAGS>
-__global__ void __launch_bounds__(kThreads)
-tile_rescan(L lanes, const uint8_t* __restrict__ flags,
-            const int32_t* __restrict__ tile_f, int64_t n) {
-  using V = typename L::V;
-  const int64_t base =
-      (int64_t)blockIdx.x * kTile + (int64_t)threadIdx.x * kItems;
-  V vals[kItems];
-  int fl[kItems];
-  Seg<L> agg = seg_identity(lanes);
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t row = base + i;
-    if (row < n) {
-      vals[i] = lanes.load(row);
-      fl[i] = HAS_FLAGS ? (int)(flags[row] != 0) : 0;
-    } else {
-      vals[i] = lanes.identity();
-      fl[i] = 0;
-    }
-    Seg<L> x;
-    x.v = vals[i];
-    x.f = fl[i];
-    agg = seg_combine(lanes, agg, x);
-  }
-  Seg<L> total;
-  Seg<L> exc = block_exclusive_scan(lanes, agg, &total);
-  Seg<L> carry;
-  carry.v = lanes.load_tile(blockIdx.x);
-  carry.f = tile_f[blockIdx.x];
-  V acc = seg_combine(lanes, carry, exc).v;
-#pragma unroll
-  for (int i = 0; i < kItems; ++i) {
-    const int64_t row = base + i;
-    acc = fl[i] ? vals[i] : lanes.combine(acc, vals[i]);
-    if (row < n) lanes.store(row, acc);
-  }
-}
-
-inline int num_tiles(int64_t n) { return (int)((n + kTile - 1) / kTile); }
-
-// Runs the three phases on `stream`; returns the first launch error.
-template <class L, bool HAS_FLAGS>
-cudaError_t launch_segscan(const L& lanes, const uint8_t* flags,
-                           int32_t* tile_f, int64_t n, cudaStream_t stream) {
-  const int ntiles = num_tiles(n);
-  tile_reduce<L, HAS_FLAGS><<<ntiles, kThreads, 0, stream>>>(lanes, flags,
-                                                            tile_f, n);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_scan<L><<<1, kScanThreads, 0, stream>>>(lanes, tile_f, ntiles);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  tile_rescan<L, HAS_FLAGS><<<ntiles, kThreads, 0, stream>>>(lanes, flags,
-                                                            tile_f, n);
-  return cudaGetLastError();
-}
-
 // ---------------------------------------------------------------------------
 // Single pass with decoupled look-back (Merrill & Garland 2016).
 //
@@ -273,6 +147,11 @@ cudaError_t launch_segscan(const L& lanes, const uint8_t* flags,
 //   4. publishes its inclusive prefix (status 2), rescans its rows from
 //      shared memory with the carry-in into the same slots, and writes
 //      them out as it loaded them.
+// A lane type with kOneInput (K statistics of one column) stages the
+// column once, and every lane folds and rescans it from there; step 4
+// rescans one lane at a time into a second buffer, which goes out before
+// the next lane's rescan. So its block holds two tile buffers, not K
+// (tile_buffers), and its tiles are those of two lanes.
 // Publishing: the value words, then __threadfence(), then the status word
 // with a release store; a reader spins on the status with acquire loads
 // and reads the words past L1. Aggregates and inclusive prefixes have
@@ -296,6 +175,14 @@ __host__ __device__ constexpr int lb_items() {
 
 enum : int { kEmpty = 0, kAggregate = 1, kInclusive = 2, kAggregateFlag = 3 };
 
+// Tile buffers a block of lane type L stages in shared memory: one a lane,
+// or for a one-input lane type two (the column, and one lane's results on
+// their way out). The tile geometry below is that of this many lanes.
+template <class L>
+__host__ __device__ constexpr int tile_buffers() {
+  return L::kOneInput ? 2 : L::kLanes;
+}
+
 // Rows per tile for K lanes of words W: lb_items rows for each of the
 // most threads (a multiple of 32) whose tiles of every lane fit the 48 KB
 // of shared memory a block gets without opting in, less 2 KB for the
@@ -313,6 +200,18 @@ __host__ __device__ constexpr int lookback_rows() {
   constexpr int fit =
       AQ_LOOKBACK_SMEM / (K * (int)sizeof(W) * items) / 32 * 32;
   return items * (fit < 4096 / items ? fit : 4096 / items);
+}
+
+// Threads and bytes of dynamic shared memory of one block of lane type L.
+template <class L>
+__host__ __device__ constexpr int lookback_threads() {
+  return lookback_rows<typename L::W, tile_buffers<L>()>() /
+         lb_items<typename L::W, tile_buffers<L>()>();
+}
+template <class L>
+__host__ __device__ constexpr int lookback_smem() {
+  return tile_buffers<L>() * lookback_rows<typename L::W, tile_buffers<L>()>() *
+         (int)sizeof(typename L::W);
 }
 
 // 16-byte chunk c of a lane's tile buffer sits at chunk swz(c): rows of
@@ -428,6 +327,23 @@ __device__ Seg<L> look_back(const L& lanes, const typename L::W* agg,
   }
 }
 
+// Writes a lane's tile buffer out to dst[0, rows): as it was loaded, one
+// 16-byte chunk a thread in turn where the tile is full and dst aligned,
+// else word by word.
+template <class W, int ROWS, int THREADS>
+__device__ __forceinline__ void store_tile(const W* lb, W* dst, int rows,
+                                           bool full) {
+  constexpr int P = 16 / (int)sizeof(W);
+  if (full && aligned16(dst)) {
+    for (int c = threadIdx.x; c < ROWS / P; c += THREADS)
+      *reinterpret_cast<uint4*>(dst + c * P) =
+          *reinterpret_cast<const uint4*>(lb + swz(c) * P);
+  } else {
+    for (int w = threadIdx.x; w < rows; w += THREADS)
+      dst[w] = lb[swz(w / P) * P + w % P];
+  }
+}
+
 // Whether row i of the thread's rows starts a segment (flag byte i).
 template <bool HAS_FLAGS, int N>
 __device__ __forceinline__ bool row_flag(const uint32_t (&fw)[N], int i) {
@@ -435,23 +351,23 @@ __device__ __forceinline__ bool row_flag(const uint32_t (&fw)[N], int i) {
 }
 
 template <class L, bool HAS_FLAGS>
-__global__ void __launch_bounds__(
-    lookback_rows<typename L::W, L::kLanes>() /
-    lb_items<typename L::W, L::kLanes>())
+__global__ void __launch_bounds__(lookback_threads<L>())
 segscan_lookback(L lanes, const uint8_t* __restrict__ flags,
                  typename L::W* agg, typename L::W* inc, int* status,
                  int64_t n, int ntiles) {
   using W = typename L::W;
   using V = typename L::V;
   constexpr int K = L::kLanes;
-  constexpr int ROWS = lookback_rows<W, K>();
-  constexpr int ITEMS = lb_items<W, K>();    // rows per thread
+  constexpr int B = tile_buffers<L>();
+  constexpr int ROWS = lookback_rows<W, B>();
+  constexpr int ITEMS = lb_items<W, B>();    // rows per thread
   constexpr int THREADS = ROWS / ITEMS;
   constexpr int P = 16 / (int)sizeof(W);     // words per 16-byte chunk
   constexpr int CHUNKS = ROWS / P;           // chunks per lane's tile
   constexpr int MINE = ITEMS / P;            // a thread's chunks per lane
+  constexpr bool ONE = L::kOneInput;         // every lane reads x[0]
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  W* buf = reinterpret_cast<W*>(smem_raw);   // K lanes x ROWS words
+  W* buf = reinterpret_cast<W*>(smem_raw);   // B buffers x ROWS words
   __shared__ int s_tile;
   __shared__ Seg<L> s_carry;
   AQ_DIAG(const long long c_entry = clock64();)
@@ -464,9 +380,10 @@ segscan_lookback(L lanes, const uint8_t* __restrict__ flags,
   const bool full = rows == ROWS;
   const V id = lanes.identity();
 
-  // 1. the tile into shared memory; rows past n hold the identity
+  // 1. the tile into shared memory; rows past n hold the identity (of lane
+  // 0 for a one-input tile: rows past n only follow the rows written out)
 #pragma unroll
-  for (int j = 0; j < K; ++j) {
+  for (int j = 0; j < (ONE ? 1 : K); ++j) {
     W* lb = buf + j * ROWS;
     const W* src = lanes.x[j] + base;
     if (full && aligned16(src)) {
@@ -509,7 +426,7 @@ segscan_lookback(L lanes, const uint8_t* __restrict__ flags,
   part.f = any_flag;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    const W* lb = buf + j * ROWS;
+    const W* lb = buf + (ONE ? 0 : j) * ROWS;
     lanes.with_op(j, [&](auto op) {
       using Op = decltype(op);
       W v = Op::identity();
@@ -553,19 +470,22 @@ segscan_lookback(L lanes, const uint8_t* __restrict__ flags,
   }
   __syncthreads();
 
-  // 4. rescan the thread's rows into their slots, then write them out
+  // 4. rescan the thread's rows into their slots (a one-input tile: each
+  // lane's from the column into the second buffer, which goes out before
+  // the next lane's), then write them out
   const V start = seg_combine(lanes, s_carry, exc).v;
 #pragma unroll
   for (int j = 0; j < K; ++j) {
-    W* lb = buf + j * ROWS;
+    const W* from = buf + (ONE ? 0 : j) * ROWS;
+    W* to = buf + (ONE ? 1 : j) * ROWS;
     lanes.with_op(j, [&](auto op) {
       using Op = decltype(op);
       W acc = start.w[j];
 #pragma unroll
       for (int q = 0; q < MINE; ++q) {
+        const int at = swz(threadIdx.x * MINE + q) * P;
         W words[P];
-        W* slot = lb + swz(threadIdx.x * MINE + q) * P;
-        uint4 c = *reinterpret_cast<const uint4*>(slot);
+        uint4 c = *reinterpret_cast<const uint4*>(from + at);
         memcpy(words, &c, 16);
 #pragma unroll
         for (int e = 0; e < P; ++e) {
@@ -574,23 +494,21 @@ segscan_lookback(L lanes, const uint8_t* __restrict__ flags,
           words[e] = acc;
         }
         memcpy(&c, words, 16);
-        *reinterpret_cast<uint4*>(slot) = c;
+        *reinterpret_cast<uint4*>(to + at) = c;
       }
     });
-  }
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < K; ++j) {
-    const W* lb = buf + j * ROWS;
-    W* dst = lanes.out[j] + base;
-    if (full && aligned16(dst)) {
-      for (int c = threadIdx.x; c < CHUNKS; c += THREADS)
-        *reinterpret_cast<uint4*>(dst + c * P) =
-            *reinterpret_cast<const uint4*>(lb + swz(c) * P);
-    } else {
-      for (int w = threadIdx.x; w < rows; w += THREADS)
-        dst[w] = lb[swz(w / P) * P + w % P];
+    if constexpr (ONE) {
+      __syncthreads();
+      store_tile<W, ROWS, THREADS>(to, lanes.out[j] + base, rows, full);
+      if (j + 1 < K) __syncthreads();   // the next lane rewrites `to`
     }
+  }
+  if constexpr (!ONE) {
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      store_tile<W, ROWS, THREADS>(buf + j * ROWS, lanes.out[j] + base, rows,
+                                   full);
   }
   AQ_DIAG(
     __syncthreads();
@@ -611,15 +529,23 @@ template <class L, bool HAS_FLAGS>
 cudaError_t launch_lookback(const L& lanes, const uint8_t* flags,
                             typename L::W* scratch, int* status, int64_t n,
                             cudaStream_t stream) {
-  using W = typename L::W;
   constexpr int K = L::kLanes;
-  constexpr int ROWS = lookback_rows<W, K>();
+  constexpr int ROWS = lookback_rows<typename L::W, tile_buffers<L>()>();
   const int ntiles = (int)((n + ROWS - 1) / ROWS);
-  const int smem = K * ROWS * (int)sizeof(W);   // at most 46 KB
   segscan_lookback<L, HAS_FLAGS>
-      <<<ntiles, ROWS / lb_items<W, K>(), smem, stream>>>(
+      <<<ntiles, lookback_threads<L>(), lookback_smem<L>(), stream>>>(
       lanes, flags, scratch, scratch + (size_t)K * ntiles, status, n, ntiles);
   return cudaGetLastError();
+}
+
+// The block of launch_lookback<L>, for the scans' *_block exports (read by
+// utils/lookback_diag.py): out[0] threads, out[1] bytes of dynamic shared
+// memory (at most 46 KB). Returns 0.
+template <class L>
+int lookback_block(int* out) {
+  out[0] = lookback_threads<L>();
+  out[1] = lookback_smem<L>();
+  return 0;
 }
 
 }  // namespace aq

@@ -26,19 +26,18 @@ of its four TPU kernels.
 
 The scans are memory-bound with a carry across blocks. Blocks of a CUDA
 grid run in no order, so the TPU kernels' sequential carry in SMEM needs
-another way across tiles (csrc/segscan.cuh). seg_cumsum_i64 and
-seg_scan_multi take one launch with a decoupled look-back (Merrill &
-Garland 2016): each tile publishes its fold, finds its carry-in from its
-predecessors' published folds and prefixes, and rescans its rows from
-shared memory, so every input byte is read once and every output byte
-written once: 17 B/row for the int64 sum, 8 B/row per 32-bit lane and
-16 B/row per 64-bit lane plus 1 B/row of flags for seg_scan_multi. Their
-wrappers zero the status words and tile counter (``torch.zeros``) before
-each launch. Float add lanes are not bit-reproducible from run to run
-(the look-back's association depends on timing); integer lanes, min/max
-and integer-valued float sums are exact. fused_running_stats still takes
-the three-phase scan (fold each tile, scan the folds in one block, rescan
-each tile), which reads its input twice: 20 B/row.
+another way across tiles (csrc/segscan.cuh). Each scan is one launch with
+a decoupled look-back (Merrill & Garland 2016): each tile publishes its
+fold, finds its carry-in from its predecessors' published folds and
+prefixes, and rescans its rows from shared memory, so every input byte is
+read once and every output byte written once: 17 B/row for the int64 sum,
+8 B/row per 32-bit lane and 16 B/row per 64-bit lane plus 1 B/row of flags
+for seg_scan_multi, and 16 B/row for fused_running_stats, whose column is
+staged once for its three statistics. The wrappers zero the status words
+and tile counter (``torch.zeros``) before each launch. Float add lanes and
+the running sums are not bit-reproducible from run to run (the
+look-back's association depends on timing); integer lanes, min/max and
+integer-valued float sums are exact.
 onehot_segment_sums reads its inputs once, in tiles staged by 16-byte
 copies (any pointer alignment, any length), and adds into private
 per-thread copies of the accumulators where they fit, else into one copy
@@ -179,6 +178,8 @@ def _kernel_name(mangled: str) -> str:
     if m:
         return (f"onehot_segment_sums {m[1]} lanes, "
                 f"{'private' if m[2] == '1' else 'shared'}")
+    if re.search(r"segscan_lookbackIN10aq_running8RunStatsE", mangled):
+        return "fused_running_stats 3 x float32, one input"
     m = re.search(r"segscan_lookbackIN6aq_i646AddI64ELb(\d)", mangled)
     if m:
         return f"seg_cumsum_i64, flags {m[1]}"
@@ -469,8 +470,9 @@ def onehot_route(dp: int, dtypes: tuple[torch.dtype, ...],
 def fused_running_stats(x: torch.Tensor):
     """Running (sums, mins, maxs) of a 1-D column in one scan, each float32
     of x's length; x is taken as float32, as in the JAX package. min and
-    max propagate NaN. Any length (the TPU kernel's multiple of 8192 was
-    its tile)."""
+    max propagate NaN. Any length and alignment (the TPU kernel's multiple
+    of 8192 was its tile). On the card the sums are not bit-reproducible
+    from run to run; min, max and integer-valued sums are exact."""
     if x.dim() != 1:
         raise ValueError(f"fused_running_stats takes a 1-D column, got "
                          f"{tuple(x.shape)}")
@@ -484,13 +486,12 @@ def fused_running_stats(x: torch.Tensor):
         return outs
     lib = build()
     ntiles = -(-n // lib.aq_fused_running_stats_tile_rows())
-    tile_v = torch.empty(3 * ntiles, dtype=torch.float32, device=x.device)
-    tile_f = torch.empty(ntiles, dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
+        scratch, status = _lookback_scratch(ntiles, 3, x)
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.aq_fused_running_stats(
-            x.data_ptr(), *[o.data_ptr() for o in outs], tile_v.data_ptr(),
-            tile_f.data_ptr(), n, stream)
+            x.data_ptr(), *[o.data_ptr() for o in outs], scratch.data_ptr(),
+            status.data_ptr(), n, stream)
     _check(lib, "fused_running_stats", rc)
     LAUNCHES["fused_running_stats"] += 1
     return outs

@@ -1,16 +1,19 @@
 """Diagnostics of the single-pass scans (csrc/segscan.cuh) on one CUDA
 card: how many blocks an SM holds, where a block's time goes, and how the
-tile's shared-memory budget moves the kernel's time.
+tile's shared-memory budget moves the kernel's time. The scans are
+seg_cumsum_i64, seg_scan_multi and fused_running_stats.
 
     python -m aquery2_tpu_torch.utils.lookback_diag [--out DIR]
 
 Run from the root of a checkout: it builds variants of the kernels'
 library beside the plain one (build/aquery2_tpu_torch/), all at once. At
 the main path's shapes (12,582,912 rows, flag density 0.1; the int64 sum
-also without flags, where the look-back walks to an inclusive prefix):
+also without flags, where the look-back walks to an inclusive prefix, and
+fused_running_stats, which has no flags):
   1. per single-pass instantiation, ptxas' registers, spills, stack and
-     static shared memory, its threads and dynamic shared memory, and
-     the blocks an SM could hold by each of its limits;
+     static shared memory, its threads and dynamic shared memory (as the
+     library's aq_<scan>_block reports its launch), and the blocks an SM
+     could hold by each of its limits;
   2. a build with -DAQ_LOOKBACK_DIAG, whose blocks record per tile their
      SM and clock64() at entry, once loaded, once scanned, after the
      look-back and once written: the blocks an SM held on average (the
@@ -52,19 +55,27 @@ DIAG = ("-DAQ_LOOKBACK_DIAG",)
 DEFAULT_BUDGET = 47104           # segscan.cuh AQ_LOOKBACK_SMEM
 BUDGETS = (12288, 16384, 24576, 32768, 40960, DEFAULT_BUDGET)
 SLEEP_CYCLES = 2_000_000
-# (label, lanes, ops; lanes None for seg_cumsum_i64 over "x64"), flags
+# (label, kernel, lanes, ops (seg_scan_multi only), flags, its name in
+# kernels.ptxas_report)
 SHAPES = [
-    ("seg_cumsum_i64, 1 x int64", None, None, True),
-    ("seg_cumsum_i64, 1 x int64, no flags", None, None, False),
-    ("seg_scan_multi, q7: int32 min + int32 max", ("v2", "v1"),
-     ("min", "max"), True),
-    ("seg_scan_multi, q8: 1 x int32 add", ("ones",), ("add",), True),
-    ("seg_scan_multi, 3 x 32-bit", ("xi", "xf", "xa"),
-     ("max", "min", "add"), True),
-    ("seg_scan_multi, max_stddevs: 2 x float64 add", ("xd", "xint"),
-     ("add", "add"), True),
-    ("seg_scan_multi, 3 x 64-bit", ("x64", "xd", "xd"),
-     ("max", "min", "add"), True),
+    ("seg_cumsum_i64, 1 x int64", "seg_cumsum_i64", ("x64",), None, True,
+     "seg_cumsum_i64, flags 1"),
+    ("seg_cumsum_i64, 1 x int64, no flags", "seg_cumsum_i64", ("x64",),
+     None, False, "seg_cumsum_i64, flags 0"),
+    ("seg_scan_multi, q7: int32 min + int32 max", "seg_scan_multi",
+     ("v2", "v1"), ("min", "max"), True, "seg_scan_multi 2 x 32-bit, flags 1"),
+    ("seg_scan_multi, q8: 1 x int32 add", "seg_scan_multi", ("ones",),
+     ("add",), True, "seg_scan_multi 1 x 32-bit, flags 1"),
+    ("seg_scan_multi, 3 x 32-bit", "seg_scan_multi", ("xi", "xf", "xa"),
+     ("max", "min", "add"), True, "seg_scan_multi 3 x 32-bit, flags 1"),
+    ("seg_scan_multi, max_stddevs: 2 x float64 add", "seg_scan_multi",
+     ("xd", "xint"), ("add", "add"), True,
+     "seg_scan_multi 2 x 64-bit, flags 1"),
+    ("seg_scan_multi, 3 x 64-bit", "seg_scan_multi", ("x64", "xd", "xd"),
+     ("max", "min", "add"), True, "seg_scan_multi 3 x 64-bit, flags 1"),
+    ("fused_running_stats, 1 x float32 in, 3 out, no flags",
+     "fused_running_stats", ("xf",), None, False,
+     "fused_running_stats 3 x float32, one input"),
 ]
 
 
@@ -83,62 +94,72 @@ def cuda_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def columns(dev) -> dict[str, torch.Tensor]:
+def columns(dev, n: int = CAP) -> dict[str, torch.Tensor]:
     rng = np.random.default_rng(SEED)
 
     def col(a):
         return torch.from_numpy(a).to(dev)
     return {
-        "flags": col(rng.random(CAP) < DENSITY),
-        "x64": col(rng.integers(-2**62, 2**62, CAP)),
-        "v1": col(rng.integers(1, 6, CAP).astype(np.int32)),
-        "v2": col(rng.integers(1, 16, CAP).astype(np.int32)),
-        "ones": torch.ones(CAP, dtype=torch.int32, device=dev),
-        "xi": col(rng.integers(-2**31, 2**31 - 1, CAP).astype(np.int32)),
-        "xf": col(rng.normal(size=CAP).astype(np.float32)),
-        "xa": col(rng.integers(0, 2, CAP).astype(np.float32)),
-        "xd": col(rng.normal(size=CAP) * 1e3),
-        "xint": col(rng.integers(-2**20, 2**20, CAP).astype(np.float64)),
+        "flags": col(rng.random(n) < DENSITY),
+        "x64": col(rng.integers(-2**62, 2**62, n)),
+        "v1": col(rng.integers(1, 6, n).astype(np.int32)),
+        "v2": col(rng.integers(1, 16, n).astype(np.int32)),
+        "ones": torch.ones(n, dtype=torch.int32, device=dev),
+        "xi": col(rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)),
+        "xf": col(rng.normal(size=n).astype(np.float32)),
+        "xa": col(rng.integers(0, 2, n).astype(np.float32)),
+        "xd": col(rng.normal(size=n) * 1e3),
+        "xint": col(rng.integers(-2**20, 2**20, n).astype(np.float64)),
     }
 
 
 class Shape:
-    """One main-path call: its kernel call, bytes and tile geometry."""
+    """One main-path call: its kernel call, bytes and tile geometry (the
+    geometry as the library reports it)."""
 
-    def __init__(self, label, lanes, ops, flagged, cols):
-        self.label, self.ops = label, ops
+    def __init__(self, label, kernel, lanes, ops, flagged, name, cols):
+        self.label, self.kernel, self.ops, self.name = label, kernel, ops, name
         self.flags = cols["flags"] if flagged else None
-        self.xs = (cols["x64"],) if lanes is None else tuple(
-            cols[c] for c in lanes)
-        self.multi = lanes is not None
-        self.k = len(self.xs)
-        self.word = self.xs[0].element_size()
-        self.nbytes = (0 if self.flags is None else CAP) + 2 * sum(
-            x.numel() * x.element_size() for x in self.xs)
-        self.name = (f"seg_scan_multi {self.k} x {8 * self.word}-bit"
-                     if self.multi else "seg_cumsum_i64")
-        self.name += f", flags {int(flagged)}"
+        self.xs = tuple(cols[c] for c in lanes)
 
     def call(self):
-        if self.multi:
+        if self.kernel == "seg_scan_multi":
             return K.seg_scan_multi(self.flags, self.xs, self.ops)
+        if self.kernel == "fused_running_stats":
+            return K.fused_running_stats(self.xs[0])
         return K.seg_cumsum_i64(self.flags, self.xs[0])
 
-    def rows(self, lib) -> int:
-        if self.multi:
-            return lib.aq_seg_scan_multi_tile_rows(self.k, int(self.word == 8))
-        return lib.aq_seg_cumsum_i64_tile_rows()
+    def nbytes(self) -> int:
+        """Every input read once, every output the call returns written
+        once, the flags 1 B/row."""
+        out = self.call()
+        outs = out if isinstance(out, (tuple, list)) else (out,)
+        return sum(t.numel() * t.element_size() for t in (*self.xs, *outs)
+                   ) + (0 if self.flags is None else self.flags.numel())
 
-    def threads(self, lib) -> int:
-        # segscan.cuh lb_items: 16 rows a thread, 8 where 16 rows of every
-        # lane would pass 256 bytes
-        return self.rows(lib) // (16 if self.k * self.word * 16 <= 256 else 8)
+    def _entry(self, lib, what: str):
+        """The library's aq_<kernel>_<what> and its leading arguments."""
+        args = ((len(self.xs), int(self.xs[0].element_size() == 8))
+                if self.kernel == "seg_scan_multi" else ())
+        return getattr(lib, f"aq_{self.kernel}_{what}"), args
+
+    def rows(self, lib) -> int:
+        fn, args = self._entry(lib, "tile_rows")
+        return fn(*args)
+
+    def block(self, lib) -> tuple[int, int]:
+        """Threads and bytes of dynamic shared memory of one block."""
+        fn, args = self._entry(lib, "block")
+        out = (ctypes.c_int * 2)()
+        rc = fn(*args, out)
+        if rc:
+            raise RuntimeError(f"reading the block of {self.name} failed: {rc}")
+        return out[0], out[1]
 
     def records(self, lib) -> np.ndarray:
         ntiles = -(-CAP // self.rows(lib))
         out = np.zeros((ntiles, 8), np.int64)
-        read = (lib.aq_seg_scan_multi_lookback_diag if self.multi
-                else lib.aq_seg_cumsum_i64_lookback_diag)
+        read = getattr(lib, f"aq_{self.kernel}_lookback_diag")
         read.argtypes = [ctypes.c_void_p, ctypes.c_int]
         read.restype = ctypes.c_int
         rc = read(out.ctypes.data, ntiles)
@@ -220,8 +241,8 @@ def main(argv=None) -> int:
     for sh in shapes:
         if sh.name in (p["name"] for p in report["ptxas"]):
             continue
-        r, threads = ptxas[sh.name], sh.threads(libs["plain"])
-        dyn = sh.k * sh.rows(libs["plain"]) * sh.word
+        r = ptxas[sh.name]
+        threads, dyn = sh.block(libs["plain"])
         row = {"name": sh.name, **r, "threads": threads,
                "dynamic_smem": dyn,
                **occupancy_limits(r, threads, dyn)}
@@ -240,7 +261,7 @@ def main(argv=None) -> int:
         with mock.patch.object(K, "build", lambda *a: libs["diag"]):
             sh.call()
         torch.cuda.synchronize()
-        s = summarize(sh.records(libs["diag"]), sh.threads(libs["diag"]))
+        s = summarize(sh.records(libs["diag"]), sh.block(libs["diag"])[0])
         s.update(shape=sh.label, plain_ms=plain_ms, diag_ms=diag_ms)
         report["diag"].append(s)
         print(f"# {sh.label}: {s['resident_blocks_per_sm']:.2f} blocks "
@@ -259,14 +280,15 @@ def main(argv=None) -> int:
 
     # two passes, the budgets in turn and then in reverse, so that a drift
     # of the card's clock shows as a spread between them
+    bounds = {sh.label: sh.nbytes() / HBM_BYTES_PER_S * 1e3 for sh in shapes}
     for rep, order in enumerate((BUDGETS, BUDGETS[::-1])):
         for sh in shapes:
             for b in order:
                 ms = timed(libs[b], sh)
-                bound = sh.nbytes / HBM_BYTES_PER_S * 1e3
+                bound = bounds[sh.label]
                 row = {"pass": rep, "budget": b, "shape": sh.label,
                        "rows": sh.rows(libs[b]),
-                       "threads": sh.threads(libs[b]), "ms": ms,
+                       "threads": sh.block(libs[b])[0], "ms": ms,
                        "share_of_bound": bound / ms}
                 report["budgets"].append(row)
                 print(f"# pass {rep}, budget {b} B, {sh.label}: "

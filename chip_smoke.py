@@ -8,10 +8,12 @@ Phases, in order (any mismatch raises; there is no fallback):
   2. build the CUDA kernels from aquery2_tpu_torch/csrc/, and print
      ptxas' registers, spills, stack and static shared memory of each;
   3. each of the four kernels against its plain PyTorch version at the
-     main path's scale (12,582,912 rows = bucket_size(1e7)): the two
-     single-pass scans over every flag case REPEATS times (seg_scan_multi
+     main path's scale (12,582,912 rows = bucket_size(1e7)): the
+     segmented scans over every flag case REPEATS times (seg_scan_multi
      at every lane set it is timed at and every one the main path
-     launches, 1 to 4 lanes of 32-bit and of 64-bit words), then timings
+     launches, 1 to 4 lanes of 32-bit and of 64-bit words),
+     fused_running_stats over its cases REPEATS times (NaNs, a late lone
+     NaN, tile edges, misaligned views), then timings
      (CUDA events, median of 10, the device's time and the time with the
      host's gaps) at the main path's shapes beside their bytes, their
      bound at the H100's 3.35 TB/s and the share of it reached:
@@ -558,36 +560,57 @@ def sass_atomics() -> dict[str, collections.Counter]:
 
 
 def check_running(rng, dev):
-    """fused_running_stats against its plain version: {0, 1} values (float32
-    sums exact below 2^24, so all three equal), normal values (sums within
-    RUN_SUM_TOL of the running Σ|x| of a float64 cumsum, min and max
-    equal), normal values with NaNs (NaN where the plain version has it),
-    and best_profit equal to the plain computation."""
-    x01 = torch.from_numpy(rng.integers(0, 2, CAP).astype(np.float32)).to(dev)
-    for g, w in zip(K.fused_running_stats(x01),
-                    K.fused_running_stats_plain(x01)):
-        if not torch.equal(g, w):
-            raise AssertionError("fused_running_stats differs on {0, 1}")
-    xn = torch.from_numpy(rng.normal(size=CAP).astype(np.float32)).to(dev)
+    """fused_running_stats against its plain version, each case REPEATS
+    times in a row (the first call's scratch newly allocated after
+    torch.cuda.empty_cache(), the rest the allocator's reused blocks; a
+    missing fence shows as an occasional wrong carry): {0, 1} values (float32 sums exact below
+    2^24), normal values, normal values with NaNs, a lone NaN in the
+    middle of a late tile after thousands of NaN-free tiles, 1, tile - 1,
+    tile, tile + 1 and 3 tiles + 5 rows, and the misaligned views x[1:]
+    and x[3:]. Min and max equal the plain version's (NaN where it has
+    NaN), sums NaN where it has NaN and elsewhere within RUN_SUM_TOL of
+    the running sum of |x| of a float64 cumsum. Then best_profit equal to
+    the plain computation, and the timing at 12,582,912 rows."""
+    def col(a):
+        return torch.from_numpy(a).to(dev)
+    tile = K.build().aq_fused_running_stats_tile_rows()
+    xn = col(rng.normal(size=CAP + 3).astype(np.float32))
     xnan = xn.clone()
-    xnan[torch.from_numpy(rng.random(CAP) < 1e-6).to(dev)] = float("nan")
+    xnan[col(rng.random(CAP + 3) < 1e-6)] = float("nan")
+    lone = xn.clone()
+    lone[(CAP // tile - 2) * tile + tile // 2 + 3] = float("nan")
+    cases = {"{0, 1}": col(rng.integers(0, 2, CAP).astype(np.float32)),
+             "normal": xn[:CAP], "NaN 1e-6": xnan[:CAP],
+             "lone NaN in a late tile": lone[:CAP],
+             "x[1:]": xnan[1:CAP + 1], "x[3:]": xnan[3:CAP + 3]}
+    for n in (1, tile - 1, tile, tile + 1, 3 * tile + 5):
+        cases[f"{n} rows"] = xnan[:n]
     err = 0.0
-    for x in (xn, xnan):
-        got = K.fused_running_stats(x)
+    for case, x in cases.items():
         want = K.fused_running_stats_plain(x)
-        for g, w in zip(got, want):
-            if not torch.equal(g.isnan(), w.isnan()):
-                raise AssertionError("fused_running_stats: NaN rows differ")
-        ok = ~got[0].isnan()
-        exact = torch.cumsum(torch.nan_to_num(x).double(), 0)
+        exact_sum = torch.cumsum(torch.nan_to_num(x).double(), 0)
         scale = torch.cumsum(torch.nan_to_num(x).double().abs(), 0)
-        if not bool(((got[0].double() - exact).abs()[ok]
-                     <= RUN_SUM_TOL * scale[ok]).all()):
-            raise AssertionError("fused_running_stats sums out of tolerance")
-        err = max(err, max_abs_err(got[0], want[0]))
-        for g, w in zip(got[1:], want[1:]):
-            if not torch.equal(torch.nan_to_num(g), torch.nan_to_num(w)):
-                raise AssertionError("fused_running_stats min/max differ")
+        torch.cuda.empty_cache()
+        for rep in range(REPEATS):
+            got = K.fused_running_stats(x)
+            for lane, (g, w) in enumerate(zip(got, want)):
+                ok = torch.equal(g.isnan(), w.isnan())
+                if lane:
+                    ok = ok and exact(lane, g, w, None)
+                else:
+                    num = ~g.isnan()
+                    ok = ok and bool(((g.double() - exact_sum).abs()[num]
+                                      <= RUN_SUM_TOL * scale[num]).all())
+                    err = max(err, max_abs_err(g, w))
+                if not ok:
+                    raise AssertionError(
+                        f"fused_running_stats lane {lane} differs ({case}, "
+                        f"run {rep}): max |err| {max_abs_err(g, w)}")
+    x01 = cases["{0, 1}"]
+    if not all(torch.equal(g, w) for g, w in zip(
+            K.fused_running_stats(x01), K.fused_running_stats_plain(x01))):
+        raise AssertionError("fused_running_stats sums of {0, 1} not exact")
+    xn = cases["normal"]
     idx = torch.arange(CAP, device=dev)
     for n in (ROWS, CAP):
         bp = K.best_profit(xn, n)
@@ -595,8 +618,11 @@ def check_running(rng, dev):
                             float("-inf")).max()
         if not torch.equal(bp, plain):
             raise AssertionError(f"best_profit {bp} vs plain {plain}")
-    print(f"# fused_running_stats: max |err| of the sums vs plain {err}; "
-          f"min, max and best_profit equal", flush=True)
+    print(f"# fused_running_stats ({tile}-row tiles) equal to its plain "
+          f"version in {len(cases)} cases, {REPEATS} runs each: min, max "
+          f"and the {{0, 1}} sums exactly, the other sums within "
+          f"{RUN_SUM_TOL} of the running sum of |x| (max |err| vs plain "
+          f"{err}); best_profit equal", flush=True)
     timed = time_shape("fused_running_stats",
                        lambda: K.fused_running_stats(xn),
                        lambda: K.fused_running_stats_plain(xn),

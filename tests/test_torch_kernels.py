@@ -252,9 +252,11 @@ _MODEL_CASES = ["none", "0.1", "0.999", "lone_mid", "tile_first_row",
 def test_lookback_model_matches_plain(case, tile, rng):
     """The segmented look-back rule (stop at an inclusive prefix or a
     flagged aggregate, combine earlier . later) equals the plain versions:
-    seg_cumsum_i64 with int64 sums that wrap, and seg_scan_multi with int32
-    add, float32 min/max with NaNs and an integer-valued float32 add. 40+
-    tiles, so a walk spans more than one window of 32."""
+    seg_cumsum_i64 with int64 sums that wrap, seg_scan_multi with int32
+    add, float32 min/max with NaNs and an integer-valued float32 add, and
+    (without flags) fused_running_stats: one integer-valued float32 column
+    with NaNs feeding add, min and max. 40+ tiles, so a walk spans more
+    than one window of 32."""
     n = 41 * tile + tile // 3 + 1
     flags = _model_flags(case, n, tile, rng)
     tflags = None if flags is None else torch.from_numpy(flags)
@@ -281,6 +283,23 @@ def test_lookback_model_matches_plain(case, tile, rng):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w.numpy())
 
+    if flags is None:                    # fused_running_stats has no flags
+        xr = rng.integers(-50, 50, n).astype(np.float32)
+        xr[rng.random(n) < 0.02] = np.nan
+        want = K.fused_running_stats_plain(torch.from_numpy(xr))
+        for p_inc in (0.5, 0.0):
+            got = _lookback_model(None, _running_lanes(xr), tile, rng, p_inc)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w.numpy())
+
+
+def _running_lanes(x):
+    """fused_running_stats as the look-back's lanes: add, min and max of
+    the one column x."""
+    inf = np.array([np.inf], np.float32)
+    return [(x, np.add, np.zeros(1, np.float32)), (x, np.minimum, inf),
+            (x, np.maximum, -inf)]
+
 
 def test_lookback_model_walks_past_one_window(rng):
     """With no inclusive prefix seen but tile 0's, a walk crosses
@@ -299,6 +318,7 @@ def test_wrappers_check_inputs_and_count_only_launches():
     x = torch.arange(10, dtype=torch.int64)
     K.seg_cumsum_i64(None, x)
     K.seg_scan_multi(None, (x.to(torch.int32),), ("min",))
+    K.fused_running_stats(x.to(torch.float32)[3:])
     assert K.LAUNCHES == before          # CPU tensors take the plain versions
     with pytest.raises(ValueError):
         K.seg_cumsum_i64(None, x.to(torch.int32))
@@ -473,6 +493,32 @@ def test_fused_running_stats_matches_pallas(case, rng):
     np.testing.assert_array_equal(maxs, want[2])
     np.testing.assert_array_equal(mins, np.minimum.accumulate(x))
     np.testing.assert_array_equal(maxs, np.maximum.accumulate(x))
+
+
+@pytest.mark.parametrize("case", ["normal", "nan", "zero_one"])
+def test_running_stats_lookback_model_matches_pallas(case, rng):
+    """The single-pass look-back as fused_running_stats runs it (no flags,
+    one column for three lanes; 64-row tiles, so 256 tiles, and with no
+    inclusive prefix but tile 0's walks of up to eight windows of 32)
+    against the Pallas kernel: min and max exactly, sums within 1e-5 of
+    the running sum of |x| (chip_smoke.py's RUN_SUM_TOL; exactly for
+    {0, 1})."""
+    cap = 16384
+    x = _running_x(case, rng, cap)
+    got = _lookback_model(None, _running_lanes(x), 64, rng,
+                          0.0 if case == "nan" else 0.5)
+    want = [np.asarray(w) for w in PK.fused_running_stats(jnp.asarray(x),
+                                                          interpret=True)]
+    np.testing.assert_array_equal(np.isnan(got[0]), np.isnan(want[0]))
+    if case == "zero_one":
+        np.testing.assert_array_equal(got[0], want[0])
+    else:
+        ok = ~np.isnan(want[0])
+        scale = np.cumsum(np.abs(np.nan_to_num(x)).astype(np.float64))
+        assert (np.abs(got[0].astype(np.float64) - want[0])[ok]
+                <= 1e-5 * scale[ok]).all()
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
 
 
 @pytest.mark.parametrize("cap,n", [(8192, 5000), (16384, 16384)])

@@ -87,14 +87,20 @@ def test_ptxas_report_names_the_scans(tmp_path, monkeypatch):
         "ptxas info    : Compiling entry function '_ZN2aq16segscan_lookbackIN"
         "6aq_i646AddI64ELb0EEEvT_PKhPNS3_1WES7_Pili' for 'sm_90a'\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
-        "ptxas info    : Used 32 registers, used 1 barriers\n")
+        "ptxas info    : Used 32 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN2aq16segscan_lookbackIN"
+        "10aq_running8RunStatsELb0EEEvT_PKhPNS3_1WES7_Pili' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 40 registers, used 1 barriers, 532 bytes smem\n")
     monkeypatch.setattr(K, "library_path", lambda defines=(): log.with_suffix(
         ".so"))
     assert K.ptxas_report() == [
         {"kernel": "seg_scan_multi 3 x 64-bit, flags 1", "smem": 1104,
          "stack": 8, "spill_stores": 12, "spill_loads": 12, "registers": 56},
         {"kernel": "seg_cumsum_i64, flags 0", "smem": 0, "stack": 0,
-         "spill_stores": 0, "spill_loads": 0, "registers": 32}]
+         "spill_stores": 0, "spill_loads": 0, "registers": 32},
+        {"kernel": "fused_running_stats 3 x float32, one input", "smem": 532,
+         "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 40}]
 
 
 def test_ptxas_report_names_onehot_routes():
@@ -122,6 +128,61 @@ def test_lookback_diag_summarizes_tile_records():
     assert s["share_look_back"] == 80 / 400
     assert s["share_rescan_store"] == 120 / 400
     assert s["windows_max"] == 3 and s["look_back_cycles_max"] == 40
+
+
+def test_lookback_diag_shapes_count_their_bytes():
+    """Each diagnosed shape's bytes (inputs read once, the outputs its call
+    returns written once, flags 1 B/row; on the CPU the calls take the
+    plain versions) and the instantiation it names in ptxas' report;
+    fused_running_stats reads one float32 column and writes three."""
+    from aquery2_tpu_torch.utils.lookback_diag import SHAPES, Shape, columns
+
+    n = 1000
+    cols = columns(torch.device("cpu"), n)
+    shapes = {s.label: s for s in (Shape(*sh, cols) for sh in SHAPES)}
+    per_row = {label: s.nbytes() / n for label, s in shapes.items()}
+    assert per_row["seg_cumsum_i64, 1 x int64"] == 17
+    assert per_row["seg_cumsum_i64, 1 x int64, no flags"] == 16
+    assert per_row["seg_scan_multi, q7: int32 min + int32 max"] == 17
+    assert per_row["seg_scan_multi, 3 x 32-bit"] == 25
+    assert per_row["seg_scan_multi, 3 x 64-bit"] == 49
+    run = shapes["fused_running_stats, 1 x float32 in, 3 out, no flags"]
+    assert per_row[run.label] == 16 and run.flags is None
+    assert run.name == K._kernel_name(
+        "_ZN2aq16segscan_lookbackIN10aq_running8RunStatsELb0EEEvT_PKhPNS3_1WE"
+        "S7_Pili")
+    assert shapes["seg_scan_multi, 3 x 64-bit"].name == K._kernel_name(
+        "_ZN2aq16segscan_lookbackIN8aq_multi5MultiIyLi3EEELb1EEEvT_PKhPNS4_1W"
+        "ES8_Pili")
+    assert shapes["seg_cumsum_i64, 1 x int64, no flags"].name == (
+        K._kernel_name("_ZN2aq16segscan_lookbackIN6aq_i646AddI64ELb0EEEvT_PKh"
+                       "PNS3_1WES7_Pili"))
+
+
+@pytest.mark.gpu
+def test_lookback_diag_reads_each_block_from_the_library():
+    """The diagnosed blocks as launch_lookback makes them: fused_running_stats
+    stages two 4,096-row float32 buffers (32 KB, 256 threads), the three
+    32-bit seg_scan_multi lanes three 3,584-row buffers (43,008 B, 224
+    threads); and the blocks an SM's shared memory could hold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.utils.lookback_diag import (
+        SHAPES, Shape, columns, occupancy_limits)
+
+    lib = K.build()
+    cols = columns(torch.device("cuda"), 64)
+    shapes = {s.label: s for s in (Shape(*sh, cols) for sh in SHAPES)}
+    run = shapes["fused_running_stats, 1 x float32 in, 3 out, no flags"]
+    assert run.block(lib) == (256, 32768)
+    assert run.rows(lib) == lib.aq_fused_running_stats_tile_rows() == 4096
+    assert shapes["seg_scan_multi, 3 x 32-bit"].block(lib) == (224, 43008)
+    for sh in shapes.values():
+        threads, dyn = sh.block(lib)
+        assert dyn % sh.rows(lib) == 0 and sh.rows(lib) % threads == 0
+    ptxas = {r["kernel"]: r for r in K.ptxas_report()}
+    assert occupancy_limits(ptxas[run.name], 256, 32768)[
+        "by_shared_memory"] == 6
 
 
 _N_CASES = ["1", "tile-1", "tile", "tile+1", "3tile+5", "61563"]
@@ -195,7 +256,9 @@ def test_kernels_match_plain_on_card(case):
     row (fresh scratch, then the allocator's reused scratch), over the flag
     cases; seg_scan_multi with 1 to 4 lanes of 32-bit and of 64-bit words
     (int32 and int64 add, min and max; float min and max with NaN; the
-    64-bit float adds integer-valued, exact in any order)."""
+    64-bit float adds integer-valued, exact in any order);
+    fused_running_stats on an aligned column and on views at offsets 1 and
+    3, NaN-free (the sums on every row) and with NaNs from three tiles in."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     lib = K.build()
@@ -254,10 +317,30 @@ def test_kernels_match_plain_on_card(case):
         assert torch.equal(K.onehot_segment_sums(code, lanes4, dp),
                            K.onehot_segment_sums_plain(code, lanes4, dp))
     _onehot_views(rng, case, dev)
-    xr = torch.nan_to_num(xf)               # NaN-free sums; NaN min/max
-    got = K.fused_running_stats(xr)
-    exact = torch.cumsum(xr.double(), 0)
-    scale = torch.cumsum(xr.double().abs(), 0)
-    assert bool(((got[0].double() - exact).abs() <= 1e-5 * scale).all())
-    _assert_equal(K.fused_running_stats(xf)[1:],
-                  K.fused_running_stats_plain(xf)[1:])
+
+    # a NaN-free column, its sums checked on every row; and the same column
+    # with NaNs from three tiles into the view (from its last row where it
+    # is shorter), so that the carries of all three statistics across tiles
+    # are compared before the first NaN
+    tile = lib.aq_fused_running_stats_tile_rows()
+    n = _rows(case, tile)
+    late = min(3 * tile + 7, n - 1)
+    clean = torch.from_numpy(rng.normal(size=n + 3).astype(np.float32)).to(dev)
+    for nan in (False, True):
+        for off in (0, 1, 3):
+            col = clean
+            if nan:
+                col = clean.clone()
+                col[off + late::977] = float("nan")
+            x = col[off:off + n]
+            want = K.fused_running_stats_plain(x)
+            exact = torch.cumsum(torch.nan_to_num(x).double(), 0)
+            scale = torch.cumsum(torch.nan_to_num(x).double().abs(), 0)
+            for _ in range(2):
+                got = K.fused_running_stats(x)
+                _assert_equal(got[1:], want[1:])
+                assert torch.equal(got[0].isnan(), want[0].isnan())
+                ok = ~got[0].isnan()
+                assert int(ok.sum()) == (late if nan else n)
+                assert bool(((got[0].double() - exact).abs()[ok]
+                             <= 1e-5 * scale[ok]).all()), (n, off)
