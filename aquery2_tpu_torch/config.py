@@ -23,6 +23,13 @@ ONEHOT_MATMUL_MAX_GROUPS = 512
 # so it keeps the default.
 STRICT_REFERENCE_SEMANTICS = True
 
+# Dense-lookup join bound: the star join (engine/fused_star.py) and the
+# count join's histogram route (engine/fused_join.py) build a table over
+# the build keys' value domain when it spans at most this many slots. The
+# JAX package's value, so both packages take the star path on the same
+# shapes (the port has no general join to fall back on).
+PERFECT_HASH_MAX_DOMAIN = 1 << 27
+
 
 def bucket_size(n: int) -> int:
     """Padded capacity for a logical length ``n``: buckets are

@@ -1,23 +1,34 @@
-"""Statement executor: CREATE TABLE, INSERT … VALUES and grouped SELECT.
+"""Statement executor: CREATE TABLE, INSERT … VALUES, grouped SELECT and
+the fused joins.
 
 Counterpart of ``aquery2_tpu/engine/executor.py``, reduced to DDL, literal
-inserts and the single-device fused branch of a grouped SELECT: the fused
-group-by (engine/fused_groupby.py), and where its plan does not cover the
-statement, the ordered group-by with running and windowed aggregates,
-ASSUMING and subvec (engine/fused_ordered.py), as the JAX package tries
-them. Every other statement raises NotImplementedError naming the ROADMAP
-item that brings it.
+inserts and the single-device fused branches of a SELECT, tried in the
+JAX package's order:
+  - one table, grouped: the fused group-by (engine/fused_groupby.py), and
+    where its plan does not cover the statement, the ordered group-by with
+    running and windowed aggregates, ASSUMING and subvec
+    (engine/fused_ordered.py);
+  - two tables (comma-separated, or one NATURAL, ON or USING join), no
+    ASSUMING: the star join into the fused group-by
+    (engine/fused_star.py), then, without GROUP BY, the count join
+    (engine/fused_join.py).
+A join neither takes (duplicate dim keys, nullable join tables, string
+keys in different dictionaries, three tables, any other aggregate) raises
+NotImplementedError naming the general join's ROADMAP items; every other
+statement raises it naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.engine import fused_groupby, fused_ordered
+from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
+                                      fused_ordered, fused_star)
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import Column, StringDict, Table
 
 _GENERAL = "ROADMAP queue 1, item 7 (general engine)"
+_JOIN = "ROADMAP queue 1, items 6b and 7 (general join)"
 
 
 class Executor:
@@ -74,10 +85,22 @@ class Executor:
         return None
 
     def _run_select(self, sel: A.Select) -> Table:
-        if (sel.group_by and len(sel.sources) == 1
-                and isinstance(sel.sources[0], A.TableSource)
-                and sel.sources[0].name in self.session.catalog):
-            table = self.session.catalog.get(sel.sources[0].name)
+        catalog = self.session.catalog
+        srcs = sel.sources
+        if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):
+            t = None
+            if not sel.assumptions:
+                t = fused_star.try_run(catalog, sel)
+                if t is None and not sel.group_by:
+                    t = fused_join.try_run(catalog, sel)
+            if t is not None:
+                return t
+            raise NotImplementedError(
+                f"join outside the star and count-join paths: {_JOIN}")
+        if (sel.group_by and len(srcs) == 1
+                and isinstance(srcs[0], A.TableSource)
+                and srcs[0].name in catalog):
+            table = catalog.get(srcs[0].name)
             t = fused_groupby.run(sel, table)
             if t is None:
                 t = fused_ordered.run(sel, table)

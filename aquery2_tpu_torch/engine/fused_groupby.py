@@ -907,20 +907,21 @@ def _run_sort(env, env_null, valid, scatters, keys, bounds):
     return dense, dense["__counts__"], keyvals
 
 
-def _derive_name(e: A.Expr) -> str:
+def derive_name(e: A.Expr) -> str:
+    """The output name of an unaliased projection of ``e``."""
     if isinstance(e, A.ColumnRef):
         return e.name
     if isinstance(e, A.Call):
-        inner = "_".join(_derive_name(a) for a in e.args
+        inner = "_".join(derive_name(a) for a in e.args
                          if not isinstance(a, A.Star))
         return legal_name(f"{e.func}_{inner}") if inner else e.func
     if isinstance(e, A.BinOp):
-        return legal_name(f"{_derive_name(e.left)}_{e.op}_"
-                          f"{_derive_name(e.right)}")
+        return legal_name(f"{derive_name(e.left)}_{e.op}_"
+                          f"{derive_name(e.right)}")
     if isinstance(e, A.Literal):
         return legal_name(str(e.value))
     if isinstance(e, A.UnaryOp):
-        return legal_name(f"{e.op}_{_derive_name(e.operand)}")
+        return legal_name(f"{e.op}_{derive_name(e.operand)}")
     return f"col_{base62uuid(4)}"
 
 
@@ -930,7 +931,7 @@ def output_names(projections) -> list[str]:
     used: dict[str, int] = {}
     names = []
     for _kindp, expr, alias in projections:
-        name = alias or _derive_name(expr)
+        name = alias or derive_name(expr)
         lk = name.lower()
         if lk in used:
             used[lk] += 1

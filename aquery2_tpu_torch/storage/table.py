@@ -393,6 +393,13 @@ class Table:
     def column_names(self) -> list[str]:
         return list(self.columns)
 
+    def has_nulls(self, names: Iterable[str] | None = None) -> bool:
+        """True if any column (of ``names``, where given) has a validity
+        mask."""
+        cols = (self.columns.values() if names is None
+                else [self.columns[n] for n in names if n in self.columns])
+        return any(c.valid is not None for c in cols)
+
     def __getitem__(self, name: str) -> Column:
         return self.columns[name]
 

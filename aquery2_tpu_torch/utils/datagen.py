@@ -1,9 +1,11 @@
 """Synthetic data generators.
 
 ``h2o_g1`` makes the h2o db-benchmark G1 group-by table
-(groupby-datagen.R: id1..id6, v1..v3) and ``trades`` the trades benchmark
-table (the JAX package's ``datagen.trades_table``) with numpy, so the JAX
-package and the port can load identical data from one seed.
+(groupby-datagen.R: id1..id6, v1..v3), ``h2o_dim`` the dimension table
+that the h2o join queries qj and qjg join it with (``bench.make_data``'s
+``dim``), and ``trades`` the trades benchmark table (the JAX package's
+``datagen.trades_table``) with numpy, so the JAX package and the port can
+load identical data from one seed.
 """
 
 from __future__ import annotations
@@ -57,6 +59,20 @@ def h2o_g1(n: int, k: int, seed: int, nas: int = 0) -> dict[str, np.ndarray]:
             null[rng.choice(n, nna, replace=False)] = True
             cols[nm] = np.ma.masked_array(cols[nm], mask=null)
     return cols
+
+
+def h2o_dim(n: int, k: int, seed: int) -> dict[str, np.ndarray]:
+    """The dim table of ``bench.make_data`` for an ``h2o_g1(n, k, ...)``
+    source, drawn with numpy: nk // 10 rows (nk = n / k, the id3 domain),
+    unique int32 keys id3 = (10 i + 1) % nk + 1, a strided sample of a
+    tenth of id3's values, and an int32 weight w in [1, 99] drawn from
+    seed + 1."""
+    nk = max(n // k, 1)
+    dsize = max(nk // 10, 1)
+    id3 = ((np.arange(dsize) * 10 + 1) % nk + 1).astype(np.int32)
+    w = np.random.default_rng(seed + 1).integers(1, 100, dsize,
+                                                 dtype=np.int32)
+    return {"id3": id3, "w": w}
 
 
 def trades(n: int, n_symbols: int = 100, seed: int = 7

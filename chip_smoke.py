@@ -27,9 +27,16 @@ Phases, in order (any mismatch raises; there is no fallback):
      numpy oracle with its kernel launches counted from zero, and the
      single-pass scans' calls tallied by instantiation (printed with
      their ptxas report):
-     - the h2o group-by queries q1 q2 q3 q4 q5 q6 q7 q8 q9 q10 on
-       G1_1e7_1e1_0_0 (1e7 rows, K=10, no NAs, seed 42), and a
-       computed-key query (the multikey tier);
+     - the h2o queries q1 q2 q3 q4 q5 q6 q7 q8 q9 q10 qj qjg on
+       G1_1e7_1e1_0_0 (1e7 rows, K=10, no NAs, seed 42) and its dim table
+       (datagen.h2o_dim: 1e5 unique id3 keys, a weight w), and a
+       computed-key query (the multikey tier); then the joins' parts,
+       each called directly and checked: the count join's routes at qj's
+       shape and at a domain near PERFECT_HASH_MAX_DOMAIN (the histogram
+       and the sort the port keeps, and the JAX package's tagged sort,
+       not ported), the star join's build and probe at qjg's shape (and
+       the JAX package's packed-value probe, not ported), device times
+       beside their bounds;
      - avgs(5, price) and MAX(stddevs(3, price)) under ASSUMING ASC time
        on a trades table of 1e7 rows and 100 symbols (seed 7);
      - q1 q2 q3 q4 q5 q7 q9 q10 on G1_1e7_1e1_5_0 (datagen.h2o_g1 with
@@ -39,9 +46,10 @@ Phases, in order (any mismatch raises; there is no fallback):
      then best_profit over a 1e7-row price column (the entry point of
      fused_running_stats, which no query calls), checked against numpy;
   5. each query launched its path's kernel: onehot_segment_sums (the
-     dense tier), seg_cumsum_i64 (packed and multikey sums, integer
-     running sums), seg_scan_multi (min/max, q8's positions, the float64
-     running sums), and best_profit fused_running_stats.
+     dense tier, qjg's group-by), seg_cumsum_i64 (packed and multikey
+     sums, integer running sums), seg_scan_multi (min/max, q8's
+     positions, the float64 running sums), and best_profit
+     fused_running_stats; qj launches none (no TPU kernel counts a join).
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -62,15 +70,16 @@ import torch
 
 from aquery2_tpu_torch import connect
 from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.engine import fused_join, fused_star
 from aquery2_tpu_torch.ops import kernels as K
-from aquery2_tpu_torch.storage.table import Table
-from aquery2_tpu_torch.utils.datagen import h2o_g1, trades
+from aquery2_tpu_torch.storage.table import Column, Table
+from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, trades
 
 ROWS = 10_000_000
 CAP = 12_582_912                 # config.bucket_size(1e7)
 K_GROUPS = 10
 SEED = 42
-QUERIES = {                      # bench.QUERIES, all but the joins
+QUERIES = {                      # bench.QUERIES, and a computed key
     "q1": "SELECT id1, sum(v1) AS v1 FROM source GROUP BY id1",
     "q2": "SELECT id1, id2, sum(v1) AS v1 FROM source GROUP BY id1, id2",
     "q3": "SELECT id3, sum(v1) AS v1, avg(v3) AS v3 FROM source GROUP BY id3",
@@ -88,6 +97,9 @@ QUERIES = {                      # bench.QUERIES, all but the joins
            "GROUP BY id2, id4"),
     "q10": ("SELECT id1, id2, id3, id4, id5, id6, sum(v3) AS v3, "
             "count(*) AS cnt FROM source GROUP BY id1, id2, id3, id4, id5, id6"),
+    "qj": "SELECT count(*) FROM source s, dim d WHERE s.id3 = d.id3",
+    "qjg": ("SELECT d.w, count(*) AS c, sum(s.v1) AS sv FROM source s, dim d "
+            "WHERE s.id3 = d.id3 GROUP BY d.w"),
     "multikey": ("SELECT id1 * 100 + id4 AS k, sum(v1) AS s, max(v3) AS mx "
                  "FROM source GROUP BY id1 * 100 + id4"),
 }
@@ -97,7 +109,7 @@ TRADES = {
     "max_stddevs": ("SELECT stocksymbol, MAX(stddevs(3, price)) AS m "
                     "FROM trades ASSUMING ASC time GROUP BY stocksymbol"),
 }
-ONEHOT_SHAPES = ("q1", "q2", "q4", "q9")   # the dense tier's queries
+ONEHOT_SHAPES = ("q1", "q2", "q4", "q9", "qjg")   # the dense tier
 NAS_QUERIES = ("q1", "q2", "q3", "q4", "q5", "q7", "q9", "q10")
 KEYS = {"q1": ["id1"], "q2": ["id1", "id2"], "q3": ["id3"], "q4": ["id4"],
         "q5": ["id6"], "q6": ["id4", "id5"], "q7": ["id3"], "q8": ["id6"],
@@ -109,6 +121,7 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "q3": ["seg_cumsum_i64"], "q5": ["seg_cumsum_i64"],
                "q6": ["seg_cumsum_i64"], "q10": ["seg_cumsum_i64"],
                "q7": ["seg_scan_multi"], "q8": ["seg_scan_multi"],
+               "qjg": ["onehot_segment_sums"], "qj": [],
                "multikey": ["seg_cumsum_i64", "seg_scan_multi"],
                "avgs": ["seg_cumsum_i64", "seg_scan_multi"],
                "max_stddevs": ["seg_scan_multi"]}
@@ -387,10 +400,12 @@ def check_multi(rng, dev, flags, x64):
 
 def capture_onehot(dev, data) -> dict:
     """The (code, lanes, dp) of the first onehot_segment_sums call of each
-    dense query (q1 q2 q4 q9) on G1_1e7_1e1_0_0: the main path's inputs,
-    its lanes as fused_groupby._build_lanes builds them."""
+    dense query (q1 q2 q4 q9, and qjg's group-by) on G1_1e7_1e1_0_0 and
+    its dim table: the main path's inputs, its lanes as
+    fused_groupby._build_lanes builds them."""
     db = connect(device=dev)
     load(db, "source", data, dev)
+    load(db, "dim", h2o_dim(ROWS, K_GROUPS, SEED), dev)
     real, calls, query = K.onehot_segment_sums, {}, [None]
 
     def spy(code, lanes, dp):
@@ -430,7 +445,7 @@ def check_onehot(rng, dev, data):
     dp x k at the private route's limit and one past it; codes and lanes
     that are views at odd offsets; and 1, 15, 17, a tile - 1, a tile, a
     tile + 1 and five tiles + 123 rows on each route, aligned and not.
-    Then timed at the inputs the main path gives it at q1 q2 q4 q9, each
+    Then timed at the inputs the main path gives it at q1 q2 q4 q9 qjg, each
     beside its route and the one index_add_ that computes the same sums."""
     def col(a):
         return torch.from_numpy(a).to(dev)
@@ -809,15 +824,19 @@ def timed_runs(db, sql: str, reps: int):
 
 
 def run_queries(db, queries: dict[str, str], check, reps: int = 3,
-                tag: str = "") -> dict[str, dict[str, int]]:
+                tag: str = "", walls: dict[str, float] | None = None
+                ) -> dict[str, dict[str, int]]:
     """Each query: its launches counted from zero over its runs, the
-    result checked by check(q, res), the median warm time printed."""
+    result checked by check(q, res), the median warm time printed (and
+    kept in walls)."""
     launches = {}
     for q, sql in queries.items():
         reset_launches()
         res, ms = timed_runs(db, sql, reps)
         launches[q + tag] = {k: v for k, v in K.LAUNCHES.items() if v}
         check(q, res)
+        if walls is not None:
+            walls[q + tag] = ms
         print(f"# {q}{tag}: {res.nrows} groups, {ms:.3f} ms (median of "
               f"{reps} warm runs), matches the numpy oracle, launches "
               f"{launches[q + tag]}", flush=True)
@@ -826,23 +845,172 @@ def run_queries(db, queries: dict[str, str], check, reps: int = 3,
 
 def load(db, name, arrays, dev, **kw) -> None:
     t0 = time.perf_counter()
-    db.catalog.create(Table.from_numpy(name, arrays, device=dev, **kw))
+    t = db.catalog.create(Table.from_numpy(name, arrays, device=dev, **kw))
     torch.cuda.synchronize()
-    print(f"# loaded {name}: {ROWS} rows x {len(arrays)} columns, "
+    print(f"# loaded {name}: {t.nrows} rows x {len(arrays)} columns, "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def run_slice(dev, data) -> dict[str, dict[str, int]]:
-    """The h2o queries and the computed-key query on G1_1e7_1e1_0_0."""
+def join_oracle(data, dim, q: str):
+    """qj: the count of source rows whose id3 is a dim key; qjg: per w,
+    ascending, the count and the int64 sum of v1 over those rows. As
+    oracle() returns it (answer, per-group row counts, no NULLs)."""
+    lut = np.zeros(int(max(data["id3"].max(), dim["id3"].max())) + 1,
+                   np.int32)
+    lut[dim["id3"]] = dim["w"]                  # every w is at least 1
+    w = lut[data["id3"]]
+    hit = w > 0
+    if q == "qj":
+        return {"count": np.array([hit.sum()], np.int64)}, np.ones(1), {}
+    ws, inv = np.unique(w[hit], return_inverse=True)
+    cnt = np.bincount(inv)
+    sv = np.bincount(inv, weights=data["v1"][hit]).astype(np.int64)
+    return {"w": ws, "c": cnt.astype(np.int64), "sv": sv}, cnt, {}
+
+
+def run_slice(dev, data, dim, walls):
+    """The h2o queries and the computed-key query on G1_1e7_1e1_0_0 and
+    its dim table: (the launches, the session)."""
     db = connect(device=dev)
     load(db, "source", data, dev)
+    load(db, "dim", dim, dev)
 
     def check(q, res):
         if q == "q8":
             check_q8(res, data)
+        elif q in ("qj", "qjg"):
+            check_result(q, res, *join_oracle(data, dim, q))
         else:
             check_result(q, res, *oracle(data, q))
-    return run_queries(db, QUERIES, check)
+    return run_queries(db, QUERIES, check, walls=walls), db
+
+
+def tagged_sort_count(pcol: Column, bcol: Column) -> torch.Tensor:
+    """The JAX package's tagged-sort count join (its fused_join.py:102-148;
+    not ported, timed beside the port's routes): one sort of
+    [probe·4 + 1, build·4, build·4 + 2] (keys less their common minimum);
+    at each build row's two copies the running count of probe rows before
+    it gives the probe rows below its key and those up to it, and the
+    count is the sum of the differences. Integer keys whose span · 4 fits
+    int32."""
+    base = min(pcol.stats()[0], bcol.stats()[0])
+    p = (pcol.data[:pcol.nrows] - base) * 4 + 1
+    b = (bcol.data[:bcol.nrows] - base) * 4
+    tag = torch.sort(torch.cat([p, b, b + 2])).values & 3
+    left = (tag == 1).to(torch.int32)
+    before = torch.cumsum(left, 0, dtype=torch.int32) - left
+    return (torch.where(tag == 2, before, 0)
+            - torch.where(tag == 0, before, 0)).sum(dtype=torch.int64)
+
+
+def packed_table(bkey: Column, bcol: Column, mn: int, mx: int,
+                 cmn: int) -> torch.Tensor:
+    """The JAX package's packed star table (its fused_star.py:225-247,
+    264-279; not ported, timed beside the port's position table): over
+    the key domain, 1 | (value - cmn) << 1 of one narrow dim column, 0
+    where no row has the key."""
+    nb = bkey.nrows
+    tbl = torch.zeros(mx - mn + 2, dtype=torch.int32, device=bkey.device)
+    tbl[bkey.data[:nb].to(torch.int64) - mn] = 1 | (bcol.data[:nb] - cmn) << 1
+    return tbl
+
+
+def packed_probe(tbl: torch.Tensor, pkey: Column, mn: int, cmn: int):
+    """(match, the dim column's value) from one gather of packed_table
+    (its fused_star.py:304-317)."""
+    v = tbl.index_select(0, fused_star.domain_codes(
+        pkey.data, pkey.nrows, mn, mn + tbl.shape[0] - 2))
+    return (v & 1).bool(), (v >> 1) + cmn
+
+
+def time_joins(db, data, dim) -> dict[str, float]:
+    """The joins' parts at the main path's shapes, each called directly,
+    checked against numpy, then timed (device time, median of 10) beside
+    its bound (its inputs read once, outputs written once, at 3.35 TB/s):
+    - the count join's routes at qj's shape: the histogram and the sort
+      that the port keeps, and the JAX package's tagged sort;
+    - the histogram and the sort at a wide domain, 1e5 build keys spread
+      over [1, 2^27] and 1e7 probe keys, half of them build keys: the
+      histogram's gate (PERFECT_HASH_MAX_DOMAIN) at its limit;
+    - the star join at qjg's shape: the position table's build, the probe
+      (positions, match, the gathered w), and the JAX package's packed
+      table and its probe."""
+    src, d = db.catalog.get("source").columns, db.catalog.get("dim").columns
+    pkey, bkey, bw = src["id3"], d["id3"], d["w"]
+    dev = pkey.device
+    mn, mx = bkey.stats()
+    out = {}
+
+    def timed(label, fn, nbytes):
+        ms = cuda_ms(fn)
+        b = bound_ms(nbytes)
+        print(f"# {label}: {ms:.4f} ms device time (median of 10); "
+              f"{nbytes} bytes, bound {b:.4f} ms at 3.35 TB/s, "
+              f"{b / ms:.1%} of bound", flush=True)
+        out[label] = ms
+        return ms
+
+    def count_routes(shape, pk, bk, want, tagged):
+        routes = {"histogram route": lambda: fused_join.count_histogram(
+                      pk, bk, *bk.stats()),
+                  "sort route": lambda: fused_join.count_sorted(pk, bk)}
+        if tagged:
+            routes["tagged-sort route (the JAX package's, not ported)"] = \
+                lambda: tagged_sort_count(pk, bk)
+        for route, fn in routes.items():
+            got = int(fn())
+            if got != want:
+                raise AssertionError(f"count join, {route} at {shape}: "
+                                     f"{got}, numpy {want}")
+            timed(f"count join, {route}, at {shape}", fn,
+                  4 * pk.nrows + 4 * bk.nrows + 8)
+
+    bmn, bmx = bkey.stats()
+    count_routes(f"qj's shape ({pkey.nrows} x {bkey.nrows} rows, domain "
+                 f"{bmx - bmn + 1})", pkey, bkey,
+                 int(np.isin(data["id3"], dim["id3"]).sum()), True)
+    rng = np.random.default_rng(SEED)
+    wide_b = (rng.choice(2**27, bkey.nrows, replace=False) + 1).astype(np.int32)
+    wide_p = np.where(rng.random(ROWS) < 0.5, rng.choice(wide_b, ROWS),
+                      rng.integers(1, 2**27 + 1, ROWS)).astype(np.int32)
+    wb = Column("k", T.IntT, wide_b, device=dev)
+    wp = Column("k", T.IntT, wide_p, device=dev)
+    wmn, wmx = wb.stats()
+    count_routes(f"a wide domain ({ROWS} x {wb.nrows} rows, domain "
+                 f"{wmx - wmn + 1})", wp, wb,
+                 int(np.isin(wide_p, wide_b).sum()), False)
+    del wb, wp
+
+    # the star join's parts at qjg's shape, against numpy
+    lut = np.zeros(int(max(data["id3"].max(), mx)) + 1, np.int32)
+    lut[dim["id3"]] = dim["w"]
+    want_w = lut[data["id3"]]
+    want_match = want_w > 0
+    pos, unique = fused_star.build_positions(bkey, mn, mx)
+    match, (w,) = fused_star.probe(pos, pkey, mn, [bw.data])
+    if not (bool(unique) and np.array_equal(match.cpu().numpy(), want_match)
+            and np.array_equal(w.cpu().numpy()[want_match],
+                               want_w[want_match])):
+        raise AssertionError("star build or probe differs from numpy")
+    cmn = bw.stats()[0]
+    tbl = packed_table(bkey, bw, mn, mx, cmn)
+    pmatch, pw = packed_probe(tbl, pkey, mn, cmn)
+    if not (torch.equal(pmatch, match) and torch.equal(pw[match], w[match])):
+        raise AssertionError("packed star probe differs from the port's")
+    dom = mx - mn + 1
+    timed(f"star build, position table (domain {dom}, {bkey.nrows} rows)",
+          lambda: fused_star.build_positions(bkey, mn, mx),
+          4 * bkey.nrows + 4 * (dom + 1) + 1)
+    timed("star probe, positions (match and w)",
+          lambda: fused_star.probe(pos, pkey, mn, [bw.data]),
+          4 * (dom + 1) + 4 * pkey.nrows + 4 * bw.nrows + 5 * pkey.nrows)
+    timed("star build, packed table (the JAX package's, not ported)",
+          lambda: packed_table(bkey, bw, mn, mx, cmn),
+          8 * bkey.nrows + 4 * (dom + 1))
+    timed("star probe, packed table (the JAX package's, not ported)",
+          lambda: packed_probe(tbl, pkey, mn, cmn),
+          4 * (dom + 1) + 4 * pkey.nrows + 5 * pkey.nrows)
+    return out
 
 
 def trades_oracle(arrays, q: str):
@@ -1004,7 +1172,11 @@ def main() -> int:
 
     scans = collections.Counter()
     untally = tally_scans(scans)
-    launches = run_slice(dev, data)
+    walls: dict[str, float] = {}
+    dim = h2o_dim(ROWS, K_GROUPS, SEED)
+    launches, db = run_slice(dev, data, dim, walls)
+    join_ms = time_joins(db, data, dim)
+    del db
     launches.update(run_trades(dev))
     launches.update(run_nas(dev))
     untally()
@@ -1022,6 +1194,11 @@ def main() -> int:
     for name, calls in sorted(scans.items()):
         print(f"# phase 4 called {name} {calls} times; ptxas: "
               f"{ptxas_line(ptxas[name])}", flush=True)
+    build = join_ms[next(k for k in join_ms
+                         if k.startswith("star build, position"))]
+    print(f"# the star build, {build:.4f} ms of device time, is "
+          f"{build / walls['qjg']:.1%} of qjg's {walls['qjg']:.3f} ms wall "
+          f"(qj {walls['qj']:.3f} ms)", flush=True)
     phase("5. each query launched its path's kernels, best_profit "
           "fused_running_stats")
 

@@ -4,8 +4,8 @@ query on one CUDA card.
 
     python3 profile_queries.py [--out DIR]
 
-Loads the tables chip_smoke.py loads (h2o G1_1e7_1e1_0_0, trades,
-G1_1e7_1e1_5_0) and, for each of its queries: one first run, the median
+Loads the tables chip_smoke.py loads (h2o G1_1e7_1e1_0_0 with its dim
+table, trades, G1_1e7_1e1_5_0) and, for each of its queries: one first run, the median
 wall time of three warm runs (host clock around execute plus a
 synchronize, as chip_smoke.py times them), then one profiled run. In the
 profiled run, "device ms" is the union of the intervals of the device
@@ -31,7 +31,7 @@ import chip_smoke as C
 from aquery2_tpu_torch import connect
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.ops import kernels as K
-from aquery2_tpu_torch.utils.datagen import h2o_g1, trades
+from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, trades
 
 
 def busy_us(intervals) -> float:
@@ -80,6 +80,7 @@ def main() -> int:
 
     db = connect(device=dev)
     C.load(db, "source", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED), dev)
+    C.load(db, "dim", h2o_dim(C.ROWS, C.K_GROUPS, C.SEED), dev)
     for q, sql in C.QUERIES.items():
         profile_query(db, q, sql, args.out)
     arrays, d = trades(C.ROWS, 100, 7)

@@ -25,6 +25,8 @@ PKG = pathlib.Path(aquery2_tpu_torch.__file__).parent
 
 def test_import_pulls_in_no_jax():
     code = ("import sys; before = set(sys.modules); import aquery2_tpu_torch; "
+            "import aquery2_tpu_torch.engine.fused_star, "
+            "aquery2_tpu_torch.engine.fused_join; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'aquery2_tpu')); "
@@ -38,7 +40,10 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_name_no_jax():
     """No module of the port imports jax or the JAX package."""
-    for path in sorted(PKG.rglob("*.py")):
+    paths = sorted(PKG.rglob("*.py"))
+    assert {PKG / "engine" / "fused_star.py",
+            PKG / "engine" / "fused_join.py"} <= set(paths)
+    for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -344,3 +349,37 @@ def test_kernels_match_plain_on_card(case):
                 assert int(ok.sum()) == (late if nan else n)
                 assert bool(((got[0].double() - exact).abs()[ok]
                              <= 1e-5 * scale[ok]).all()), (n, off)
+
+
+@pytest.mark.gpu
+def test_joins_match_numpy_on_card():
+    """h2o qj and qjg through connect() on the card at 2e5 rows against
+    numpy: the count, and per w (ascending) the count and int64 sum of v1
+    over the matched rows, exactly; qjg's group-by launches
+    onehot_segment_sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1
+
+    n = 200_000
+    src, dim = h2o_g1(n, 10, 3), h2o_dim(n, 10, 3)
+    db = aquery2_tpu_torch.connect()
+    db.catalog.create(Table.from_numpy("source", src, device="cuda"))
+    db.catalog.create(Table.from_numpy("dim", dim, device="cuda"))
+    lut = np.zeros(n // 10 + 2, np.int64)
+    lut[dim["id3"]] = dim["w"]
+    w = lut[src["id3"]]
+    hit = w > 0
+    assert db.execute(QUERIES["qj"]).scalar() == int(hit.sum())
+    before = K.LAUNCHES["onehot_segment_sums"]
+    r = db.execute(QUERIES["qjg"])
+    assert K.LAUNCHES["onehot_segment_sums"] > before
+    ws, inv = np.unique(w[hit], return_inverse=True)
+    assert r.column_names() == ["w", "c", "sv"]
+    cols = r.table.columns
+    np.testing.assert_array_equal(cols["w"].to_numpy(), ws)
+    np.testing.assert_array_equal(cols["c"].to_numpy(), np.bincount(inv))
+    np.testing.assert_array_equal(
+        cols["sv"].to_numpy(),
+        np.bincount(inv, weights=src["v1"][hit]).astype(np.int64))
