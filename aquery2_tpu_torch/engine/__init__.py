@@ -1,6 +1,11 @@
 """Query execution on torch tensors.
 
-  executor.py       statement execution against a Session
+  executor.py       statement execution against a Session: the SELECT
+                    tiers, then the general pipeline
+  eval.py           expression evaluation of the general engine
+  fused_scan.py     ungrouped scan, filter, order and limit
+  groupby.py        the general engine's grouping (dense or sort)
+  grouped_agg.py    the general engine's per-group aggregates
   fused_groupby.py  the grouped-aggregation path (dense and packed tiers)
   fused_ordered.py  the ordered group-by (ASSUMING, running aggregates)
   fused_star.py     the star join into the fused group-by (qjg)

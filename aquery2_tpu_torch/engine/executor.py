@@ -1,52 +1,120 @@
-"""Statement executor: CREATE TABLE, INSERT … VALUES, grouped SELECT and
-the fused joins.
+"""Statement executor: DDL, DML and SELECT against a Session.
 
-Counterpart of ``aquery2_tpu/engine/executor.py``, reduced to DDL, literal
-inserts and the single-device fused branches of a SELECT, tried in the
-JAX package's order:
-  - one table, grouped: the fused group-by (engine/fused_groupby.py), and
-    where its plan does not cover the statement, the ordered group-by with
-    running and windowed aggregates, ASSUMING and subvec
-    (engine/fused_ordered.py);
-  - two tables (comma-separated, or one NATURAL, ON or USING join), no
-    ASSUMING: the star join into the fused group-by
-    (engine/fused_star.py), then, without GROUP BY, the count join
-    (engine/fused_join.py).
-A join neither takes (duplicate dim keys, nullable join tables, string
-keys in different dictionaries, three tables, any other aggregate) raises
-NotImplementedError naming the general join's ROADMAP items; every other
-statement raises it naming the ROADMAP item that brings it.
+Counterpart of ``aquery2_tpu/engine/executor.py`` on one device. A SELECT
+takes the first of these that covers it, in the JAX package's order:
+
+  1. SELECT DISTINCT of plain expressions, rewritten as GROUP BY;
+  2. UNION ALL: each arm as its own SELECT, the results appended;
+  3. one table, grouped: the fused group-by (engine/fused_groupby.py),
+     then the ordered group-by (engine/fused_ordered.py);
+  4. two tables: the star join (engine/fused_star.py), then, without
+     GROUP BY, the count join (engine/fused_join.py);
+  5. one table, ungrouped, no ASSUMING: the fused scan
+     (engine/fused_scan.py);
+  6. the general pipeline over one table or subquery:
+
+       source → ASSUMING sort → WHERE compaction → GROUP BY
+       → projections (engine/eval.py) → HAVING → UNION ALL → ORDER BY
+       → LIMIT → INTO
+
+Every step runs on the session's device; the host reads only counts (the
+WHERE and HAVING compactions, the group count, the keys' stats, a vector
+column's value count) and scalars (LIMIT, subquery results).
+
+Statements: CREATE TABLE [AS SELECT], DROP TABLE, INSERT (values, computed
+values, SELECT), DELETE, UPDATE, CREATE INDEX and CACHE TABLE (no-ops:
+scans are always vectorized, tables always on the device) and <sql>
+passthrough blocks.
+
+What the port does not run yet raises NotImplementedError naming its
+ROADMAP item: UNION DISTINCT, EXCEPT, INTERSECT, a DISTINCT that does not
+rewrite and DISTINCT aggregates (queue 1, item 7b); any join outside the
+star and count-join paths (item 6b); OVER windows (item 7c); user
+functions (item 7d); LOAD, INTO OUTFILE, modules and triggers (item 8).
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
+import torch
+
+from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
-                                      fused_ordered, fused_star)
+                                      fused_ordered, fused_scan, fused_star)
+from aquery2_tpu_torch.engine import groupby as gb
+from aquery2_tpu_torch.engine import grouped_agg
+from aquery2_tpu_torch.engine.eval import (EvalContext, Value, WorkingSet,
+                                           _host_scalar)
+from aquery2_tpu_torch.ops import filter as filter_ops
+from aquery2_tpu_torch.ops import ragged
+from aquery2_tpu_torch.ops.reduce import big_of, small_of
+from aquery2_tpu_torch.ops.sort import sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.result import Result
-from aquery2_tpu_torch.storage.table import Column, StringDict, Table
+from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
+                                             VectorColumn, recode)
+from aquery2_tpu_torch.utils import base62uuid
 
-_GENERAL = "ROADMAP queue 1, item 7 (general engine)"
-_JOIN = "ROADMAP queue 1, items 6b and 7 (general join)"
+_JOIN = "ROADMAP queue 1, item 6b (general join)"
+_SERVICES = "ROADMAP queue 1, item 8 (services)"
+_UDFS = "ROADMAP queue 1, item 7d (UDFs)"
+_SETOPS = "ROADMAP queue 1, item 7b (set operations)"
+
+
+class ExecError(Exception):
+    pass
 
 
 class Executor:
     def __init__(self, session) -> None:
         self.session = session
 
+    # ------------------------------------------------------------------ #
+    # statements
+    # ------------------------------------------------------------------ #
+
     def execute(self, stmt: A.Statement) -> Result | None:
+        catalog = self.session.catalog
         if isinstance(stmt, A.CreateTable):
             return self._create_table(stmt)
+        if isinstance(stmt, A.DropTable):
+            catalog.drop(stmt.name, if_exists=stmt.if_exists)
+            return None
         if isinstance(stmt, A.Insert):
             return self._insert(stmt)
+        if isinstance(stmt, A.Delete):
+            return self._delete(stmt)
+        if isinstance(stmt, A.Update):
+            return self._update(stmt)
         if isinstance(stmt, A.Select):
-            return Result(self._run_select(stmt))
-        raise NotImplementedError(f"{type(stmt).__name__}: {_GENERAL}")
+            return Result(self.run_select(stmt))
+        if isinstance(stmt, (A.CreateIndex, A.CacheTable)):
+            return None
+        if isinstance(stmt, A.PassthroughSQL):
+            # the reference forwards these to MonetDB; here they are SQL
+            # this engine runs
+            from aquery2_tpu_torch.parser import parse
+
+            last = None
+            for s in parse(stmt.text):
+                r = self.execute(s)
+                if r is not None:
+                    last = r
+            return last
+        if isinstance(stmt, A.CreateFunction):
+            raise NotImplementedError(f"CREATE FUNCTION: {_UDFS}")
+        raise NotImplementedError(f"{type(stmt).__name__}: {_SERVICES}")
 
     def _create_table(self, stmt: A.CreateTable) -> None:
+        catalog = self.session.catalog
         if stmt.as_select is not None:
-            raise NotImplementedError(f"CREATE TABLE AS SELECT: {_GENERAL}")
+            tbl = self.run_select(stmt.as_select)
+            tbl.name = stmt.name
+            catalog.create(tbl, replace=True)
+            return None
         dev = self.session.device
         cols = []
         for cd in stmt.columns:
@@ -54,13 +122,14 @@ class Executor:
             cols.append(Column.from_host(
                 cd.name, t, [], device=dev,
                 dictionary=StringDict() if t.is_string else None))
-        self.session.catalog.create(Table(stmt.name, cols))
+        catalog.create(Table(stmt.name, cols))
         return None
 
     def _insert(self, stmt: A.Insert) -> None:
         tbl = self.session.catalog.get(stmt.table)
         if stmt.select is not None:
-            raise NotImplementedError(f"INSERT … SELECT: {_GENERAL}")
+            tbl.append_table(self.run_select(stmt.select))
+            return None
         rows = []
         for row in stmt.values:
             vals = []
@@ -70,23 +139,123 @@ class Executor:
                 elif (isinstance(e, A.UnaryOp) and e.op == "-"
                         and isinstance(e.operand, A.Literal)):
                     vals.append(-e.operand.value)
-                else:
-                    raise NotImplementedError(
-                        f"INSERT of a computed value: {_GENERAL}")
+                else:                       # a computed value
+                    v = EvalContext(self._empty_ws(), self.session).eval(e)
+                    vals.append(_host_scalar(v.data))
             rows.append(vals)
         if stmt.columns:
             order = [c.lower() for c in stmt.columns]
             names = [c.lower() for c in tbl.column_names()]
             if set(order) != set(names):
-                raise ValueError("INSERT column list must cover all columns")
+                raise ExecError("INSERT column list must cover all columns")
             perm = [order.index(nm) for nm in names]
             rows = [[r[i] for i in perm] for r in rows]
         tbl.append_rows(rows)
         return None
 
-    def _run_select(self, sel: A.Select) -> Table:
+    def _where_mask(self, ctx: EvalContext, where: A.Expr) -> torch.Tensor:
+        """[capacity] bool: the rows where ``where`` is TRUE (not false,
+        not NULL) among the first ws.n."""
+        mv = ctx.to_row(ctx.eval(where))
+        mask = _bool_rows(mv.data, ctx.ws)
+        if mv.nulls is not None:
+            mask = mask & ~mv.nulls
+        return mask & (torch.arange(ctx.ws.capacity, device=ctx.ws.device)
+                       < ctx.ws.n)
+
+    def _delete(self, stmt: A.Delete) -> None:
+        tbl = self.session.catalog.get(stmt.table)
+        n = tbl.nrows
+        if stmt.where is None:
+            keep = torch.zeros(0, dtype=torch.int64, device=self.session.device)
+        else:
+            ws = WorkingSet.from_table(tbl, self.session.device)
+            gone = self._where_mask(EvalContext(ws, self.session), stmt.where)
+            keep, _m = filter_ops.compact_indices(~gone[:n])
+        out = _take_table(tbl, keep)
+        tbl.columns = out.columns
+        return None
+
+    def _update(self, stmt: A.Update) -> None:
+        """UPDATE t SET c = expr [, ...] [WHERE cond]: a masked overwrite of
+        the device columns. Every right-hand side reads the old row."""
+        tbl = self.session.catalog.get(stmt.table)
+        ws = WorkingSet.from_table(tbl, self.session.device)
+        ctx = EvalContext(ws, self.session)
+        if stmt.where is not None:
+            mask = self._where_mask(ctx, stmt.where)
+        else:
+            mask = torch.arange(ws.capacity, device=ws.device) < ws.n
+        new = [(tbl.columns[c], ctx.to_row(ctx.eval(e)))
+               for c, e in stmt.assignments]
+        for col, nv in new:
+            if col.is_vector:
+                raise ExecError("UPDATE of vector columns not supported")
+            data = nv.data
+            if data is None:                    # SET c = NULL
+                data = 0
+                nv = Value("scalar", 0, col.sqltype, nulls=torch.ones(
+                    ws.capacity, dtype=torch.bool, device=ws.device))
+            if col.sqltype.is_string:
+                d = col.dictionary
+                if isinstance(data, str):
+                    data = d.encode_one(data)
+                else:
+                    data = recode(data, nv.dictionary, d)
+            if not isinstance(data, torch.Tensor):
+                data = torch.tensor(data, device=ws.device)
+            old = col.data[:ws.capacity]
+            out = torch.where(mask, data.to(old.dtype), old)
+            valid = None
+            if col.valid is not None or nv.nulls is not None:
+                ones = torch.ones(ws.capacity, dtype=torch.bool,
+                                  device=ws.device)
+                new_ok = ones if nv.nulls is None else ~nv.nulls
+                valid = torch.where(mask, new_ok,
+                                    ones if col.valid is None else col.valid)
+            tbl.columns[col.name] = Column(col.name, col.sqltype, out,
+                                           nrows=tbl.nrows,
+                                           dictionary=col.dictionary,
+                                           valid=valid)
+        return None
+
+    def _empty_ws(self) -> WorkingSet:
+        """One row and no columns: the source of a SELECT with no FROM."""
+        return WorkingSet([("__dual__", Table("__dual__"))], [None], 1, 1,
+                          self.session.device)
+
+    # ------------------------------------------------------------------ #
+    # SELECT
+    # ------------------------------------------------------------------ #
+
+    def run_select(self, sel: A.Select) -> Table:
+        if sel.into_outfile:
+            raise NotImplementedError(f"SELECT … INTO OUTFILE: {_SERVICES}")
+        table = self._select(sel)
+        if sel.into_table:
+            table.name = sel.into_table
+            self.session.catalog.create(table, replace=True)
+        return table
+
+    def _select(self, sel: A.Select) -> Table:
         catalog = self.session.catalog
+        sel2 = _distinct_to_groupby(sel, catalog)
+        if sel2 is not None:
+            sel = sel2
+        if sel.unions:
+            t = self._run_union(sel)
+            if t is not None:
+                return t
         srcs = sel.sources
+        one_table = (len(srcs) == 1 and isinstance(srcs[0], A.TableSource)
+                     and srcs[0].name in catalog)
+        if sel.group_by and one_table:
+            table = catalog.get(srcs[0].name)
+            t = fused_groupby.run(sel, table)
+            if t is None:
+                t = fused_ordered.run(sel, table)
+            if t is not None:
+                return t
         if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):
             t = None
             if not sel.assumptions:
@@ -97,15 +266,481 @@ class Executor:
                 return t
             raise NotImplementedError(
                 f"join outside the star and count-join paths: {_JOIN}")
-        if (sel.group_by and len(srcs) == 1
-                and isinstance(srcs[0], A.TableSource)
-                and srcs[0].name in catalog):
-            table = catalog.get(srcs[0].name)
-            t = fused_groupby.run(sel, table)
-            if t is None:
-                t = fused_ordered.run(sel, table)
+        if not sel.group_by and not sel.assumptions:
+            t = fused_scan.try_run(catalog, sel)
             if t is not None:
                 return t
-        raise NotImplementedError(
-            f"SELECT outside the fused group-by and ordered paths: "
-            f"{_GENERAL}")
+        return self._general(sel)
+
+    def _general(self, sel: A.Select) -> Table:
+        if sel.distinct:        # one that _distinct_to_groupby declined
+            raise NotImplementedError(f"DISTINCT over this projection: "
+                                      f"{_SETOPS}")
+        ws = self._build_source(sel)
+        if sel.assumptions:
+            ws = self._apply_assuming(ws, sel.assumptions)
+        if sel.where is not None:
+            ws = self._apply_filter(ws, self._where_mask(
+                EvalContext(ws, self.session), sel.where))
+
+        grouping = None
+        key_values: list[Value] = []
+        key_sentinels: list = []
+        if sel.group_by:
+            ctx0 = EvalContext(ws, self.session)
+            key_values = [ctx0.to_row(ctx0.eval(e)) for e in sel.group_by]
+            keys = []
+            for v in key_values:
+                # the NULL keys make one group of their own: a sentinel past
+                # every value, turned back into NULL in the output
+                data = v.data if isinstance(v.data, torch.Tensor) else \
+                    fused_groupby._as_rows(v.data, ctx0.seg)
+                sent = None
+                if v.nulls is not None:
+                    data, sent = _null_key_sentinel(data, v.nulls, ws.n)
+                key_sentinels.append(sent)
+                keys.append(_KeyCol(data, ws.n))
+            grouping = gb.group_by(keys, ws.n)
+            ws = ws.permuted(grouping.order, ws.n)
+
+        ctx = EvalContext(ws, self.session, grouping)
+        named = [(name, self._eval_projection(ctx, sel, expr, key_values,
+                                              key_sentinels))
+                 for name, expr in self._expand_projections(sel, ws)]
+        table = self._materialize(ctx, named)
+        if sel.having is not None:
+            table = self._apply_having(ctx, sel, table)
+        for kind, sub in sel.unions:
+            if kind != "all":
+                raise NotImplementedError(f"UNION {kind.upper()}: {_SETOPS}")
+            table.append_table(self.run_select(sub))
+        if sel.order_by:
+            table = self._apply_order(ctx, sel, table)
+        if sel.limit is not None:
+            table = _limit_table(table, sel.limit)
+        return table
+
+    def _run_union(self, sel: A.Select) -> Table | None:
+        """UNION ALL: the main branch and each arm as SELECTs of their own
+        (each takes its own tier), appended; then ORDER BY and LIMIT over
+        the output columns. None where an ORDER BY key is not an output
+        column (the general pipeline orders by expressions)."""
+        for kind, _sub in sel.unions:
+            if kind != "all":
+                raise NotImplementedError(f"UNION {kind.upper()}: {_SETOPS}")
+        aliases = {(p.alias or "").lower() for p in sel.projections}
+        proj_cols = {p.expr.name.lower() for p in sel.projections
+                     if isinstance(p.expr, A.ColumnRef)}
+        for item in sel.order_by or []:
+            e = item.expr
+            if not ((isinstance(e, A.ColumnRef) and e.table is None
+                     and e.name.lower() in aliases | proj_cols)
+                    or any(not isinstance(p.expr, A.Star) and p.expr == e
+                           for p in sel.projections)):
+                return None
+        if sel.distinct:
+            raise NotImplementedError(f"DISTINCT over a UNION: {_SETOPS}")
+        main = dataclasses.replace(sel, unions=[], order_by=[], limit=None,
+                                   into_table=None, into_outfile=None)
+        table = self.run_select(main)
+        for _kind, sub in sel.unions:
+            table.append_table(self.run_select(sub))
+        if sel.order_by and table.nrows:
+            names = table.column_names()
+            keys = []
+            for item in sel.order_by:
+                e = item.expr
+                col = None
+                if isinstance(e, A.ColumnRef) and e.table is None \
+                        and e.name in table.columns:
+                    col = table.columns[e.name]
+                else:
+                    for p, out_name in zip(sel.projections, names):
+                        if (not isinstance(p.expr, A.Star) and p.expr == e) \
+                                or (isinstance(e, A.ColumnRef) and p.alias
+                                    and p.alias.lower() == e.name.lower()):
+                            col = table.columns[out_name]
+                            break
+                if col is None:
+                    return None
+                keys.append((_sort_key_of(col, table.nrows), item.ascending))
+            table = _take_table(table, sort_perm(keys, table.nrows))
+        if sel.limit is not None:
+            table = _limit_table(table, sel.limit)
+        return table
+
+    # -- sources -----------------------------------------------------------
+
+    def _build_source(self, sel: A.Select) -> WorkingSet:
+        """FROM one table or one derived table, as a WorkingSet."""
+        if not sel.sources:
+            return self._empty_ws()
+        if len(sel.sources) > 1:
+            raise NotImplementedError(f"joins: {_JOIN}")
+        src = sel.sources[0]
+        if isinstance(src, A.TableSource):
+            return WorkingSet.from_table(self.session.catalog.get(src.name),
+                                         self.session.device, src.alias)
+        if isinstance(src, A.SubquerySource):
+            sub = self.run_select(src.select)
+            if src.alias:
+                sub.name = src.alias
+            return WorkingSet.from_table(sub, self.session.device, src.alias)
+        raise NotImplementedError(f"joins: {_JOIN}")
+
+    def _apply_assuming(self, ws: WorkingSet, assumptions) -> WorkingSet:
+        """The stable sort of ASSUMING ASC/DESC columns: strings by their
+        dictionary rank, NULLs before every value (as ORDER BY puts them)."""
+        keys = []
+        for a in assumptions:
+            v = ws.column_value(a.col.name, a.col.table)
+            keys.append((_order_data(v.data, v.dictionary, v.nulls),
+                         a.ascending))
+        return ws.permuted(sort_perm(keys, ws.n), ws.n)
+
+    def _apply_filter(self, ws: WorkingSet, mask: torch.Tensor) -> WorkingSet:
+        """The rows of mask, in order (one host sync: their count)."""
+        idx, m = filter_ops.compact_indices(mask)
+        cap = config.bucket_size(max(m, 1))
+        return ws.permuted(torch.cat([idx, idx.new_zeros(cap - m)]), m)
+
+    # -- projections -------------------------------------------------------
+
+    def _expand_projections(self, sel: A.Select, ws: WorkingSet):
+        out: list[tuple[str, Any]] = []
+        for p in sel.projections:
+            if isinstance(p.expr, A.Star):
+                out.extend(ws.all_columns())
+            else:
+                out.append((p.alias or fused_groupby.derive_name(p.expr),
+                            p.expr))
+        names = fused_groupby.output_names([("", None, nm) for nm, _ in out])
+        return list(zip(names, (x for _, x in out)))
+
+    def _eval_projection(self, ctx: EvalContext, sel: A.Select, expr,
+                         key_values, key_sentinels) -> Value | tuple:
+        if isinstance(expr, (Value, tuple)):    # resolved by SELECT *
+            return expr
+        if ctx.grouping is not None:
+            ki = _match_group_key(expr, sel.group_by)
+            if ki is not None:
+                kv = key_values[ki]
+                data = ctx.grouping.key_values[ki]
+                nulls = None
+                sent = key_sentinels[ki]
+                if sent is not None:            # the NULL group's key
+                    nulls = data == sent
+                    data = torch.where(nulls, torch.zeros_like(data), data)
+                return Value("group", data, kv.sqltype, kv.dictionary,
+                             nulls=nulls)
+        return ctx.eval(expr)
+
+    def _materialize(self, ctx: EvalContext, named) -> Table:
+        grouped = ctx.grouping is not None
+        if grouped:
+            nrows = ctx.G
+        elif any(isinstance(v, tuple) or v.kind == "row" for _, v in named):
+            nrows = ctx.ws.n
+        else:
+            nrows = 1 if named else 0
+        return Table(f"result_{base62uuid(4)}",
+                     [self._materialize_one(ctx, name, v, nrows)
+                      for name, v in named])
+
+    def _materialize_one(self, ctx: EvalContext, name: str, v, nrows: int):
+        ws = ctx.ws
+        if isinstance(v, tuple):                # a vector column from *
+            si, vcol = v
+            idx = ws.indices[si]
+            if idx is None:
+                return vcol.with_name(name)
+            return _take_vector(vcol, idx[:ws.n], name)
+
+        if v.pack_cols is not None:
+            k = len(v.pack_cols)
+            n = ws.n
+            flat = torch.stack([c[:ws.capacity] for c in v.pack_cols],
+                               dim=1).reshape(-1)[:n * k]
+            offsets = torch.arange(n + 1, dtype=torch.int64,
+                                   device=ws.device) * k
+            return VectorColumn(name, v.sqltype, flat, offsets, nrows=n,
+                                total=n * k)
+
+        dev = ws.device
+        if v.kind == "scalar":
+            if isinstance(v.data, str):
+                d = StringDict([v.data])
+                return Column(name, T.StrT, torch.zeros(nrows, dtype=torch.int32,
+                                                        device=dev),
+                              nrows=nrows, dictionary=d)
+            dt = T.torch_dtype(v.sqltype.np_dtype)
+            if v.data is None:                  # a NULL literal
+                return Column(name, v.sqltype, torch.zeros(nrows, dtype=dt,
+                                                           device=dev),
+                              nrows=nrows, valid=torch.zeros(
+                                  nrows, dtype=torch.bool, device=dev))
+            data = torch.as_tensor(v.data, device=dev).to(dt).reshape(1)
+            valid = None
+            if v.nulls is not None:
+                valid = (~torch.as_tensor(v.nulls, device=dev)).reshape(1) \
+                    .expand(nrows)
+            return Column(name, v.sqltype, data.expand(nrows), nrows=nrows,
+                          valid=valid)
+
+        if v.kind == "group":
+            if ctx.grouping is None:            # one group: broadcast its value
+                return Column(name, v.sqltype, v.data[:1].expand(nrows),
+                              nrows=nrows, dictionary=v.dictionary,
+                              valid=None if v.nulls is None
+                              else (~v.nulls[:1]).expand(nrows))
+            return Column(name, v.sqltype, v.data[:ctx.G], nrows=ctx.G,
+                          dictionary=v.dictionary,
+                          valid=None if v.nulls is None else ~v.nulls[:ctx.G])
+
+        valid_rows = torch.arange(ws.capacity, device=dev) < ws.n
+        if ctx.grouping is None:                # one value per row
+            if v.mask is not None:
+                idx, m = filter_ops.compact_indices(v.mask & valid_rows)
+                return Column(name, v.sqltype, v.data[idx], nrows=m,
+                              dictionary=v.dictionary,
+                              valid=None if v.nulls is None else ~v.nulls[idx])
+            return Column(name, v.sqltype, v.data[:ws.n], nrows=ws.n,
+                          dictionary=v.dictionary,
+                          valid=None if v.nulls is None else ~v.nulls[:ws.n])
+
+        # grouped: one vector per group of the group's (kept) rows
+        if v.mask is None:
+            offsets = ctx.grouping.offsets[:ctx.G + 1]
+            return VectorColumn(name, T.VectorT(v.sqltype), v.data[:ws.n],
+                                offsets, nrows=ctx.G,
+                                dictionary=v.dictionary, total=ws.n)
+        mask = v.mask & valid_rows
+        idx, m = filter_ops.compact_indices(mask)
+        counts = grouped_agg.compute(ctx, "count", [v])
+        offsets = torch.cat([counts.data.new_zeros(1),
+                             torch.cumsum(counts.data[:ctx.G], 0)])
+        return VectorColumn(name, T.VectorT(v.sqltype), v.data[idx], offsets,
+                            nrows=ctx.G, dictionary=v.dictionary, total=m)
+
+    # -- post-processing ---------------------------------------------------
+
+    def _apply_having(self, ctx: EvalContext, sel: A.Select,
+                      table: Table) -> Table:
+        hv = ctx.eval(sel.having)
+        if hv.kind != "group":
+            raise ExecError("HAVING must be a per-group predicate")
+        keep = _bool_rows(hv.data, ctx.ws)[:table.nrows]
+        if hv.nulls is not None:
+            keep = keep & ~hv.nulls[:table.nrows]
+        return _take_table(table, filter_ops.compact_indices(keep)[0])
+
+    def _apply_order(self, ctx: EvalContext, sel: A.Select,
+                     table: Table) -> Table:
+        n = table.nrows
+        if n == 0:
+            return table
+        keys = [(self._order_key(ctx, sel, table, item.expr), item.ascending)
+                for item in sel.order_by]
+        return _take_table(table, sort_perm(keys, n))
+
+    def _order_key(self, ctx: EvalContext, sel: A.Select, table: Table,
+                   expr) -> torch.Tensor:
+        """[n] sort key of an ORDER BY item: an output column (by name or
+        by the projection it equals), else the expression evaluated per
+        output row (a grouped row expression at each group's first row)."""
+        n = table.nrows
+        if isinstance(expr, A.ColumnRef) and expr.table is None \
+                and expr.name in table.columns:
+            return _sort_key_of(table.columns[expr.name], n)
+        for p, out_name in zip(sel.projections, table.column_names()):
+            if not isinstance(p.expr, A.Star) and p.expr == expr:
+                return _sort_key_of(table.columns[out_name], n)
+        v = ctx.eval(expr)
+        if v.kind == "scalar":
+            return torch.zeros(n, device=ctx.ws.device)
+        if v.kind == "row" and ctx.grouping is not None:
+            v = grouped_agg.compute(ctx, "first", [v])
+        return _order_data(v.data[:n], v.dictionary,
+                           None if v.nulls is None else v.nulls[:n])
+
+
+# --------------------------------------------------------------------- #
+# helpers
+# --------------------------------------------------------------------- #
+
+def _distinct_to_groupby(sel: A.Select, catalog) -> A.Select | None:
+    """SELECT DISTINCT e1, …, ek → SELECT e1, …, ek GROUP BY e1, …, ek when
+    every projection is a plain row expression (columns, literals,
+    operators, math calls) over catalog tables with no vector column
+    among those referenced, and no projection is a bare literal; None
+    otherwise. Groups come out key-ascending, as a DISTINCT sorts."""
+    if (not sel.distinct or sel.group_by or sel.unions
+            or sel.having is not None or sel.assumptions or not sel.sources):
+        return None
+
+    def plain(e) -> bool:
+        if isinstance(e, (A.ColumnRef, A.Literal)):
+            return True
+        if isinstance(e, A.BinOp):
+            return plain(e.left) and plain(e.right)
+        if isinstance(e, A.UnaryOp):
+            return plain(e.operand)
+        if isinstance(e, A.Call):
+            return e.func in fused_groupby._MATH and all(plain(a)
+                                                         for a in e.args)
+        return False
+
+    if not sel.projections or any(isinstance(p.expr, (A.Star, A.Literal))
+                                  or not plain(p.expr)
+                                  for p in sel.projections):
+        return None
+
+    def leaves(src):
+        if isinstance(src, A.TableSource):
+            yield src
+        elif isinstance(src, A.JoinSource):
+            yield from leaves(src.left)
+            yield from leaves(src.right)
+        else:
+            yield None
+
+    refs: set[str] = set()
+    for p in sel.projections:
+        refs |= fused_groupby._refs(p.expr)
+    for src in sel.sources:
+        for leaf in leaves(src):
+            if leaf is None or leaf.name not in catalog:
+                return None
+            t = catalog.get(leaf.name)
+            if any(nm in t.columns and t.columns[nm].is_vector
+                   for nm in refs):
+                return None
+    group_by: list[A.Expr] = []
+    for p in sel.projections:
+        if not any(p.expr == g for g in group_by):
+            group_by.append(p.expr)
+    return dataclasses.replace(sel, distinct=False, group_by=group_by)
+
+
+class _KeyCol:
+    """A computed key tensor with lazy (min, max) stats of its first n
+    rows, as engine/groupby.group_by reads them (one host sync)."""
+
+    def __init__(self, data: torch.Tensor, n: int) -> None:
+        self.data = data.to(torch.int32) if data.dtype == torch.bool else data
+        self.n = n
+        self._stats = None
+
+    def stats(self):
+        if self._stats is None:
+            d = self.data
+            valid = torch.arange(d.shape[0], device=d.device) < self.n
+            both = torch.stack([
+                torch.where(valid, d, torch.full((), big_of(d.dtype),
+                                                 dtype=d.dtype,
+                                                 device=d.device)).min(),
+                torch.where(valid, d, torch.full((), small_of(d.dtype),
+                                                 dtype=d.dtype,
+                                                 device=d.device)).max()])
+            lo, hi = both.tolist()
+            self._stats = (lo, hi)
+        return self._stats
+
+
+def _bool_rows(data, ws: WorkingSet) -> torch.Tensor:
+    """A predicate's values as a [capacity] bool tensor."""
+    if not isinstance(data, torch.Tensor):
+        data = torch.tensor(bool(data), device=ws.device)
+    if data.dtype != torch.bool:
+        data = data != 0
+    return data.expand(ws.capacity) if data.dim() == 0 else data
+
+
+def _match_group_key(expr: A.Expr, group_by) -> int | None:
+    for i, g in enumerate(group_by):
+        if expr == g or (isinstance(expr, A.ColumnRef)
+                         and isinstance(g, A.ColumnRef)
+                         and expr.name.lower() == g.name.lower()):
+            return i
+    return None
+
+
+def _null_key_sentinel(data: torch.Tensor, nulls: torch.Tensor, n: int):
+    """NULL key rows replaced by a sentinel past the non-NULL maximum (+inf
+    for floats), so the NULLs make one group, last: (data', sentinel)."""
+    if data.is_floating_point():
+        return torch.where(nulls, float("inf"), data), float("inf")
+    ok = (torch.arange(data.shape[0], device=data.device) < n) & ~nulls
+    d64 = data.to(torch.int64)
+    mx = int(torch.where(ok, d64, torch.iinfo(torch.int64).min).max())
+    sent = max(mx, -2**62) + 1
+    wide = torch.where(nulls, sent, d64)
+    if data.dtype != torch.bool and sent <= torch.iinfo(data.dtype).max:
+        return wide.to(data.dtype), sent
+    return wide, sent
+
+
+def _order_data(data: torch.Tensor, dictionary, nulls) -> torch.Tensor:
+    """A sort key: string codes as lexicographic ranks, NULLs as the
+    dtype's minimum (first ascending, as MonetDB orders them)."""
+    if dictionary is not None and len(dictionary):
+        ranks = torch.from_numpy(dictionary.ranks).to(data.device)
+        data = ranks[data.clamp(0, len(ranks) - 1).long()]
+    if data.dtype == torch.bool:
+        data = data.to(torch.int32)
+    if nulls is not None:
+        small = float("-inf") if data.is_floating_point() \
+            else torch.iinfo(data.dtype).min
+        data = torch.where(nulls, small, data)
+    return data
+
+
+def _sort_key_of(col, n: int) -> torch.Tensor:
+    """An output column's sort key over its n rows (a vector column by
+    each row's first element, 0 when empty)."""
+    if col.is_vector:
+        lens = col.offsets[1:n + 1] - col.offsets[:n]
+        first = col.values[col.offsets[:n].clamp(0, col.values.shape[0] - 1)]
+        return torch.where(lens > 0, first, torch.zeros_like(first))
+    return _order_data(col.data[:n],
+                       col.dictionary if col.sqltype.is_string else None,
+                       None if col.valid is None else ~col.valid[:n])
+
+
+def _take_vector(vcol: VectorColumn, idx: torch.Tensor,
+                 name: str) -> VectorColumn:
+    """The rows idx of a vector column (one host sync: their value
+    count)."""
+    k = int(idx.shape[0])
+    if k == 0:
+        return VectorColumn(name, vcol.sqltype, vcol.values[:0],
+                            vcol.offsets[:1] * 0, nrows=0,
+                            dictionary=vcol.dictionary, total=0)
+    total = int(ragged.lengths_from_offsets(vcol.offsets)[idx].sum())
+    vals, offs = ragged.take(vcol.values, vcol.offsets, idx, k,
+                             config.bucket_size(max(total, 1)), total)
+    return VectorColumn(name, vcol.sqltype, vals, offs[:k + 1], nrows=k,
+                        dictionary=vcol.dictionary, total=total)
+
+
+def _take_table(table: Table, idx: torch.Tensor) -> Table:
+    """The rows idx (an int64 tensor) of every column, in that order."""
+    k = int(idx.shape[0])
+    out = Table(table.name)
+    for c in table.columns.values():
+        if c.is_vector:
+            out.add_column(_take_vector(c, idx, c.name))
+        else:
+            out.add_column(Column(c.name, c.sqltype, c.data[idx], nrows=k,
+                                  dictionary=c.dictionary,
+                                  valid=None if c.valid is None
+                                  else c.valid[idx]))
+    return out
+
+
+def _limit_table(table: Table, k: int) -> Table:
+    n = min(table.nrows, k)
+    if n == table.nrows:
+        return table
+    dev = next(iter(table.columns.values())).device
+    return _take_table(table, torch.arange(n, device=dev))

@@ -34,10 +34,11 @@ sorts last and comes out with its key NULL; NULL aggregate arguments are
 skipped, with a per-aggregate non-null count for avg, var, stddev, corr
 and count(col). An all-NULL group gets sum 0 and the min/max sentinels,
 as in the JAX package. Where the JAX package sends a query to its general
-engine instead (a nullable WHERE column, a nullable median argument,
-Kleene logic inside a nullable argument, a nullable key also read
-elsewhere) the port raises NotImplementedError naming that ROADMAP item;
-a shape the plan does not cover at all (``Unsupported``) returns None.
+engine instead (an empty table, a nullable WHERE column, a nullable median
+argument, Kleene logic inside a nullable argument, a nullable key also
+read elsewhere), and for a shape the plan does not cover at all
+(``Unsupported``), ``run`` returns None and the executor goes on to the
+next tier.
 """
 
 from __future__ import annotations
@@ -62,8 +63,6 @@ _MATH = {"sqrt": torch.sqrt, "pow": torch.pow, "abs": torch.abs,
          "ceil": torch.ceil, "round": torch.round}
 _WORD_BITS = 30          # data bits per packed key word
 _LIMB_BITS = 14          # add_float: coarse limb = round(v · 2^14)
-
-_GENERAL = "ROADMAP queue 1, item 7 (general engine)"
 
 
 class Unsupported(Exception):
@@ -227,8 +226,7 @@ def plan(sel: A.Select, table: Table):
     return {"keys": keys, "projections": projections, "aggs": aggs,
             "where": sel.where, "limit": sel.limit, "having": sel.having,
             "has_median": bool(medians), "order_by": order_by,
-            "expr_keys": expr_keys,
-            "into_table": sel.into_table, "into_outfile": sel.into_outfile}
+            "expr_keys": expr_keys}
 
 
 def _refs(e: A.Expr) -> set[str]:
@@ -371,9 +369,23 @@ def _truediv(a, b):
     return a / b
 
 
+def _mod(a, b):
+    """SQL '%' as jnp.mod computes it: the divisor's sign, and 0 where an
+    integer divisor is 0 (torch raises there on the CPU; the JAX package
+    returns 0)."""
+    if _is_float(a) or _is_float(b):
+        return a % b
+    if isinstance(b, torch.Tensor):
+        zero = b == 0
+        return torch.where(zero, 0, a % torch.where(zero, 1, b))
+    if b == 0:
+        return a * 0
+    return a % b
+
+
 _BINOPS = {
     "+": operator.add, "-": operator.sub, "*": operator.mul,
-    "/": _truediv, "%": operator.mod,
+    "/": _truediv, "%": _mod,
     "=": operator.eq, "<>": operator.ne, "<": operator.lt, ">": operator.gt,
     "<=": operator.le, ">=": operator.ge,
     "and": lambda a, b: _truth(a) & _truth(b),
@@ -419,8 +431,11 @@ def _row_eval(e: A.Expr, env: dict[str, torch.Tensor]):
         for cond, val in reversed(e.whens):
             c = _truth(_row_eval(cond, env))
             v, res = _promote(_row_eval(val, env), res)
-            if not isinstance(res, torch.Tensor):
+            if not isinstance(v, torch.Tensor) \
+                    and not isinstance(res, torch.Tensor):
                 res = _as_rows(res, c)
+            # a Python number beside a tensor takes its dtype, as JAX's
+            # weakly typed literals do
             res = torch.where(c, v, res)
         return res
     raise Unsupported(f"trace {e}")
@@ -717,12 +732,9 @@ def run(sel: A.Select, table: Table) -> Table | None:
         p = plan(sel, table)
     except Unsupported:
         return None
-    if p["into_table"] or p["into_outfile"]:
-        raise NotImplementedError(
-            "SELECT INTO: ROADMAP queue 1, item 8 (services)")
     n = table.nrows
     if n == 0:
-        raise NotImplementedError(f"group-by of an empty table: {_GENERAL}")
+        return None
     sub = sentinel_code_null_keys(p, table)
     if sub is not None:
         table, p["key_sentinels"] = sub
@@ -735,7 +747,7 @@ def run(sel: A.Select, table: Table) -> Table | None:
     col_order = referenced_columns(p)
     nullable, bail = nullable_gate(p, cols, col_order)
     if bail:
-        raise NotImplementedError(f"{bail}: {_GENERAL}")
+        return None
     scatters = _needed_scatters(p["aggs"])
     env = {nm: cols[nm].data for nm in col_order}
     env_null = {nm: ~cols[nm].valid for nm in sorted(nullable)}
@@ -956,14 +968,19 @@ def _take(t: torch.Tensor | None, idx: torch.Tensor | None,
 
 
 def _sort_key(p, cols, pi: int, arr: torch.Tensor) -> torch.Tensor:
-    """Output column pi's ORDER BY key: string keys by dictionary rank."""
+    """Output column pi's ORDER BY key: string keys by dictionary rank, a
+    sentinel-coded NULL key as the dtype's minimum (NULLs first ascending,
+    as the JAX package orders the output column)."""
     kindp, expr, _alias = p["projections"][pi]
     if kindp == "key" and isinstance(expr, A.ColumnRef):
         src = cols[expr.name]
+        sent = (p.get("key_sentinels") or {}).get(expr.name.lower())
+        null = None if sent is None else arr == sent
         if src.sqltype.is_string and src.dictionary is not None:
             ranks = torch.from_numpy(src.dictionary.ranks).to(arr.device)
-            return ranks[arr.to(torch.int64).clamp(0, max(len(ranks) - 1,
-                                                          0))]
+            arr = ranks[arr.to(torch.int64).clamp(0, max(len(ranks) - 1, 0))]
+        if null is not None:
+            arr = torch.where(null, torch.iinfo(arr.dtype).min, arr)
     return arr
 
 

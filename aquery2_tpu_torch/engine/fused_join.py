@@ -44,8 +44,7 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
     """The one-row result of a count join, or None where the shape does
     not fit."""
     if (sel.group_by or sel.assumptions or sel.order_by or sel.having
-            or sel.distinct or sel.unions or sel.limit is not None
-            or sel.into_table or sel.into_outfile):
+            or sel.distinct or sel.unions or sel.limit is not None):
         return None
     if len(sel.sources) != 2 or not all(
             isinstance(s, A.TableSource) and s.name in catalog

@@ -33,9 +33,10 @@ The same plan as the JAX package, run eagerly on one device:
 Valid rows sort first, so the boundary flags also end the last valid group
 where the invalid rows begin: ``next`` keeps that group's last value (the
 JAX package flags only valid rows, and there reads the first invalid row).
-Nullable columns and ungrouped ordered queries need the general engine
-(ROADMAP queue 1, item 7) and raise NotImplementedError; a shape the plan
-does not cover returns None.
+A shape the plan does not cover, an empty table and nullable columns
+return None, for the general engine (engine/executor.py), as in the JAX
+package; so do ungrouped ordered queries and ordered ones with HAVING,
+ORDER BY or LIMIT.
 """
 
 from __future__ import annotations
@@ -178,8 +179,7 @@ def plan(sel: A.Select, table: Table):
     if not any_window and not assume:
         raise Unsupported("no ordered features — plain fused path handles")
     return {"keys": keys, "assume": assume, "projections": projections,
-            "aggs": aggs, "where": sel.where,
-            "into_table": sel.into_table, "into_outfile": sel.into_outfile}
+            "aggs": aggs, "where": sel.where}
 
 
 def _agg_on_top(e: A.Expr) -> bool:
@@ -276,18 +276,11 @@ def run(sel: A.Select, table: Table) -> Table | None:
         p = plan(sel, table)
     except fg.Unsupported:
         return None
-    if p["into_table"] or p["into_outfile"]:
-        raise NotImplementedError(
-            "SELECT INTO: ROADMAP queue 1, item 8 (services)")
     n = table.nrows
-    if n == 0:
-        raise NotImplementedError(f"ordered query over an empty table: "
-                                  f"{fg._GENERAL}")
     cols = table.columns
     col_order = fg.referenced_columns(p)
-    if any(cols[nm].valid is not None for nm in col_order):
-        raise NotImplementedError(f"nullable columns in an ordered query: "
-                                  f"{fg._GENERAL}")
+    if n == 0 or table.has_nulls(col_order):
+        return None
     env = {nm: cols[nm].data for nm in col_order}
     cap = env[col_order[0]].shape[0]
     valid = torch.arange(cap, device=env[col_order[0]].device) < n

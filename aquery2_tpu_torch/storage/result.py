@@ -62,5 +62,9 @@ class Result:
             buf.write(f"... ({self.table.nrows - shown} more rows)\n")
         return buf.getvalue()
 
+    def to_dict(self) -> dict[str, list]:
+        """Each column's display values, by name."""
+        return {c.name: c.to_python() for c in self.table.columns.values()}
+
     def __repr__(self) -> str:
         return self.format(limit=20)

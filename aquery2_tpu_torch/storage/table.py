@@ -197,6 +197,14 @@ class Column:
                 self._stats = (int(both[0]), int(both[1]))
         return self._stats
 
+    def with_name(self, name: str) -> "Column":
+        """The same column (its tensors shared) under another name."""
+        c = Column.__new__(Column)
+        for slot in Column.__slots__:
+            setattr(c, slot, getattr(self, slot))
+        c.name = name
+        return c
+
     def to_numpy(self) -> np.ndarray:
         """Valid-prefix values on the host (raw codes for strings)."""
         return self.data[:self.nrows].cpu().numpy()
@@ -288,6 +296,14 @@ class VectorColumn:
 
     def total_values(self) -> int:
         return int(self.offsets[self.nrows])
+
+    def with_name(self, name: str) -> "VectorColumn":
+        """The same column (its tensors shared) under another name."""
+        c = VectorColumn.__new__(VectorColumn)
+        for slot in VectorColumn.__slots__:
+            setattr(c, slot, getattr(self, slot))
+        c.name = name
+        return c
 
     def to_numpy(self) -> np.ndarray:
         """The flat values of the valid rows, on the host."""
@@ -417,27 +433,78 @@ class Table:
             self.columns[col.name] = _append_host_values(
                 col, [r[j] for r in rows])
 
+    def append_table(self, other: "Table") -> None:
+        """INSERT INTO t SELECT …, UNION ALL: append another table's rows,
+        column by column in order, on the device."""
+        if other.nrows == 0:
+            return
+        mine = list(self.columns.values())
+        theirs = list(other.columns.values())
+        if len(mine) != len(theirs):
+            raise ValueError("column count mismatch in append")
+        for col, src in zip(mine, theirs):
+            self.columns[col.name] = _append_column(col, src)
+
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.sqltype.name}"
                          for c in self.columns.values())
         return f"Table({self.name}: [{cols}] x {self.nrows})"
 
 
-def _append_host_values(col: Column, vals: Sequence[Any]) -> Column:
+def _append_host_values(col: Column | VectorColumn,
+                        vals: Sequence[Any]) -> Column | VectorColumn:
     if col.is_vector:
-        raise NotImplementedError(
-            "INSERT into a vector column: ROADMAP queue 1, item 7 "
-            "(general engine)")
-    add = Column.from_host(col.name, col.sqltype, vals, device=col.device,
-                           dictionary=col.dictionary)
-    n1, n2 = col.nrows, add.nrows
-    data = torch.cat([col.data[:n1], add.data[:n2]])
+        lists = [v if isinstance(v, (list, tuple)) else [v] for v in vals]
+        add = VectorColumn.from_lists(col.name, col.sqltype, lists,
+                                      device=col.device,
+                                      dictionary=col.dictionary)
+    else:
+        add = Column.from_host(col.name, col.sqltype, vals,
+                               device=col.device, dictionary=col.dictionary)
+    return _append_column(col, add)
+
+
+def _append_column(col: Column | VectorColumn,
+                   src: Column | VectorColumn) -> Column | VectorColumn:
+    """src's rows under col's, in col's type; string codes of another
+    dictionary are re-coded into col's (which gains src's new strings)."""
+    if col.is_vector or src.is_vector:
+        if not (col.is_vector and src.is_vector):
+            raise ValueError(f"cannot append {src!r} to {col!r}")
+        n1, n2 = col.nrows, src.nrows
+        t1, t2 = col.total_values(), src.total_values()
+        vals = torch.cat([col.values[:t1],
+                          recode(src.values[:t2], src.dictionary,
+                                 col.dictionary).to(col.values.dtype)])
+        offsets = torch.cat([col.offsets[:n1 + 1],
+                             src.offsets[1:n2 + 1] + t1])
+        return VectorColumn(col.name, col.sqltype, vals, offsets,
+                            nrows=n1 + n2, dictionary=col.dictionary,
+                            total=t1 + t2)
+    n1, n2 = col.nrows, src.nrows
+    dictionary = col.dictionary
+    if col.sqltype.is_string and dictionary is None:
+        dictionary = src.dictionary
+    data = torch.cat([col.data[:n1],
+                      recode(src.data[:n2], src.dictionary,
+                             col.dictionary).to(col.data.dtype)])
     valid = None
-    if col.valid is not None or add.valid is not None:
+    if col.valid is not None or src.valid is not None:
         def mask(c: Column, k: int) -> torch.Tensor:
             if c.valid is not None:
                 return c.valid[:k]
             return torch.ones(k, dtype=torch.bool, device=c.device)
-        valid = torch.cat([mask(col, n1), mask(add, n2)])
+        valid = torch.cat([mask(col, n1), mask(src, n2)])
     return Column(col.name, col.sqltype, data, nrows=n1 + n2,
-                  dictionary=add.dictionary, valid=valid)
+                  dictionary=dictionary, valid=valid)
+
+
+def recode(codes: torch.Tensor, src: StringDict | None,
+           dst: StringDict | None) -> torch.Tensor:
+    """String codes of dictionary src as codes of dst, which gains src's
+    strings it lacks (unchanged where either is None or they are one)."""
+    if dst is None or src is None or src is dst or not len(src):
+        return codes
+    remap = torch.tensor(dst.encode(src.strings()), dtype=codes.dtype,
+                         device=codes.device)
+    return remap[codes.clamp(0, len(src) - 1).long()]

@@ -45,11 +45,25 @@ Phases, in order (any mismatch raises; there is no fallback):
        putting the NULL keys in one group, last;
      then best_profit over a 1e7-row price column (the entry point of
      fused_running_stats, which no query calls), checked against numpy;
-  5. each query launched its path's kernel: onehot_segment_sums (the
+  5. the general engine (engine/executor.py, eval.py, fused_scan.py),
+     through connect(device="cuda").execute, each query against numpy
+     with its median of 3 warm runs and its launches counted from zero:
+     on the trades table (a fresh load, 1e7 rows, 100 symbols, seed 7)
+     COUNT(*), CREATE TABLE AS, UNION ALL, a range WHERE, a top-100
+     ORDER BY, max(price - mins(price)) with and without ASSUMING DESC,
+     avgs(3, price) under ASSUMING, first/last/last(mins) per symbol,
+     SELECT DISTINCT and a DELETE/UPDATE/INSERT … SELECT sequence; then
+     q6 and q8 on G1_1e7_1e1_5_0 (a fresh load), NULLs as SQL treats
+     them (general_queries, general_oracle, na_general_oracle);
+  6. each query launched its path's kernel: onehot_segment_sums (the
      dense tier, qjg's group-by), seg_cumsum_i64 (packed and multikey
-     sums, integer running sums), seg_scan_multi (min/max, q8's
-     positions, the float64 running sums), and best_profit
-     fused_running_stats; qj launches none (no TPU kernel counts a join).
+     sums, integer running sums, g_moving's windowed sum),
+     seg_scan_multi (min/max, q8's positions, the float64 running sums,
+     mins in g_best, g_best_desc and g_firstlast), and best_profit
+     fused_running_stats; qj launches none (no TPU kernel counts a join),
+     q6 and q8 on the 5%-NULL variant their group sums and counts by
+     seg_cumsum_i64 and seg_scan_multi (q8 the first only), and the
+     other general queries' launches are recorded.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -124,7 +138,19 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "qjg": ["onehot_segment_sums"], "qj": [],
                "multikey": ["seg_cumsum_i64", "seg_scan_multi"],
                "avgs": ["seg_cumsum_i64", "seg_scan_multi"],
-               "max_stddevs": ["seg_scan_multi"]}
+               "max_stddevs": ["seg_scan_multi"],
+               # the general engine (phase 5): a kernel each must launch,
+               # [] where the launches are only recorded
+               "g_count": [], "g_ctas": [], "g_union": [], "g_range": [],
+               "g_topk": [], "g_distinct": [], "g_dml": [],
+               "g_best": ["seg_scan_multi"],
+               "g_best_desc": ["seg_scan_multi"],
+               "g_moving": ["seg_cumsum_i64"],
+               "g_firstlast": ["seg_scan_multi"],
+               # the group sums and counts read at group ends of scans
+               "q6@5pct_NA": ["seg_cumsum_i64", "seg_scan_multi"],
+               "q8@5pct_NA": ["seg_cumsum_i64"]}
+GENERAL_NAS = ("q6", "q8")      # G1_1e7_1e1_5_0 through the general engine
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
 EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
 ADD_F32_RTOL = 2e-5     # float32 'add' lanes: |err| ≤ this · running Σ|x|
@@ -1080,6 +1106,203 @@ def run_nas(dev) -> dict[str, dict[str, int]]:
                        tag="@5pct_NA")
 
 
+def general_queries(arrays) -> dict[str, str]:
+    """The general engine's queries on the trades table (phase 5), with
+    the range bounds and thresholds at percentiles of the data: lo/hi and
+    t10 of time, p90 and p95 of price. g_ctas and g_dml start with their
+    CREATE TABLE AS, so every run starts from the same res0."""
+    t, p = arrays["time"], arrays["price"]
+    lo, hi = (int(np.percentile(t, q)) for q in (10, 60))
+    p90, p95 = (int(np.percentile(p, q)) for q in (90, 95))
+    ctas = "CREATE TABLE res0 AS SELECT * FROM trades; "
+    return {
+        "g_count": "SELECT COUNT(*) FROM trades",
+        "g_ctas": ctas + "SELECT count(*), sum(price) FROM res0",
+        "g_union": "SELECT * FROM trades UNION ALL SELECT * FROM trades",
+        "g_range": ("SELECT stocksymbol, quantity, price FROM trades "
+                    f"WHERE time >= {lo} AND time <= {hi}"),
+        "g_topk": ("SELECT stocksymbol, time, price FROM trades WHERE "
+                   "quantity > 50 ORDER BY price DESC, time LIMIT 100"),
+        "g_best": "SELECT max(price - mins(price)) FROM trades",
+        "g_best_desc": ("SELECT max(price - mins(price)) FROM trades "
+                        "ASSUMING DESC time"),
+        "g_moving": "SELECT time, avgs(3, price) FROM trades ASSUMING ASC time",
+        "g_firstlast": ("SELECT stocksymbol, first(price) AS f, "
+                        "last(price) AS l, last(mins(price)) AS lm "
+                        "FROM trades ASSUMING ASC time GROUP BY stocksymbol"),
+        "g_distinct": "SELECT DISTINCT stocksymbol FROM trades",
+        "g_dml": (ctas + f"DELETE FROM res0 WHERE price > {p90}; "
+                  "UPDATE res0 SET quantity = quantity + 1 WHERE time < "
+                  f"{lo}; INSERT INTO res0 SELECT * FROM trades WHERE "
+                  f"price > {p95}; SELECT count(*), sum(quantity), "
+                  "sum(price) FROM res0"),
+    }
+
+
+def general_oracle(arrays, sql: str, q: str) -> list:
+    """Each output column of general query q, in order, from numpy (a
+    scalar result as a 1-row array)."""
+    sym, t = arrays["stocksymbol"], arrays["time"]
+    qty, price = arrays["quantity"], arrays["price"]
+    p64 = price.astype(np.int64)
+
+    def one(x, dt):
+        return np.array([x], dt)
+
+    if q == "g_count":
+        return [one(ROWS, np.int64)]
+    if q == "g_ctas":
+        return [one(ROWS, np.int64), one(p64.sum(), np.int64)]
+    if q == "g_range":
+        lo, hi = (int(x) for x in re.findall(r"time [<>]= (\d+)", sql))
+        m = (t >= lo) & (t <= hi)
+        return [sym[m], qty[m], price[m]]
+    if q == "g_topk":
+        idx = np.flatnonzero(qty > 50)
+        idx = idx[np.lexsort((t[idx], -p64[idx]))[:100]]
+        return [sym[idx], t[idx], price[idx]]
+    if q in ("g_best", "g_best_desc"):
+        pr = p64 if q == "g_best" else p64[np.argsort(-t.astype(np.int64),
+                                                      kind="stable")]
+        return [one((pr - np.minimum.accumulate(pr)).max(), np.int32)]
+    if q == "g_moving":                      # time is sorted already
+        c = np.cumsum(p64)
+        pos = np.arange(ROWS)
+        w = np.where(pos >= 3, c - np.r_[np.zeros(3, np.int64), c[:-3]], c)
+        return [t, w / np.minimum(pos + 1, 3).astype(np.float64)]
+    if q == "g_firstlast":
+        syms, first = np.unique(sym, return_index=True)
+        last = ROWS - 1 - np.unique(sym[::-1], return_index=True)[1]
+        order = np.argsort(sym, kind="stable")
+        starts = np.r_[0, np.cumsum(np.bincount(sym)[syms])[:-1]]
+        return [syms, price[first], price[last],
+                np.minimum.reduceat(price[order], starts)]
+    if q == "g_distinct":
+        return [np.unique(sym)]
+    if q == "g_dml":
+        p90, t10, p95 = (int(a or b) for a, b in re.findall(
+            r"price > (\d+)|time < (\d+)", sql))
+        keep, add = price <= p90, price > p95
+        q2 = qty[keep].astype(np.int64) + (t[keep] < t10)
+        return [one(keep.sum() + add.sum(), np.int64),
+                one(q2.sum() + qty[add].astype(np.int64).sum(), np.int64),
+                one(p64[keep].sum() + p64[add].sum(), np.int64)]
+    raise KeyError(q)
+
+
+def check_general(arrays, queries, q: str, res) -> None:
+    """A general query's columns against general_oracle: exactly, float
+    columns (avgs) to TRADES_RTOL; g_union by its row count and the
+    int64 sum of each column (computed on the card)."""
+    cols = list(res.table.columns.values())
+    if q == "g_union":
+        if res.nrows != 2 * ROWS:
+            raise AssertionError(f"g_union: {res.nrows} rows")
+        for c in cols:
+            got = int(c.data[:c.nrows].to(torch.int64).sum())
+            want = 2 * int(arrays[c.name].astype(np.int64).sum())
+            if got != want:
+                raise AssertionError(f"g_union.{c.name}: sum {got} vs {want}")
+        return
+    want = general_oracle(arrays, queries[q], q)
+    if len(cols) != len(want):
+        raise AssertionError(f"{q}: {len(cols)} columns, want {len(want)}")
+    for c, w in zip(cols, want):
+        got = c.to_numpy()
+        if got.shape != w.shape or got.dtype != w.dtype:
+            raise AssertionError(f"{q}.{c.name}: {got.dtype}{got.shape} vs "
+                                 f"{w.dtype}{w.shape}")
+        if got.dtype.kind == "f":
+            err = float(np.max(np.abs(got - w) / np.maximum(np.abs(w),
+                                                            1e-300)))
+            if not err <= TRADES_RTOL:
+                raise AssertionError(f"{q}.{c.name}: relative error {err}")
+        else:
+            np.testing.assert_array_equal(got, w, err_msg=f"{q}.{c.name}")
+
+
+def na_general_oracle(data, q: str):
+    """q6 and q8 on G1_1e7_1e1_5_0 as SQL answers them: q6's median and
+    stddev skip the NULL v3 (stddev divides by the non-NULL count + 1);
+    q8 orders each id6 group (NULL id6 last) by v3 descending with the
+    NULLs last (ASSUMING and ORDER BY put NULL first ascending) and keeps
+    the first two rows, a NULL as 0.0 (a vector cell has no NULL)."""
+    v3 = data["v3"]
+    ok = ~np.ma.getmaskarray(v3)
+    v = np.ma.getdata(v3)
+    if q == "q6":
+        keys, inv, _order, _starts, cnt = _groups(
+            {k: data[k].astype(np.int64) for k in ("id4", "id5")})
+        nn = np.bincount(inv, weights=ok).astype(np.int64)
+        byval = np.lexsort((v, ~ok, inv))        # group, NULLs last, value
+        first = np.r_[0, np.cumsum(cnt)[:-1]]
+        sv = v[byval].astype(np.float64)
+        med = (sv[first + np.maximum((nn - 1) // 2, 0)]
+               + sv[first + np.maximum(nn // 2, 0)]) * 0.5
+        vf = np.where(ok, v, 0).astype(np.float64)
+        s1 = np.bincount(inv, weights=vf)
+        s2 = np.bincount(inv, weights=vf * vf)
+        den = nn + 1.0
+        sd = np.sqrt(np.maximum((s2 - s1 * s1 / den) / den, 0.0))
+        return {"id4": keys["id4"].astype(np.int32),
+                "id5": keys["id5"].astype(np.int32),
+                "median_v3": med, "sd": sd}, cnt, {}
+    id6 = data["id6"]
+    ok6 = ~np.ma.getmaskarray(id6)
+    d6 = np.ma.getdata(id6).astype(np.int64)
+    key = np.where(ok6, d6, d6[ok6].max() + 1)
+    vkey = np.where(ok, v.astype(np.float64), -np.inf)
+    order = np.argsort(-vkey, kind="stable")
+    order = order[np.argsort(key[order], kind="stable")]
+    ks, cnt = np.unique(key, return_counts=True)
+    pos = np.arange(ROWS) - np.repeat(np.r_[0, np.cumsum(cnt)[:-1]], cnt)
+    vals = np.where(ok, v, np.float32(0))[order][pos < 2]
+    return ks, ok6, cnt, vals
+
+
+def check_na_general(data, q: str, res) -> None:
+    if q == "q6":
+        check_result(q, res, *na_general_oracle(data, q))
+        return
+    ks, ok6, cnt, vals = na_general_oracle(data, q)
+    cols = res.table.columns
+    if res.column_names() != ["id6", "largest2_v3"]:
+        raise AssertionError(f"q8: columns {res.column_names()}")
+    null_key = int(np.ma.getdata(data["id6"])[ok6].max()) + 1
+    if cols["id6"].to_python() != [None if k == null_key else int(k)
+                                   for k in ks]:
+        raise AssertionError("q8@5pct_NA: id6 differs")
+    vc = cols["largest2_v3"]
+    np.testing.assert_array_equal(vc.offsets_numpy(),
+                                  np.r_[0, np.cumsum(np.minimum(cnt, 2))],
+                                  err_msg="q8@5pct_NA offsets")
+    np.testing.assert_array_equal(vc.to_numpy(), vals,
+                                  err_msg="q8@5pct_NA values")
+
+
+def run_general(dev, walls):
+    """Phase 5: the general engine, through connect().execute, on the
+    trades table (1e7 rows, 100 symbols, seed 7) and on G1_1e7_1e1_5_0;
+    each query against numpy, its median of 3 warm runs and launches."""
+    arrays, d = trades(ROWS, 100, 7)
+    db = connect(device=dev)
+    load(db, "trades", arrays, dev, types={"stocksymbol": T.StrT},
+         dictionaries={"stocksymbol": d})
+    queries = general_queries(arrays)
+    launches = run_queries(
+        db, queries, lambda q, res: check_general(arrays, queries, q, res),
+        walls=walls)
+    del db
+    data = h2o_g1(ROWS, K_GROUPS, SEED, nas=5)
+    db = connect(device=dev)
+    load(db, "source", data, dev)
+    launches.update(run_queries(
+        db, {q: QUERIES[q] for q in GENERAL_NAS},
+        lambda q, res: check_na_general(data, q, res), tag="@5pct_NA",
+        walls=walls))
+    return launches
+
+
 def run_best_profit(dev) -> dict[str, int]:
     """best_profit over a 1e7-row price column (a random walk, padded to
     the capacity), against numpy; returns the launches of that call."""
@@ -1184,8 +1407,19 @@ def main() -> int:
     phase(f"4. slice: {len(launches) - 1} queries and best_profit match the "
           f"oracles")
 
+    general = run_general(dev, walls)
+    total = collections.Counter()
+    for per in general.values():
+        total.update(per)
+    print(f"# the general phase launched {dict(sorted(total.items()))} "
+          f"over its {len(general)} queries, 4 runs each", flush=True)
+    launches.update(general)
+    phase(f"5. general engine: {len(general)} queries match numpy")
+
     for q, per in launches.items():
-        for name in MAIN_KERNEL.get(q.split("@")[0], ["fused_running_stats"]):
+        want = MAIN_KERNEL.get(q, MAIN_KERNEL.get(q.split("@")[0],
+                                                  ["fused_running_stats"]))
+        for name in want:
             if per.get(name, 0) <= 0:
                 raise AssertionError(f"{q} did not launch {name}: {per}")
     for r in rows:
@@ -1199,7 +1433,7 @@ def main() -> int:
     print(f"# the star build, {build:.4f} ms of device time, is "
           f"{build / walls['qjg']:.1%} of qjg's {walls['qjg']:.3f} ms wall "
           f"(qj {walls['qj']:.3f} ms)", flush=True)
-    phase("5. each query launched its path's kernels, best_profit "
+    phase("6. each query launched its path's kernels, best_profit "
           "fused_running_stats")
 
     print(json.dumps({"kernels": rows}))

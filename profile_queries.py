@@ -5,7 +5,8 @@ query on one CUDA card.
     python3 profile_queries.py [--out DIR]
 
 Loads the tables chip_smoke.py loads (h2o G1_1e7_1e1_0_0 with its dim
-table, trades, G1_1e7_1e1_5_0) and, for each of its queries: one first run, the median
+table, trades, G1_1e7_1e1_5_0) and, for each of its queries (the general
+engine's of phase 5 too): one first run, the median
 wall time of three warm runs (host clock around execute plus a
 synchronize, as chip_smoke.py times them), then one profiled run. In the
 profiled run, "device ms" is the union of the intervals of the device
@@ -87,11 +88,11 @@ def main() -> int:
     db = connect(device=dev)
     C.load(db, "trades", arrays, dev, types={"stocksymbol": T.StrT},
            dictionaries={"stocksymbol": d})
-    for q, sql in C.TRADES.items():
+    for q, sql in {**C.TRADES, **C.general_queries(arrays)}.items():
         profile_query(db, q, sql, args.out)
     db = connect(device=dev)
     C.load(db, "source", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED, nas=5), dev)
-    for q in C.NAS_QUERIES:
+    for q in C.NAS_QUERIES + C.GENERAL_NAS:
         profile_query(db, q + "@5pct_NA", C.QUERIES[q], args.out)
     return 0
 

@@ -218,13 +218,20 @@ def test_trades_match_jax():
 
 
 def test_ordered_unported_shapes_raise():
+    """Ordered queries over a nullable column and ungrouped running
+    aggregates (which the port once declined) answer as the JAX package's
+    general engine does: ASSUMING puts the NULL first, and a running sum
+    reads it as 0."""
+    js = aquery2_tpu.connect()
     ts = aquery2_tpu_torch.connect(device="cpu")
-    ts.execute("CREATE TABLE n(g INT, v INT);"
-               "INSERT INTO n VALUES (1, NULL), (1, 3), (2, 4)")
+    for db in (js, ts):
+        db.execute("CREATE TABLE n(g INT, v INT);"
+                   "INSERT INTO n VALUES (1, NULL), (1, 3), (2, 4)")
     for sql in ("SELECT g, sums(v) AS s FROM n ASSUMING ASC v GROUP BY g",
                 "SELECT sums(v) AS s FROM n"):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            ts.execute(sql)
+        jr, tr = js.execute(sql), ts.execute(sql)
+        _compare(jr, tr)
+        assert tr.rows() == jr.rows()
 
 
 # --- the pieces under the ordered path ---------------------------------------

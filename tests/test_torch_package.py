@@ -26,7 +26,10 @@ PKG = pathlib.Path(aquery2_tpu_torch.__file__).parent
 def test_import_pulls_in_no_jax():
     code = ("import sys; before = set(sys.modules); import aquery2_tpu_torch; "
             "import aquery2_tpu_torch.engine.fused_star, "
-            "aquery2_tpu_torch.engine.fused_join; "
+            "aquery2_tpu_torch.engine.fused_join, "
+            "aquery2_tpu_torch.engine.eval, "
+            "aquery2_tpu_torch.engine.fused_scan, "
+            "aquery2_tpu_torch.ops.hashing; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'aquery2_tpu')); "
@@ -41,8 +44,11 @@ def test_import_pulls_in_no_jax():
 def test_sources_name_no_jax():
     """No module of the port imports jax or the JAX package."""
     paths = sorted(PKG.rglob("*.py"))
-    assert {PKG / "engine" / "fused_star.py",
-            PKG / "engine" / "fused_join.py"} <= set(paths)
+    assert {PKG / "engine" / nm for nm in (
+        "fused_star.py", "fused_join.py", "eval.py", "fused_scan.py",
+        "groupby.py", "grouped_agg.py")} | {PKG / "ops" / nm for nm in (
+            "agg.py", "filter.py", "ragged.py", "hashing.py")} \
+        <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -383,3 +389,55 @@ def test_joins_match_numpy_on_card():
     np.testing.assert_array_equal(
         cols["sv"].to_numpy(),
         np.bincount(inv, weights=src["v1"][hit]).astype(np.int64))
+
+
+@pytest.mark.gpu
+def test_general_engine_matches_numpy_on_card():
+    """The general engine through connect() on the card at 2e5 trades rows
+    against numpy: best_profit under ASSUMING DESC (seg_scan_multi), a
+    windowed average (seg_cumsum_i64), per-symbol first/last/last(mins)
+    (seg_scan_multi with flags), a fused top-k scan and a DELETE."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch import types as T
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import trades
+
+    n = 200_000
+    a, d = trades(n, 20, 5)
+    db = aquery2_tpu_torch.connect()
+    db.catalog.create(Table.from_numpy("t", a, {"stocksymbol": T.StrT},
+                                       device="cuda",
+                                       dictionaries={"stocksymbol": d}))
+    sym, t, p = a["stocksymbol"], a["time"], a["price"].astype(np.int64)
+    before = dict(K.LAUNCHES)
+    r = db.execute("SELECT max(price - mins(price)) FROM t "
+                   "ASSUMING DESC time")
+    rp = p[np.argsort(-t.astype(np.int64), kind="stable")]
+    assert r.scalar() == (rp - np.minimum.accumulate(rp)).max()
+    assert K.LAUNCHES["seg_scan_multi"] > before["seg_scan_multi"]
+    r = db.execute("SELECT avgs(3, price) AS m FROM t ASSUMING ASC time")
+    c = np.cumsum(p)
+    pos = np.arange(n)
+    w = np.where(pos >= 3, c - np.r_[np.zeros(3, np.int64), c[:-3]], c)
+    np.testing.assert_allclose(r.table["m"].to_numpy(),
+                               w / np.minimum(pos + 1, 3), rtol=1e-12)
+    assert K.LAUNCHES["seg_cumsum_i64"] > before["seg_cumsum_i64"]
+    r = db.execute("SELECT stocksymbol, first(price) AS f, last(price) AS l, "
+                   "last(mins(price)) AS lm FROM t ASSUMING ASC time "
+                   "GROUP BY stocksymbol")
+    syms, first = np.unique(sym, return_index=True)
+    last = n - 1 - np.unique(sym[::-1], return_index=True)[1]
+    np.testing.assert_array_equal(r.table["f"].to_numpy(), p[first])
+    np.testing.assert_array_equal(r.table["l"].to_numpy(), p[last])
+    np.testing.assert_array_equal(
+        r.table["lm"].to_numpy(),
+        [p[sym == s].min() for s in syms])
+    r = db.execute("SELECT time, price FROM t WHERE quantity > 50 "
+                   "ORDER BY price DESC, time LIMIT 50")
+    idx = np.flatnonzero(a["quantity"] > 50)
+    idx = idx[np.lexsort((t[idx], -p[idx]))[:50]]
+    np.testing.assert_array_equal(r.table["time"].to_numpy(), t[idx])
+    db.execute("DELETE FROM t WHERE price > 250")
+    assert db.execute("SELECT count(*) FROM t").scalar() == int((p <= 250)
+                                                                .sum())
