@@ -35,11 +35,11 @@ from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import fused_groupby as fg
 from aquery2_tpu_torch.ops import scan
+from aquery2_tpu_torch.ops.sort import lexsort
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.table import StringDict, Table
 
 WINDOWS = "ROADMAP queue 1, item 7c (OVER windows)"
-DISTINCT_AGG = "ROADMAP queue 1, item 7b (DISTINCT aggregates)"
 
 
 class EvalError(Exception):
@@ -162,12 +162,17 @@ class WorkingSet:
                      dictionary=col.dictionary,
                      nulls=self.gather_nulls(si, col))
 
-    def all_columns(self) -> list[tuple[str, Value | tuple]]:
-        """SELECT *: (name, Value or (source index, VectorColumn)) in
-        schema order, a repeated name (a natural join's key) once."""
+    def all_columns(self, qualifier: str | None = None
+                    ) -> list[tuple[str, Value | tuple]]:
+        """SELECT * (or ``t.*``, the sources named t): (name, Value or
+        (source index, VectorColumn)) in schema order, a repeated name (a
+        natural join's key) once."""
         out: list[tuple[str, Any]] = []
         seen: set[str] = set()
-        for si, (_alias, tbl) in enumerate(self.sources):
+        for si, (alias, tbl) in enumerate(self.sources):
+            if qualifier and qualifier.lower() not in (
+                    (alias or "").lower(), tbl.name.lower()):
+                continue
             for col in tbl.columns.values():
                 if col.name.lower() in seen:
                     continue
@@ -530,9 +535,8 @@ class EvalContext:
     def _call_agg(self, name: str, e: A.Call) -> Value:
         from aquery2_tpu_torch.engine import grouped_agg
 
-        if e.distinct or name == "distinct_count":
-            raise NotImplementedError(f"DISTINCT aggregate {name}: "
-                                      f"{DISTINCT_AGG}")
+        if name == "distinct_count":
+            raise EvalError("distinct_count: write count(DISTINCT x)")
         args = [self.to_row(self.eval(a)) for a in e.args]
         if args and args[0].kind == "scalar":
             return _scalar_agg_fallback(name, args)
@@ -541,7 +545,27 @@ class EvalContext:
             args = [v if v.nulls is None else replace(
                 v, mask=~v.nulls if v.mask is None else v.mask & ~v.nulls,
                 nulls=None) for v in args]
+        if e.distinct and name not in ("min", "max"):
+            if name not in ("count", "sum", "avg", "mean"):
+                raise EvalError(f"{name}(DISTINCT …) is not supported")
+            args = [self._distinct_rows(args[0])]
         return grouped_agg.compute(self, name, args)
+
+    def _distinct_rows(self, v: Value) -> Value:
+        """v's rows reordered by (group, value), each group's rows staying
+        in its span of the group-sorted layout, masked to the first row of
+        each run of equal values that the aggregate reads (not NULL, not
+        masked): an aggregate of the result reads each group's distinct
+        values once."""
+        keys = [(self.seg, True, (0, self.G))]
+        if v.mask is not None:
+            keys.append((~v.mask, True))
+        perm, sk = lexsort(keys + [(v.data, True)])
+        first = torch.ones_like(sk[-1], dtype=torch.bool)
+        first[1:] = (sk[0][1:] != sk[0][:-1]) | fg._differs(sk[-1])
+        if v.mask is not None:
+            first &= ~sk[1]
+        return Value("row", sk[-1], v.sqltype, v.dictionary, mask=first)
 
     def _call_windowed(self, name: str, e: A.Call) -> Value:
         args = list(e.args)

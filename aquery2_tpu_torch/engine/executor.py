@@ -4,21 +4,26 @@ Counterpart of ``aquery2_tpu/engine/executor.py`` on one device. A SELECT
 takes the first of these that covers it, in the JAX package's order:
 
   1. SELECT DISTINCT of plain expressions, rewritten as GROUP BY;
-  2. UNION ALL: each arm as its own SELECT, the results appended;
+  2. a set operation: each arm as its own SELECT, the results appended
+     (UNION ALL), deduplicated (UNION), or compared row for row (EXCEPT
+     [ALL], INTERSECT [ALL], ``_set_op``);
   3. one table, grouped: the fused group-by (engine/fused_groupby.py),
      then the ordered group-by (engine/fused_ordered.py);
   4. two tables: the star join (engine/fused_star.py), then, without
      GROUP BY, the count join (engine/fused_join.py);
   5. one table, ungrouped, no ASSUMING: the fused scan
      (engine/fused_scan.py);
-  6. the general pipeline over one table or subquery:
+  6. the general pipeline over the FROM clause's sources, joined by
+     engine/join.py (NATURAL, USING, ON, LEFT/RIGHT/FULL, comma-joins
+     whose WHERE equalities become keys), and derived tables:
 
-       source → ASSUMING sort → WHERE compaction → GROUP BY
-       → projections (engine/eval.py) → HAVING → UNION ALL → ORDER BY
-       → LIMIT → INTO
+       sources → ASSUMING sort → WHERE compaction → GROUP BY
+       → projections (engine/eval.py) → HAVING → set operations
+       → DISTINCT → ORDER BY → LIMIT → INTO
 
 Every step runs on the session's device; the host reads only counts (the
-WHERE and HAVING compactions, the group count, the keys' stats, a vector
+join's candidates and pairs, the WHERE and HAVING compactions, the group
+count, the kept rows of a set operation, the keys' stats, a vector
 column's value count) and scalars (LIMIT, subquery results).
 
 Statements: CREATE TABLE [AS SELECT], DROP TABLE, INSERT (values, computed
@@ -27,10 +32,8 @@ scans are always vectorized, tables always on the device) and <sql>
 passthrough blocks.
 
 What the port does not run yet raises NotImplementedError naming its
-ROADMAP item: UNION DISTINCT, EXCEPT, INTERSECT, a DISTINCT that does not
-rewrite and DISTINCT aggregates (queue 1, item 7b); any join outside the
-star and count-join paths (item 6b); OVER windows (item 7c); user
-functions (item 7d); LOAD, INTO OUTFILE, modules and triggers (item 8).
+ROADMAP item: OVER windows (item 7c); user functions (item 7d); LOAD,
+INTO OUTFILE, modules and triggers (item 8).
 """
 
 from __future__ import annotations
@@ -44,12 +47,14 @@ from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
                                       fused_ordered, fused_scan, fused_star)
+from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
 from aquery2_tpu_torch.engine import grouped_agg
 from aquery2_tpu_torch.engine.eval import (EvalContext, Value, WorkingSet,
-                                           _host_scalar)
+                                           _host_scalar, _translate_codes)
 from aquery2_tpu_torch.ops import filter as filter_ops
 from aquery2_tpu_torch.ops import ragged
+from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.reduce import big_of, small_of
 from aquery2_tpu_torch.ops.sort import sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
@@ -58,10 +63,8 @@ from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
                                              VectorColumn, recode)
 from aquery2_tpu_torch.utils import base62uuid
 
-_JOIN = "ROADMAP queue 1, item 6b (general join)"
 _SERVICES = "ROADMAP queue 1, item 8 (services)"
 _UDFS = "ROADMAP queue 1, item 7d (UDFs)"
-_SETOPS = "ROADMAP queue 1, item 7b (set operations)"
 
 
 class ExecError(Exception):
@@ -262,10 +265,7 @@ class Executor:
                 t = fused_star.try_run(catalog, sel)
                 if t is None and not sel.group_by:
                     t = fused_join.try_run(catalog, sel)
-            if t is not None:
-                return t
-            raise NotImplementedError(
-                f"join outside the star and count-join paths: {_JOIN}")
+            return t if t is not None else self._general(sel)
         if not sel.group_by and not sel.assumptions:
             t = fused_scan.try_run(catalog, sel)
             if t is not None:
@@ -273,15 +273,12 @@ class Executor:
         return self._general(sel)
 
     def _general(self, sel: A.Select) -> Table:
-        if sel.distinct:        # one that _distinct_to_groupby declined
-            raise NotImplementedError(f"DISTINCT over this projection: "
-                                      f"{_SETOPS}")
-        ws = self._build_source(sel)
+        ws, where = self._build_sources(sel)
         if sel.assumptions:
             ws = self._apply_assuming(ws, sel.assumptions)
-        if sel.where is not None:
+        if where is not None:
             ws = self._apply_filter(ws, self._where_mask(
-                EvalContext(ws, self.session), sel.where))
+                EvalContext(ws, self.session), where))
 
         grouping = None
         key_values: list[Value] = []
@@ -311,9 +308,9 @@ class Executor:
         if sel.having is not None:
             table = self._apply_having(ctx, sel, table)
         for kind, sub in sel.unions:
-            if kind != "all":
-                raise NotImplementedError(f"UNION {kind.upper()}: {_SETOPS}")
-            table.append_table(self.run_select(sub))
+            table = self._combine(table, kind, self.run_select(sub))
+        if sel.distinct:
+            table = _distinct(table)
         if sel.order_by:
             table = self._apply_order(ctx, sel, table)
         if sel.limit is not None:
@@ -321,13 +318,12 @@ class Executor:
         return table
 
     def _run_union(self, sel: A.Select) -> Table | None:
-        """UNION ALL: the main branch and each arm as SELECTs of their own
-        (each takes its own tier), appended; then ORDER BY and LIMIT over
-        the output columns. None where an ORDER BY key is not an output
-        column (the general pipeline orders by expressions)."""
-        for kind, _sub in sel.unions:
-            if kind != "all":
-                raise NotImplementedError(f"UNION {kind.upper()}: {_SETOPS}")
+        """A set operation: the main branch and each arm as SELECTs of
+        their own (each takes its own tier), combined left to right
+        (``_combine``), deduplicated under SELECT DISTINCT; then ORDER BY
+        and LIMIT over the output columns. None where an ORDER BY key is
+        not an output column (the general pipeline orders by
+        expressions)."""
         aliases = {(p.alias or "").lower() for p in sel.projections}
         proj_cols = {p.expr.name.lower() for p in sel.projections
                      if isinstance(p.expr, A.ColumnRef)}
@@ -338,13 +334,14 @@ class Executor:
                     or any(not isinstance(p.expr, A.Star) and p.expr == e
                            for p in sel.projections)):
                 return None
-        if sel.distinct:
-            raise NotImplementedError(f"DISTINCT over a UNION: {_SETOPS}")
         main = dataclasses.replace(sel, unions=[], order_by=[], limit=None,
-                                   into_table=None, into_outfile=None)
+                                   distinct=False, into_table=None,
+                                   into_outfile=None)
         table = self.run_select(main)
-        for _kind, sub in sel.unions:
-            table.append_table(self.run_select(sub))
+        for kind, sub in sel.unions:
+            table = self._combine(table, kind, self.run_select(sub))
+        if sel.distinct:
+            table = _distinct(table)
         if sel.order_by and table.nrows:
             names = table.column_names()
             keys = []
@@ -369,24 +366,124 @@ class Executor:
             table = _limit_table(table, sel.limit)
         return table
 
+    def _combine(self, table: Table, kind: str, other: Table) -> Table:
+        """One arm of a set operation applied to the rows so far: UNION
+        ALL appends, UNION appends and deduplicates, EXCEPT [ALL] and
+        INTERSECT [ALL] compare row tuples (_set_op)."""
+        if kind in ("all", "distinct"):
+            table.append_table(other)
+            return table if kind == "all" else _distinct(table)
+        return _set_op(table, other, kind)
+
     # -- sources -----------------------------------------------------------
 
-    def _build_source(self, sel: A.Select) -> WorkingSet:
-        """FROM one table or one derived table, as a WorkingSet."""
+    def _build_sources(self, sel: A.Select):
+        """FROM as a WorkingSet, joined where it names several sources, and
+        the WHERE conjuncts no comma-join took as keys: (ws, residual
+        WHERE or None). A comma-join's keys are the WHERE equalities that
+        connect it to the sources before it (the reference's joint_cols
+        graph, engine/ast.py:874-1090)."""
         if not sel.sources:
-            return self._empty_ws()
-        if len(sel.sources) > 1:
-            raise NotImplementedError(f"joins: {_JOIN}")
-        src = sel.sources[0]
-        if isinstance(src, A.TableSource):
-            return WorkingSet.from_table(self.session.catalog.get(src.name),
-                                         self.session.device, src.alias)
-        if isinstance(src, A.SubquerySource):
-            sub = self.run_select(src.select)
-            if src.alias:
-                sub.name = src.alias
-            return WorkingSet.from_table(sub, self.session.device, src.alias)
-        raise NotImplementedError(f"joins: {_JOIN}")
+            return self._empty_ws(), sel.where
+        conjuncts = _split_conjuncts(sel.where)
+        used = [False] * len(conjuncts)
+        dev = self.session.device
+
+        def build(src) -> WorkingSet:
+            if isinstance(src, A.TableSource):
+                return WorkingSet.from_table(
+                    self.session.catalog.get(src.name), dev, src.alias)
+            if isinstance(src, A.SubquerySource):
+                sub = self.run_select(src.select)
+                if src.alias:
+                    sub.name = src.alias
+                return WorkingSet.from_table(sub, dev, src.alias)
+            left, right = build(src.left), build(src.right)
+            if src.kind == "natural":
+                keys = _common_columns(left, right)
+                if not keys:
+                    raise ExecError("NATURAL JOIN with no common columns")
+                pairs = [((None, k), (None, k)) for k in keys]
+            elif src.using:
+                pairs = [((None, k), (None, k)) for k in src.using]
+            elif src.on is not None:
+                pairs = []
+                for c in _split_conjuncts(src.on):
+                    pair = _equi_pair(c, left, right)
+                    if pair is None:
+                        raise ExecError(f"unsupported join condition {c}")
+                    pairs.append(pair)
+            elif src.kind == "cross":
+                raise ExecError("CROSS JOIN not supported yet")
+            else:
+                raise ExecError("JOIN requires ON/USING")
+            return self._join(left, right, pairs,
+                              src.kind if src.kind in ("left", "right", "full")
+                              else "inner")
+
+        ws = build(sel.sources[0])
+        for src in sel.sources[1:]:
+            right = build(src)
+            pairs = []
+            for i, c in enumerate(conjuncts):
+                if not used[i]:
+                    pair = _equi_pair(c, ws, right)
+                    if pair is not None:
+                        pairs.append(pair)
+                        used[i] = True
+            if not pairs:
+                raise ExecError(
+                    "comma-join without a connecting equality in WHERE "
+                    "(cartesian products not supported)")
+            ws = self._join(ws, right, pairs)
+        if not any(used):
+            return ws, sel.where
+        return ws, _join_conjuncts([c for i, c in enumerate(conjuncts)
+                                    if not used[i]])
+
+    def _join(self, left: WorkingSet, right: WorkingSet, pairs,
+              kind: str = "inner") -> WorkingSet:
+        """left ⋈ right on the column pairs: one WorkingSet over both
+        sides' sources, each source's row indices composed with the
+        pairs', and on an outer join's NULL side a ``missing`` mask."""
+        lkeys, rkeys = [], []
+        lnulls = rnulls = None
+        for (lq, lname), (rq, rname) in pairs:
+            lv = left.column_value(lname, lq)
+            rv = right.column_value(rname, rq)
+            if (lv.sqltype.is_string and lv.dictionary is not None
+                    and rv.dictionary is not None
+                    and rv.dictionary is not lv.dictionary):
+                rv = _translate_codes(rv, lv.dictionary)   # absent: -1
+            lk, rk = lv.data, rv.data
+            dt = torch.promote_types(lk.dtype, rk.dtype)
+            lkeys.append(lk.to(dt))
+            rkeys.append(rk.to(dt))
+            if lv.nulls is not None:
+                lnulls = lv.nulls if lnulls is None else lnulls | lv.nulls
+            if rv.nulls is not None:
+                rnulls = rv.nulls if rnulls is None else rnulls | rv.nulls
+        if kind == "inner":
+            li, ri, m = join_mod.equi_join(lkeys, rkeys, left.n, right.n,
+                                           lnulls, rnulls)
+        else:
+            li, ri, m = join_mod.outer_join(lkeys, rkeys, left.n, right.n,
+                                            kind, lnulls, rnulls)
+        sources, indices, missing = [], [], []
+        for ws, idx_new, nulled in ((left, li, kind in ("right", "full")),
+                                    (right, ri, kind in ("left", "full"))):
+            gone = idx_new < 0 if nulled else None
+            safe = idx_new.clamp(min=0)
+            sources += ws.sources
+            for idx, om in zip(ws.indices, ws.missing):
+                indices.append(safe if idx is None
+                               else idx[safe.clamp(max=idx.shape[0] - 1)])
+                if om is not None:
+                    om = om[safe.clamp(max=om.shape[0] - 1)]
+                    om = om if gone is None else om | gone
+                missing.append(gone if om is None else om)
+        return WorkingSet(sources, indices, m, int(li.shape[0]),
+                          self.session.device, missing=missing)
 
     def _apply_assuming(self, ws: WorkingSet, assumptions) -> WorkingSet:
         """The stable sort of ASSUMING ASC/DESC columns: strings by their
@@ -410,7 +507,7 @@ class Executor:
         out: list[tuple[str, Any]] = []
         for p in sel.projections:
             if isinstance(p.expr, A.Star):
-                out.extend(ws.all_columns())
+                out.extend(ws.all_columns(p.expr.table))
             else:
                 out.append((p.alias or fused_groupby.derive_name(p.expr),
                             p.expr))
@@ -620,6 +717,154 @@ def _distinct_to_groupby(sel: A.Select, catalog) -> A.Select | None:
         if not any(p.expr == g for g in group_by):
             group_by.append(p.expr)
     return dataclasses.replace(sel, distinct=False, group_by=group_by)
+
+
+def _split_conjuncts(e: A.Expr | None) -> list[A.Expr]:
+    if e is None:
+        return []
+    if isinstance(e, A.BinOp) and e.op == "and":
+        return _split_conjuncts(e.left) + _split_conjuncts(e.right)
+    return [e]
+
+
+def _join_conjuncts(cs: list[A.Expr]) -> A.Expr | None:
+    out = None
+    for c in cs:
+        out = c if out is None else A.BinOp("and", out, c)
+    return out
+
+
+def _equi_pair(c: A.Expr, left: WorkingSet, right: WorkingSet):
+    """((lq, lname), (rq, rname)) where c is ``lcol = rcol`` linking left
+    to right, else None. A qualified name pins its side; an unqualified
+    one must resolve on one side only."""
+    if not (isinstance(c, A.BinOp) and c.op == "="
+            and isinstance(c.left, A.ColumnRef)
+            and isinstance(c.right, A.ColumnRef)):
+        return None
+    a, b = c.left, c.right
+    a_l, a_r = left.has_column(a.name, a.table), right.has_column(a.name,
+                                                                  a.table)
+    b_l, b_r = left.has_column(b.name, b.table), right.has_column(b.name,
+                                                                  b.table)
+    if a_l and b_r and not (a_r and b_l):
+        return (a.table, a.name), (b.table, b.name)
+    if b_l and a_r and not (b_r and a_l):
+        return (b.table, b.name), (a.table, a.name)
+    if a_l and b_r:
+        return (a.table, a.name), (b.table, b.name)
+    return None
+
+
+def _common_columns(left: WorkingSet, right: WorkingSet) -> list[str]:
+    """NATURAL JOIN's keys: right's column names that left also has."""
+    lnames = {c.lower() for _, t in left.sources for c in t.column_names()}
+    return [c for _, t in right.sources for c in t.column_names()
+            if c.lower() in lnames]
+
+
+def _distinct(table: Table) -> Table:
+    """The distinct rows of a materialized table, key-ascending (string
+    columns by code), as the JAX package's _distinct orders them
+    (_distinct_any's other branch, the mesh's dedupe, is item 9):
+    engine/groupby over every column, a NULL coded as a sentinel past the
+    column's values so that NULLs are one value."""
+    n = table.nrows
+    if n == 0:
+        return table
+    cols = list(table.columns.values())
+    if any(c.is_vector for c in cols):
+        raise ExecError("DISTINCT over vector columns not supported")
+    keys, sents = [], []
+    for c in cols:
+        data, sent = c.data, None
+        if c.valid is not None:
+            data, sent = _null_key_sentinel(data, ~c.valid, n)
+        sents.append(sent)
+        keys.append(_KeyCol(data, n))
+    grouping = gb.group_by(keys, n)
+    g = grouping.num_groups
+    out = Table(table.name)
+    for c, kv, sent in zip(cols, grouping.key_values, sents):
+        kv = kv[:g]
+        valid = None
+        if sent is not None:
+            valid = kv != sent
+            kv = torch.where(valid, kv, torch.zeros_like(kv))
+        out.add_column(Column(c.name, c.sqltype, kv.to(c.data.dtype),
+                              nrows=g, dictionary=c.dictionary, valid=valid))
+    return out
+
+
+def _set_op(left: Table, right: Table, kind: str) -> Table:
+    """EXCEPT [ALL] or INTERSECT [ALL] of two materialized tables on the
+    device, in left-input order (the JAX package's row-tuple algebra,
+    which decodes both to the host).
+
+    Both arms' rows, the right's first, sort stably by their tuples (NULL
+    equals NULL, -0.0 equals 0.0, NaN equals NaN; the right arm's strings
+    in the left arm's codes, -1 where the left lacks one). In each run of
+    equal tuples the right rows then come first and the left rows follow
+    in their order, so one segmented int64 scan (seg_cumsum_i64) of the
+    side flags, left in the low 32 bits and right in the high, gives each
+    left row its rank among the run's left rows and the run's right
+    count. EXCEPT keeps rank 0 with no right row, INTERSECT rank 0 with
+    one; EXCEPT ALL keeps rank ≥ the right count (the first that many
+    occurrences cancel), INTERSECT ALL rank < it. One sort of the kept
+    indices restores left order; the host reads their count."""
+    lcols, rcols = list(left.columns.values()), list(right.columns.values())
+    if len(lcols) != len(rcols):
+        raise ExecError("set operation requires equal column counts")
+    if any(c.is_vector for c in lcols + rcols):
+        raise ExecError("set operations over vector columns not supported")
+    n1, n2 = left.nrows, right.nrows
+    if n1 == 0:
+        return left
+    n = n1 + n2
+    cap = config.bucket_size(n)
+    dev = lcols[0].device
+
+    keys = []
+    for lc, rc in zip(lcols, rcols):
+        r = rc.data
+        if (lc.sqltype.is_string and lc.dictionary is not None
+                and rc.dictionary is not None
+                and rc.dictionary is not lc.dictionary):
+            r = _translate_codes(Value("row", r, rc.sqltype, rc.dictionary),
+                                 lc.dictionary).data
+        dt = torch.promote_types(lc.data.dtype, r.dtype)
+        x = torch.cat([r[:n2].to(dt), lc.data[:n1].to(dt)])
+        if lc.valid is not None or rc.valid is not None:
+            def null(c, k):
+                return (torch.zeros(k, dtype=torch.bool, device=dev)
+                        if c.valid is None else ~c.valid[:k])
+            nulls = torch.cat([null(rc, n2), null(lc, n1)])
+            x = torch.where(nulls, torch.zeros((), dtype=dt, device=dev), x)
+            keys.append((_padded(nulls, cap), True))
+        keys.append((_padded(x, cap), True))
+    valid = torch.arange(cap, device=dev) < n
+    perm, valid_s, _sk, starts, _last = fused_groupby.sorted_groups(valid,
+                                                                    keys)
+    is_left = valid_s & (perm >= n2)
+    is_right = valid_s & (perm < n2)
+    both = S.seg_cumsum(is_left.to(torch.int64)
+                        | (is_right.to(torch.int64) << 32), starts)
+    rank = (both & 0xFFFFFFFF) - 1
+    rcount = both >> 32
+    if kind == "except":
+        keep = (rank == 0) & (rcount == 0)
+    elif kind == "intersect":
+        keep = (rank == 0) & (rcount > 0)
+    elif kind == "except_all":
+        keep = rank >= rcount
+    else:
+        keep = rank < rcount
+    idx, _m = filter_ops.compact_indices(keep & is_left)
+    return _take_table(left, torch.sort(perm[idx] - n2)[0])
+
+
+def _padded(x: torch.Tensor, cap: int) -> torch.Tensor:
+    return torch.cat([x, x.new_zeros(cap - x.shape[0])])
 
 
 class _KeyCol:

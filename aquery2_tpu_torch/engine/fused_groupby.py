@@ -542,6 +542,94 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
     return add, mins, maxs, f64s
 
 
+_SUM_KINDS = ("sum", "avg", "mean", "var", "stddev", "corr")
+_LIMB_LIMIT = 2.0 ** 62     # |Σ limbs| below 2^63, with a factor-2 margin
+
+
+def float_sums_fit(scatters, cols, n: int, rows, valid,
+                   null_fn=None) -> bool:
+    """Whether _build_lanes sums every float argument right: no NaN or
+    ±inf (a limb split turns them into garbage, and the packed tier's
+    float64 running totals carry one into every later group), and for a
+    float32 limb lane n · (max |lane| · 2^14 + 1) below 2^62, so the
+    int64 limb sums cannot overflow. The lanes are x (sum, avg), x and x²
+    (var, stddev, in float32) and x, y, xy, x², y² (corr, in float32 when
+    either is a float). Where this is False the caller declines the
+    query and the general engine, which sums floats in segmented float64
+    scans, answers.
+
+    A stored column's bound is its cached float_summary() (or stats(),
+    an integer corr partner); the computed arguments (rows(e) over the
+    rows of valid that are not NULL) share one host sync."""
+    need: list[tuple[str, list]] = []
+    for kind, args in scatters.values():
+        if kind in _SUM_KINDS:
+            need.append((kind, list(args[:2 if kind == "corr" else 1])))
+    if not need:
+        return True
+    info: dict[str, list] = {}       # repr(e) -> [dtype, source, bound]
+    for _kind, exprs in need:
+        for e in exprs:
+            if repr(e) in info:
+                continue
+            if isinstance(e, A.ColumnRef) and e.name in cols:
+                c = cols[e.name]
+                info[repr(e)] = [c.data.dtype, c, None]
+                continue
+            v = _as_rows(rows(e), valid)
+            nm = null_fn([e]) if null_fn is not None else None
+            vm = valid if nm is None else valid & ~nm
+            info[repr(e)] = [v.dtype, (v, vm), None]
+
+    def wanted(kind, exprs) -> list[str]:
+        """The arguments whose bounds this aggregate's lanes need."""
+        fl = [info[repr(e)][0].is_floating_point for e in exprs]
+        if kind == "corr":
+            return [repr(e) for e in exprs] if any(fl) else []
+        if not fl[0]:
+            return []
+        return [repr(exprs[0])]
+
+    pending: dict[str, torch.Tensor] = {}
+    for kind, exprs in need:
+        for k in wanted(kind, exprs):
+            dt, src, _b = info[k]
+            if isinstance(src, Column):
+                if dt.is_floating_point:
+                    info[k][2] = src.float_summary()
+                else:
+                    mn, mx = src.stats()
+                    info[k][2] = (True, float(max(abs(mn), abs(mx))))
+            elif k not in pending:
+                v, vm = src
+                fin = torch.isfinite(v) if v.is_floating_point() \
+                    else torch.ones_like(vm)
+                mag = torch.where(vm & fin, v.to(torch.float64).abs(), 0)
+                pending[k] = torch.stack([
+                    (vm & ~fin).any().to(torch.float64), mag.max()])
+    if pending:                     # the computed arguments' one sync
+        got = torch.stack(list(pending.values())).tolist()
+        for k, (bad, mx) in zip(pending, got):
+            info[k][2] = (not bad, mx)
+
+    def fits(bound: float) -> bool:
+        return n * (bound * 2.0 ** _LIMB_BITS + 1.0) < _LIMB_LIMIT
+
+    for kind, exprs in need:
+        ks = wanted(kind, exprs)
+        if not ks:
+            continue
+        if not all(info[k][2][0] for k in ks):
+            return False
+        m = max(info[k][2][1] for k in ks)
+        if kind in ("sum", "avg", "mean"):
+            if info[ks[0]][0] == torch.float32 and not fits(m):
+                return False
+        elif not fits(max(m, m * m)):
+            return False
+    return True
+
+
 def _gathered_sum(dense, tag):
     """A sum as float64 from its limbs, or the int64 or float64 sum
     itself."""
@@ -755,6 +843,10 @@ def run(sel: A.Select, table: Table) -> Table | None:
     valid = torch.arange(cap, device=env[col_order[0]].device) < n
     if p["where"] is not None:
         valid = valid & _truth(_as_rows(_row_eval(p["where"], env), valid))
+    null_fn = make_null_fn(env_null) if env_null else None
+    if not float_sums_fit(scatters, cols, n, lambda e: _row_eval(e, env),
+                          valid, null_fn):
+        return None
     keys = p["keys"]
     if strategy == "dense":
         dense, counts, keyvals = _run_dense(env, env_null, valid, scatters,

@@ -306,6 +306,8 @@ def run(sel: A.Select, table: Table) -> Table | None:
         return _ordered_row_eval(e, env_sorted, pos, flags)
 
     scatters = fg._needed_scatters(p["aggs"])
+    if not fg.float_sums_fit(scatters, cols, n, eval_sorted, valid_s):
+        return None
     add, mins, maxs, f64s = fg._build_lanes({}, valid_s, scatters,
                                             eval_fn=eval_sorted)
     outs, _ends = R.sorted_group_reduce(

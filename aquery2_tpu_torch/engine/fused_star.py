@@ -260,7 +260,12 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
         src = bt.columns[nm]
         col = Column(dim_refs[nm], src.sqltype, arr, nrows=n,
                      dictionary=src.dictionary)
-        col._stats = src.stats()    # a gather keeps the values in range
+        # a gather keeps the values in range (stats() of a float column
+        # would truncate, and raises on NaN)
+        if src.data.is_floating_point():
+            col._fsum = src.float_summary()
+        else:
+            col._stats = src.stats()
         tmp.add_column(col)
     km = dim_refs.get(bname.lower())
     if km is not None:

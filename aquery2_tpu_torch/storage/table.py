@@ -114,7 +114,7 @@ class Column:
     """
 
     __slots__ = ("name", "sqltype", "data", "nrows", "dictionary", "valid",
-                 "_stats")
+                 "_stats", "_fsum")
 
     def __init__(self, name: str, sqltype: T.SQLType,
                  data: torch.Tensor | np.ndarray, nrows: int | None = None,
@@ -132,6 +132,7 @@ class Column:
         self.valid = (None if valid is None
                       else _pad_to(_as_tensor(valid, t.device)[:n], cap, False))
         self._stats: tuple[int, int] | None = None
+        self._fsum: tuple[bool, float] | None = None
 
     @classmethod
     def from_host(cls, name: str, sqltype: T.SQLType,
@@ -196,6 +197,24 @@ class Column:
                 both = torch.stack([mn, mx]).cpu()
                 self._stats = (int(both[0]), int(both[1]))
         return self._stats
+
+    def float_summary(self) -> tuple[bool, float]:
+        """(every non-NULL value is finite, the largest finite |value|) of
+        a float column over its valid prefix, cached; one host sync. The
+        fused tiers read it before they sum the column in integer limbs
+        (engine/fused_groupby.float_sums_fit). Not through stats(), whose
+        int() raises on NaN and ±inf."""
+        if self._fsum is None:
+            d = self.data[:self.nrows]
+            fin = torch.isfinite(d)
+            if self.valid is not None:
+                fin = fin | ~self.valid[:self.nrows]
+            mag = torch.where(torch.isfinite(d), d.abs(), 0).to(torch.float64)
+            both = torch.stack([(~fin).any().to(torch.float64),
+                                mag.max() if d.shape[0] else mag.sum()])
+            bad, mx = both.tolist()
+            self._fsum = (not bad, mx)
+        return self._fsum
 
     def with_name(self, name: str) -> "Column":
         """The same column (its tensors shared) under another name."""

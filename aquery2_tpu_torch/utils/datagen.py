@@ -3,9 +3,10 @@
 ``h2o_g1`` makes the h2o db-benchmark G1 group-by table
 (groupby-datagen.R: id1..id6, v1..v3), ``h2o_dim`` the dimension table
 that the h2o join queries qj and qjg join it with (``bench.make_data``'s
-``dim``), and ``trades`` the trades benchmark table (the JAX package's
-``datagen.trades_table``) with numpy, so the JAX package and the port can
-load identical data from one seed.
+``dim``), ``h2o_j1`` the db-benchmark's four join tables (J1, x, small,
+medium and big), and ``trades`` the trades benchmark table (the JAX
+package's ``datagen.trades_table``) with numpy, so the JAX package and
+the port can load identical data from one seed.
 """
 
 from __future__ import annotations
@@ -73,6 +74,79 @@ def h2o_dim(n: int, k: int, seed: int) -> dict[str, np.ndarray]:
     w = np.random.default_rng(seed + 1).integers(1, 100, dsize,
                                                  dtype=np.int32)
     return {"id3": id3, "w": w}
+
+
+def _split_keys(m: int, rng) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """join-datagen.R's split_xlr: a permutation of 1.1·m keys cut into
+    the shared 0.9·m, the left table's own 0.1·m and the right table's
+    own 0.1·m."""
+    key = (rng.permutation(m + m // 10) + 1).astype(np.int32)
+    shared = m - m // 10
+    return key[:shared], key[shared:m], key[m:]
+
+
+def _sample_all(keys: np.ndarray, size: int, rng) -> np.ndarray:
+    """join-datagen.R's sample_all: every key once, the rest of size drawn
+    with replacement, shuffled."""
+    y = np.concatenate([keys, rng.choice(keys, size - len(keys))])
+    return rng.permutation(y)
+
+
+def _id_strings(ids: np.ndarray) -> tuple[np.ndarray, StringDict]:
+    """sprintf("id%.0f", ids) as int32 codes into a StringDict of its own
+    (in ascending id order)."""
+    u, inv = np.unique(ids, return_inverse=True)
+    return inv.astype(np.int32), StringDict([f"id{k}" for k in u])
+
+
+def h2o_j1(n: int, seed: int
+           ) -> dict[str, tuple[dict[str, np.ndarray], dict[str, StringDict]]]:
+    """The db-benchmark join task's tables (J1_<n>_NA_0_0), drawn with
+    numpy as ``_data/join-datagen.R`` is recalled here (not copied from
+    it): name → (arrays, dictionaries), the string columns as int32 codes
+    with a StringDict each (load with ``Table.from_numpy(name, arrays,
+    {c: types.StrT for c in dictionaries}, dictionaries=dictionaries,
+    device=...)``).
+
+    Three key domains of m1 = n/1e6, m2 = n/1e3 and m3 = n keys, each a
+    permutation of 1.1·m keys: x draws from the shared 0.9·m and 0.1·m
+    of its own, every right table from the same 0.9·m and 0.1·m of its
+    own, so about 90% of keys match. Each column takes every key of its
+    pool once and fills the rest with replacement.
+
+    - x, n rows: id1..id3 (int32), id4..id6 = "id<k>" of id1..id3 (one
+      dictionary each), v1 = round(uniform·100, 6) (float64);
+    - small, m1 rows: id1, id4, v2;
+    - medium, m2 rows: id1, id2, id4, id5, v2;
+    - big, n rows: id1..id6, v2.
+
+    What differs from the original: numpy's generator, not R's, so the
+    values differ and only the shapes match; id1..id3 are int32 and
+    id4..id6 dictionary-coded strings, where R has integers and factors;
+    no NA variant; m1 and m2 are at least 10 so that a small n keeps
+    several keys in each domain."""
+    rng = np.random.default_rng(seed)
+    m1, m2 = max(n // 10**6, 10), max(n // 10**3, 10)
+    k1, k2, k3 = _split_keys(m1, rng), _split_keys(m2, rng), _split_keys(n, rng)
+
+    def table(size: int, left: bool, ids: int):
+        pools = [np.concatenate([k[0], k[1] if left else k[2]])
+                 for k in (k1, k2, k3)[:ids]]
+        arrays = {f"id{i + 1}": _sample_all(p, size, rng)
+                  for i, p in enumerate(pools)}
+        dicts = {}
+        for i in range(ids):
+            arrays[f"id{i + 4}"], dicts[f"id{i + 4}"] = _id_strings(
+                arrays[f"id{i + 1}"])
+        v = np.round(rng.random(size) * 100, 6)
+        arrays["v1" if left else "v2"] = v
+        return arrays, dicts
+
+    x = table(n, True, 3)
+    small = table(m1, False, 1)
+    medium = table(m2, False, 2)
+    big = table(n, False, 3)
+    return {"x": x, "small": small, "medium": medium, "big": big}
 
 
 def trades(n: int, n_symbols: int = 100, seed: int = 7

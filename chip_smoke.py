@@ -55,15 +55,31 @@ Phases, in order (any mismatch raises; there is no fallback):
      SELECT DISTINCT and a DELETE/UPDATE/INSERT … SELECT sequence; then
      q6 and q8 on G1_1e7_1e1_5_0 (a fresh load), NULLs as SQL treats
      them (general_queries, general_oracle, na_general_oracle);
-  6. each query launched its path's kernel: onehot_segment_sums (the
+  6. the general join, set operations, DISTINCT aggregates and the
+     fused tiers' float-sum gate, through connect(device="cuda").execute,
+     each against numpy with its median of 3 warm runs, its host syncs
+     (counted by reading the code, SYNCS, and as torch's sync debug mode
+     reports them) and its launches: db-benchmark's join questions q1-q5
+     on J1_1e7_NA_0_0 (datagen.h2o_j1, seed 42), each a CREATE TABLE AS
+     checked by its row count and sum(v1), sum(v2); a grouped LEFT JOIN
+     the star join declines; UNION, EXCEPT, INTERSECT, EXCEPT ALL and
+     INTERSECT ALL row for row in the JAX package's order; count/sum
+     (DISTINCT …) per id1 and count(DISTINCT id3); then q1, q3, q5 and
+     q10 over a fresh G1_1e7_1e1_0_0 whose v3 holds a NaN, three +inf
+     and three -inf (one id3 group both), against numpy's nan-aware sums,
+     with the path that answered each;
+  7. each query launched its path's kernel: onehot_segment_sums (the
      dense tier, qjg's group-by), seg_cumsum_i64 (packed and multikey
-     sums, integer running sums, g_moving's windowed sum),
-     seg_scan_multi (min/max, q8's positions, the float64 running sums,
-     mins in g_best, g_best_desc and g_firstlast), and best_profit
-     fused_running_stats; qj launches none (no TPU kernel counts a join),
-     q6 and q8 on the 5%-NULL variant their group sums and counts by
-     seg_cumsum_i64 and seg_scan_multi (q8 the first only), and the
-     other general queries' launches are recorded.
+     sums, integer running sums, g_moving's windowed sum, set operations'
+     run counts, DISTINCT counts and sums), seg_scan_multi (min/max, q8's
+     positions, the float64 running sums, mins in g_best, g_best_desc
+     and g_firstlast, the general engine's float sums), and best_profit
+     fused_running_stats; qj and the J1 questions launch none (no TPU
+     kernel computes a join), q6 and q8 on the 5%-NULL variant their
+     group sums and counts by seg_cumsum_i64 and seg_scan_multi (q8 the
+     first only), and the other general queries' launches are recorded;
+     q1-q10, qj and qjg launched exactly what they launched before the
+     fused tiers' float-sum gate existed (MAIN_PATH_LAUNCHES).
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -77,17 +93,24 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from aquery2_tpu_torch import connect
+from aquery2_tpu_torch import config, connect
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.engine import fused_join, fused_star
+from aquery2_tpu_torch.engine import executor as E
+from aquery2_tpu_torch.engine import fused_groupby, fused_join, fused_star
+from aquery2_tpu_torch.engine import join as J
 from aquery2_tpu_torch.ops import kernels as K
+from aquery2_tpu_torch.ops import ragged
+from aquery2_tpu_torch.ops import scan as S
+from aquery2_tpu_torch.ops.filter import compact_indices
+from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import Column, Table
-from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, trades
+from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, h2o_j1, trades
 
 ROWS = 10_000_000
 CAP = 12_582_912                 # config.bucket_size(1e7)
@@ -149,7 +172,88 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "g_firstlast": ["seg_scan_multi"],
                # the group sums and counts read at group ends of scans
                "q6@5pct_NA": ["seg_cumsum_i64", "seg_scan_multi"],
-               "q8@5pct_NA": ["seg_cumsum_i64"]}
+               "q8@5pct_NA": ["seg_cumsum_i64"],
+               # phase 6: the joins, set operations, DISTINCT aggregates
+               # and the non-finite float sums
+               "j1_q1": [], "j1_q2": [], "j1_q3": [], "j1_q4": [],
+               "j1_q5": [],
+               "j1_outer_grouped": ["seg_scan_multi"],   # sum of float64 v1
+               "set_union": [], "set_except": ["seg_cumsum_i64"],
+               "set_intersect": ["seg_cumsum_i64"],
+               "set_except_all": ["seg_cumsum_i64"],
+               "set_intersect_all": ["seg_cumsum_i64"],
+               "distinct_grouped": ["seg_cumsum_i64"],
+               "distinct_ungrouped": [],
+               "q1@nonfinite": ["onehot_segment_sums"],
+               "q3@nonfinite": ["seg_cumsum_i64", "seg_scan_multi"],
+               "q5@nonfinite": ["seg_cumsum_i64", "seg_scan_multi"],
+               "q10@nonfinite": ["seg_scan_multi"]}
+# phase 4's launches over its 4 runs of each h2o query, as an H100 run
+# counted them before the fused tiers' float-sum gate existed (the gate
+# must add none over finite data)
+MAIN_PATH_LAUNCHES = {"q1": {"onehot_segment_sums": 4},
+                      "q2": {"onehot_segment_sums": 4},
+                      "q3": {"seg_cumsum_i64": 12},
+                      "q4": {"onehot_segment_sums": 4},
+                      "q5": {"seg_cumsum_i64": 16},
+                      "q6": {"seg_cumsum_i64": 16},
+                      "q7": {"seg_scan_multi": 4},
+                      "q8": {"seg_scan_multi": 4},
+                      "q9": {"onehot_segment_sums": 4},
+                      "q10": {"seg_cumsum_i64": 8}, "qj": {},
+                      "qjg": {"onehot_segment_sums": 4}}
+# db-benchmark's join task (J1_1e7_NA_0_0), each question a CREATE TABLE
+# AS as the benchmark's SQL solutions run it
+J1 = {
+    "j1_q1": "SELECT x.*, small.id4 AS small_id4, v2 FROM x JOIN small "
+             "USING (id1)",
+    "j1_q2": "SELECT x.*, medium.id1 AS medium_id1, medium.id4 AS "
+             "medium_id4, medium.id5 AS medium_id5, v2 FROM x JOIN medium "
+             "USING (id2)",
+    "j1_q3": "SELECT x.*, medium.id1 AS medium_id1, medium.id4 AS "
+             "medium_id4, medium.id5 AS medium_id5, v2 FROM x LEFT JOIN "
+             "medium USING (id2)",
+    "j1_q4": "SELECT x.*, medium.id1 AS medium_id1, medium.id2 AS "
+             "medium_id2, medium.id4 AS medium_id4, v2 FROM x JOIN medium "
+             "USING (id5)",
+    "j1_q5": "SELECT x.*, big.id1 AS big_id1, big.id2 AS big_id2, big.id4 "
+             "AS big_id4, big.id5 AS big_id5, big.id6 AS big_id6, v2 FROM x "
+             "JOIN big USING (id3)",
+}
+J1_ON = {"j1_q1": ("small", "id1"), "j1_q2": ("medium", "id2"),
+         "j1_q3": ("medium", "id2"), "j1_q4": ("medium", "id2"),
+         "j1_q5": ("big", "id3")}      # q4's id5 strings are "id" + id2
+SET_QUERIES = {
+    "j1_outer_grouped": ("SELECT medium.id4, count(*), sum(x.v1) FROM x "
+                         "LEFT JOIN medium USING (id2) GROUP BY medium.id4"),
+    "set_union": "SELECT id2 FROM x UNION SELECT id2 FROM medium",
+    "set_except": "SELECT id1, id2 FROM x EXCEPT SELECT id1, id2 FROM medium",
+    "set_intersect": "SELECT id3 FROM x INTERSECT SELECT id3 FROM big",
+    "set_except_all": "SELECT id2 FROM x EXCEPT ALL SELECT id2 FROM medium",
+    "set_intersect_all": ("SELECT id3 FROM x INTERSECT ALL SELECT id3 "
+                          "FROM big"),
+    "distinct_grouped": ("SELECT id1, count(DISTINCT id3), sum(DISTINCT id2) "
+                         "FROM x GROUP BY id1"),
+    "distinct_ungrouped": "SELECT count(DISTINCT id3) FROM x",
+}
+NONFINITE = ("q1", "q3", "q5", "q10")
+# host syncs of one run of each phase-6 query, counted by reading the code
+# (engine/join.py, executor.py, groupby.py, fused_scan.py): a join 2
+# (candidates, pairs) + 1 per outer side; a string key's dictionary remap
+# 1 (a host-to-device copy); a fused scan arm 1; _set_op 1 (its kept
+# rows); a general GROUP BY 1 per key's stats until the keys' domain
+# passes PERFECT_HASH_MAX_DOMAIN (q10: 4) + 1 per nullable key (its
+# sentinel), then dense: torch.bincount 2 (it reads its input's minimum
+# and maximum) + 1 (the group count), or sort: 1 (the group count) + 1
+# (the offsets' host-to-device copy); _distinct is such a GROUP BY; the
+# fused dense tier 1; the float summary of v3 once per load (not in a
+# warm run)
+SYNCS = {"j1_q1": 2, "j1_q2": 2, "j1_q3": 3, "j1_q4": 3, "j1_q5": 2,
+         "j1_outer_grouped": 8, "set_union": 6, "set_except": 3,
+         "set_intersect": 3, "set_except_all": 3, "set_intersect_all": 3,
+         "distinct_grouped": 4, "distinct_ungrouped": 0,
+         "q1@nonfinite": 1, "q3@nonfinite": 4, "q5@nonfinite": 4,
+         "q10@nonfinite": 6}
 GENERAL_NAS = ("q6", "q8")      # G1_1e7_1e1_5_0 through the general engine
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
 EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
@@ -1326,6 +1430,322 @@ def run_best_profit(dev) -> dict[str, int]:
     return launches
 
 
+def count_syncs(db, sql: str) -> str:
+    """The synchronizing CUDA calls of one run of sql as torch's sync
+    debug mode reports them, a check beside SYNCS (which reads the code):
+    their number and the Python lines that made them, "file:line x
+    count"."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            db.execute(sql)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
+                                for w in caught
+                                if "synchroniz" in str(w.message))
+    return f"{sum(sites.values())} ({', '.join(f'{k} x {v}' for k, v in sorted(sites.items()))})"
+
+
+def _lut(keys: np.ndarray) -> np.ndarray:
+    """position of each (unique) key, -1 for the other values up to the
+    largest key."""
+    lut = np.full(int(keys.max()) + 1, -1, np.int64)
+    lut[keys] = np.arange(len(keys))
+    return lut
+
+
+def _probe(lut: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """lut's position of each key, -1 where it has none."""
+    inside = keys < len(lut)
+    return np.where(inside, lut[np.where(inside, keys, 0)], -1)
+
+
+def j1_oracle(tables, q: str) -> tuple[int, float, float]:
+    """(rows, sum(v1), sum(v2)) of J1 question q with numpy: each right
+    table's join key is unique where the question joins on it."""
+    x = tables["x"][0]
+    name, key = J1_ON[q]
+    right = tables[name][0]
+    pos = _probe(_lut(right[key]), x[key])
+    hit = pos >= 0
+    s2 = float(right["v2"][pos[hit]].sum())
+    if q == "j1_q3":                            # LEFT: every x row
+        return ROWS, float(x["v1"].sum()), s2
+    return int(hit.sum()), float(x["v1"][hit].sum()), s2
+
+
+def check_j1(q: str, ans: Table, want) -> None:
+    """The CREATE TABLE AS result: x's seven columns first, its row count
+    exactly, sum(v1) and sum(v2) (NULLs skipped) to FLOAT_RTOL."""
+    names = ans.column_names()
+    if names[:7] != ["id1", "id2", "id3", "id4", "id5", "id6", "v1"] \
+            or names[-1] != "v2":
+        raise AssertionError(f"{q}: columns {names}")
+    rows, s1, s2 = want
+    if ans.nrows != rows:
+        raise AssertionError(f"{q}: {ans.nrows} rows, numpy {rows}")
+    got = []
+    for nm in ("v1", "v2"):
+        c = ans.columns[nm]
+        d = c.data[:ans.nrows].to(torch.float64)
+        if c.valid is not None:
+            d = torch.where(c.valid[:ans.nrows], d, 0.0)
+        got.append(float(d.sum()))
+    for nm, g, w in zip(("v1", "v2"), got, (s1, s2)):
+        if abs(g - w) > FLOAT_RTOL * abs(w):
+            raise AssertionError(f"{q}: sum({nm}) {g!r} vs numpy {w!r}")
+
+
+def set_oracle(tables, q: str) -> list[np.ndarray]:
+    """Each output column of set query q, in order, from numpy: the JAX
+    package's orders (left-input order for EXCEPT and INTERSECT, keys
+    ascending for UNION and GROUP BY, NULL last)."""
+    x, med, big = (tables[t][0] for t in ("x", "medium", "big"))
+    if q == "j1_outer_grouped":
+        pos = _probe(_lut(med["id2"]), x["id2"])
+        code = np.where(pos >= 0, med["id4"][np.maximum(pos, 0)], -1)
+        keys, inv = np.unique(code, return_inverse=True)
+        cnt = np.bincount(inv)
+        s1 = np.bincount(inv, weights=x["v1"])
+        if keys[0] == -1:                       # the NULL group goes last
+            keys, cnt, s1 = (np.r_[a[1:], a[:1]] for a in (keys, cnt, s1))
+        return [keys.astype(np.int32), cnt.astype(np.int64), s1]
+    if q == "set_union":
+        return [np.unique(np.concatenate([x["id2"], med["id2"]]))]
+    if q == "set_except":
+        code = x["id1"].astype(np.int64) << 32 | x["id2"]
+        _u, first = np.unique(code, return_index=True)
+        first = np.sort(first)
+        mcode = med["id1"].astype(np.int64) << 32 | med["id2"]
+        keep = first[~np.isin(code[first], mcode)]
+        return [x["id1"][keep], x["id2"][keep]]
+    if q in ("set_intersect", "set_intersect_all"):    # both id3 unique
+        return [x["id3"][np.isin(x["id3"], big["id3"])]]
+    if q == "set_except_all":               # medium's id2 are unique
+        u, first = np.unique(x["id2"], return_index=True)
+        keep = np.ones(ROWS, bool)
+        keep[first[np.isin(u, med["id2"])]] = False
+        return [x["id2"][keep]]
+    id1, id2, id3 = x["id1"], x["id2"], x["id3"]
+    if q == "distinct_grouped":
+        keys = np.unique(id1)
+        return [keys,
+                np.array([len(np.unique(id3[id1 == k])) for k in keys],
+                         np.int64),
+                np.array([np.unique(id2[id1 == k]).sum() for k in keys],
+                         np.int64)]
+    return [np.array([len(np.unique(id3))], np.int64)]
+
+
+def check_set(tables, q: str, res) -> None:
+    """Every column row for row: exactly, float sums to FLOAT_RTOL; the
+    grouped outer join's NULL group by its validity."""
+    want = set_oracle(tables, q)
+    cols = list(res.table.columns.values())
+    if len(cols) != len(want):
+        raise AssertionError(f"{q}: {len(cols)} columns, want {len(want)}")
+    for i, (c, w) in enumerate(zip(cols, want)):
+        got = c.to_numpy()
+        if got.shape != w.shape:
+            raise AssertionError(f"{q}.{c.name}: shape {got.shape} vs "
+                                 f"{w.shape}")
+        if q == "j1_outer_grouped" and i == 0:
+            null = (np.zeros(len(got), bool) if c.valid is None
+                    else ~c.valid[:res.nrows].cpu().numpy())
+            np.testing.assert_array_equal(null, w == -1,
+                                          err_msg=f"{q} NULL key")
+            got = np.where(null, -1, got)
+        if got.dtype.kind == "f":
+            np.testing.assert_allclose(got, w, rtol=FLOAT_RTOL,
+                                       err_msg=f"{q}.{c.name}")
+        else:
+            np.testing.assert_array_equal(got.astype(np.int64),
+                                          w.astype(np.int64),
+                                          err_msg=f"{q}.{c.name}")
+
+
+def nonfinite_data() -> dict[str, np.ndarray]:
+    """G1_1e7_1e1_0_0 with v3 NaN at 1 row, +inf at 3 and -inf at 3: one
+    id3 group holds both infinities."""
+    data = h2o_g1(ROWS, K_GROUPS, SEED)
+    v3, id3 = data["v3"], data["id3"]
+    both = np.flatnonzero(id3 == id3[0])
+    v3[both[0]], v3[both[1]] = np.inf, -np.inf
+    v3[np.flatnonzero(id3 == id3[100])[0]] = np.nan
+    v3[[200, 300]] = np.inf
+    v3[[400, 500]] = -np.inf
+    return data
+
+
+def check_nonfinite(q: str, res, want, cnt, nulls) -> None:
+    """check_result over the finite groups; the others must be NaN or the
+    same infinity as numpy's nan-aware sums give."""
+    bad = np.zeros(len(cnt), bool)
+    for w in want.values():
+        if w.dtype.kind == "f":
+            bad |= ~np.isfinite(w)
+    if not bad.any():
+        if q != "q1":                   # q1 reads no float column
+            raise AssertionError(f"{q}: numpy finds no non-finite group")
+        check_result(q, res, want, cnt, nulls)
+        return
+    for nm, w in want.items():
+        if w.dtype.kind != "f":
+            continue
+        got = res.table.columns[nm].to_numpy()[bad]
+        np.testing.assert_array_equal(got, w[bad],
+                                      err_msg=f"{q}.{nm} non-finite")
+    keep = torch.from_numpy(np.flatnonzero(~bad))
+    sub = Table(res.table.name, [Column(c.name, c.sqltype,
+                                        c.data[keep.to(c.data.device)],
+                                        nrows=len(keep),
+                                        dictionary=c.dictionary)
+                                 for c in res.table.columns.values()])
+    kn = keep.numpy()
+    check_result(q, Result(sub), {k: v[kn] for k, v in want.items()},
+                 cnt[kn], {k: v[kn] for k, v in nulls.items()})
+
+
+def time_join_parts(db) -> None:
+    """The general join's and the set operations' parts at phase 6's
+    shapes, each called as engine/join.equi_join and executor._set_op
+    call it: device time (median of 10) beside the bound of its bytes
+    (inputs read once, outputs written once, at 3.35 TB/s); the parts
+    that read a count on the host, and the whole calls, with the host's
+    gaps. J1 q5's join (1e7 probe keys, 1e7 unique build keys), q2's
+    (1e4 build keys), and the INTERSECT of x.id3 and big.id3."""
+    def timed(label, fn, nbytes, host_gaps=False):
+        ms = cuda_ms(fn, host_gaps=host_gaps)
+        b = bound_ms(nbytes)
+        gaps = ", with the host's gaps" if host_gaps else ""
+        print(f"# {label}: {ms:.4f} ms device time (median of 10{gaps}); "
+              f"{nbytes} bytes, bound {b:.4f} ms, {b / ms:.1%} of bound",
+              flush=True)
+
+    x = db.catalog.get("x").columns
+    for q, rname, key in (("j1_q5", "big", "id3"), ("j1_q2", "medium", "id2")):
+        lcol, rcol = x[key], db.catalog.get(rname).columns[key]
+        lk, rk = lcol.data, rcol.data
+        nl, nr = lk.shape[0], rk.shape[0]
+        lok = torch.arange(nl, device=lk.device) < lcol.nrows
+        rok = torch.arange(nr, device=rk.device) < rcol.nrows
+        lh = J._key_hash([lk])
+        rh = torch.where(rok, J._key_hash([rk]), torch.iinfo(torch.int64).max)
+        rh_s, perm = torch.sort(rh, stable=True)
+        lo = torch.searchsorted(rh_s, lh, side="left")
+        hi = torch.searchsorted(rh_s, lh, side="right")
+        counts = torch.where(lok, hi - lo, 0)
+        total = int(counts.sum())
+        cap = config.bucket_size(max(total, 1))
+        li, within, valid = ragged.expand(counts, cap, total)
+        ri = perm[(lo[li] + within).clamp(0, nr - 1)]
+        shape = f"{q}'s join ({lcol.nrows} x {rcol.nrows} keys, {total} pairs)"
+        timed(f"{shape}: hash of the probe keys", lambda: J._key_hash([lk]),
+              12 * nl)
+        timed(f"{shape}: stable sort of the build hashes",
+              lambda: torch.sort(rh, stable=True), 24 * nr)
+        timed(f"{shape}: two searchsorted probes",
+              lambda: (torch.searchsorted(rh_s, lh, side="left"),
+                       torch.searchsorted(rh_s, lh, side="right")),
+              8 * nl + 8 * nr + 16 * nl)
+        timed(f"{shape}: ragged.expand", lambda: ragged.expand(
+            counts, cap, total), 8 * nl + 17 * cap)
+        timed(f"{shape}: verify and compact",
+              lambda: compact_indices(valid & rok[ri] & (lk[li] == rk[ri])),
+              25 * cap + 4 * 2 * total + 8 * total, host_gaps=True)
+        timed(f"{shape}: the whole equi_join",
+              lambda: J.equi_join([lk], [rk], lcol.nrows, rcol.nrows),
+              4 * nl + 4 * nr + 16 * total, host_gaps=True)
+
+    left = Table("l", [x["id3"]])
+    right = Table("r", [db.catalog.get("big").columns["id3"]])
+    n1, n2 = left.nrows, right.nrows
+    cap = config.bucket_size(n1 + n2)
+    dev = x["id3"].device
+    cat = torch.cat([right.columns["id3"].data[:n2], x["id3"].data[:n1]])
+    keys = [(torch.cat([cat, cat.new_zeros(cap - n1 - n2)]), True)]
+    ok = torch.arange(cap, device=dev) < n1 + n2
+    perm, valid_s, _sk, starts, _l = fused_groupby.sorted_groups(ok, keys)
+    flags = (valid_s & (perm >= n2)).to(torch.int64) \
+        | ((valid_s & (perm < n2)).to(torch.int64) << 32)
+    shape = f"INTERSECT of x.id3 and big.id3 ({n1} + {n2} rows)"
+    timed(f"{shape}: the tuples' stable sort",
+          lambda: fused_groupby.sorted_groups(ok, keys), 20 * cap)
+    timed(f"{shape}: seg_cumsum_i64 of the side flags",
+          lambda: S.seg_cumsum(flags, starts), 17 * cap)
+    timed(f"{shape}: the whole _set_op",
+          lambda: E._set_op(left, right, "intersect"),
+          4 * (n1 + n2) + 4 * n1, host_gaps=True)
+
+
+def run_slice10(dev, walls) -> dict[str, dict[str, int]]:
+    """Phase 6: db-benchmark's J1 questions, a grouped outer join, five
+    set operations and two DISTINCT aggregates on J1_1e7_NA_0_0, then q1,
+    q3, q5 and q10 over G1_1e7_1e1_0_0 with non-finite v3 values; each
+    against numpy, with its median of 3 warm runs, its host syncs (read
+    and measured) and its launches."""
+    t0 = time.perf_counter()
+    tables = h2o_j1(ROWS, SEED)
+    print(f"# generated J1_1e7_NA_0_0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    db = connect(device=dev)
+    for name, (arrays, dicts) in tables.items():
+        load(db, name, arrays, dev, types={c: T.StrT for c in dicts},
+             dictionaries=dicts)
+    launches = {}
+    for q, sql in J1.items():
+        ctas = f"CREATE TABLE ans AS {sql}"
+        reset_launches()
+        _res, ms = timed_runs(db, ctas, 3)
+        launches[q] = {k: v for k, v in K.LAUNCHES.items() if v}
+        ans = db.catalog.get("ans")
+        check_j1(q, ans, j1_oracle(tables, q))
+        walls[q] = ms
+        print(f"# {q}: {ans.nrows} rows x {len(ans.columns)} columns, "
+              f"{ms:.3f} ms (median of 3 warm runs), syncs read "
+              f"{SYNCS[q]} measured {count_syncs(db, ctas)}, matches numpy, "
+              f"launches {launches[q]}", flush=True)
+    time_join_parts(db)
+    launches.update(run_queries(
+        db, SET_QUERIES, lambda q, res: check_set(tables, q, res),
+        walls=walls))
+    for q, sql in SET_QUERIES.items():
+        print(f"# {q}: syncs read {SYNCS[q]} measured "
+              f"{count_syncs(db, sql)}", flush=True)
+    del db, tables
+
+    data = nonfinite_data()
+    db = connect(device=dev)
+    load(db, "source", data, dev)
+    fits = []
+    gate = fused_groupby.float_sums_fit
+
+    def spy(*args, **kw):
+        fits.append(gate(*args, **kw))
+        return fits[-1]
+    fused_groupby.float_sums_fit = spy
+    try:
+        for q in NONFINITE:
+            fits.clear()
+            db.execute(QUERIES[q])
+            path = ("the fused tier" if all(fits)
+                    else "the general engine (the fused tier declined)")
+            print(f"# {q}@nonfinite answered by {path}", flush=True)
+    finally:
+        fused_groupby.float_sums_fit = gate
+    launches.update(run_queries(
+        db, {q: QUERIES[q] for q in NONFINITE},
+        lambda q, res: check_nonfinite(q, res, *oracle(data, q)),
+        tag="@nonfinite", walls=walls))
+    for q in NONFINITE:
+        print(f"# {q}@nonfinite: syncs read {SYNCS[q + '@nonfinite']} "
+              f"measured {count_syncs(db, QUERIES[q])}", flush=True)
+    return launches
+
+
 def ptxas_line(r: dict) -> str:
     return (f"{r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
@@ -1416,12 +1836,20 @@ def main() -> int:
     launches.update(general)
     phase(f"5. general engine: {len(general)} queries match numpy")
 
+    slice10 = run_slice10(dev, walls)
+    launches.update(slice10)
+    phase(f"6. joins, set operations, DISTINCT aggregates, non-finite "
+          f"sums: {len(slice10)} queries match numpy")
+
     for q, per in launches.items():
         want = MAIN_KERNEL.get(q, MAIN_KERNEL.get(q.split("@")[0],
                                                   ["fused_running_stats"]))
         for name in want:
             if per.get(name, 0) <= 0:
                 raise AssertionError(f"{q} did not launch {name}: {per}")
+    for q, per in MAIN_PATH_LAUNCHES.items():
+        if launches[q] != per:
+            raise AssertionError(f"{q} launched {launches[q]}, want {per}")
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())
@@ -1433,7 +1861,8 @@ def main() -> int:
     print(f"# the star build, {build:.4f} ms of device time, is "
           f"{build / walls['qjg']:.1%} of qjg's {walls['qjg']:.3f} ms wall "
           f"(qj {walls['qj']:.3f} ms)", flush=True)
-    phase("6. each query launched its path's kernels, best_profit "
+    phase("7. each query launched its path's kernels (q1-q10, qj and qjg "
+          "exactly as before the float-sum gate), best_profit "
           "fused_running_stats")
 
     print(json.dumps({"kernels": rows}))

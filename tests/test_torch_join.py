@@ -19,14 +19,16 @@ import torch
 import aquery2_tpu
 from aquery2_tpu import types as JT
 from aquery2_tpu.storage.table import Column as JColumn, Table as JTable
+from aquery2_tpu.storage.table import StringDict as JStringDict
 
 import aquery2_tpu_torch
+from aquery2_tpu_torch.engine import executor as TE
 from aquery2_tpu_torch.engine import fused_join, fused_star
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.storage.table import Column as TColumn
 from aquery2_tpu_torch.storage.table import Table as TTable
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1
+from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, h2o_j1
 from bench import QUERIES
 
 N = 3 * 2 ** 14
@@ -316,23 +318,235 @@ def test_probe_of_unmatched_and_out_of_domain_rows():
     assert got[match].tolist() == [100, 300, 200]
 
 
+def _load_any(tables):
+    """Both packages over {name: {col: array, masked array or (codes,
+    StringDict)}}."""
+    js = aquery2_tpu.connect()
+    ts = aquery2_tpu_torch.connect(device="cpu")
+    for name, arrays in tables.items():
+        cols = []
+        for k, v in arrays.items():
+            if isinstance(v, tuple):
+                codes, d = v
+                cols.append(JColumn(k, JT.StrT, codes,
+                                    dictionary=JStringDict(d.strings())))
+                continue
+            valid = None
+            if isinstance(v, np.ma.MaskedArray):
+                valid = ~np.ma.getmaskarray(v)
+                v = v.filled(0)
+            cols.append(JColumn(k, JT.from_np_dtype(v.dtype), v, valid=valid))
+        ref = JTable(name, cols)
+        js.catalog.create(ref, replace=True)
+        ts.catalog.create(TTable.from_reference(ref, device="cpu"),
+                          replace=True)
+    return js, ts
+
+
+def _same_rows(js, ts, sql, rtol=0.0, jsql=None):
+    """Port (sql) == JAX (jsql or sql): names, SQL types and rows in
+    order; floats to rtol, NULLs as None."""
+    jr, tr = js.execute(jsql or sql), ts.execute(sql)
+    assert tr.column_names() == [nm.split(".")[-1].removeprefix("__star_")
+                                 for nm in jr.column_names()], sql
+    assert [c.sqltype.name for c in tr.table.columns.values()] == \
+        [c.sqltype.name for c in jr.table.columns.values()], sql
+    trows, jrows = tr.rows(), jr.rows()
+    assert len(trows) == len(jrows), sql
+    if not rtol:
+        assert trows == jrows, sql
+        return tr
+    for t, j in zip(trows, jrows):
+        for a, b in zip(t, j):
+            if isinstance(b, float) and a is not None:
+                np.testing.assert_allclose(a, b, rtol=rtol, err_msg=sql)
+            else:
+                assert a == b, sql
+    return tr
+
+
 @pytest.mark.parametrize("case", ["duplicate_dim_keys", "nullable_source",
                                   "three_tables", "ungrouped_sum"])
 def test_general_join_shapes_raise(case):
-    """The shapes the JAX package sends to its general join."""
+    """The shapes the JAX package sends to its general join, which raised
+    before item 6b, equal the JAX package."""
     src = h2o_g1(2000, 10, SEED, nas=5 if case == "nullable_source" else 0)
     dim = h2o_dim(2000, 10, SEED)
     if case == "duplicate_dim_keys":
         dim = {k: np.r_[v, v[:3]] for k, v in dim.items()}
-    ts = aquery2_tpu_torch.connect(device="cpu")
-    ts.catalog.create(TTable.from_numpy("source", src, device="cpu"))
-    ts.catalog.create(TTable.from_numpy("dim", dim, device="cpu"))
-    ts.catalog.create(TTable.from_numpy("dim2", h2o_dim(2000, 10, 1),
-                                        device="cpu"))
+    js, ts = _load_any({"source": src, "dim": dim,
+                        "dim2": h2o_dim(2000, 10, 1)})
     sql = {"three_tables": "SELECT d.w, count(*) AS c FROM source s, dim d, "
                            "dim2 e WHERE s.id3 = d.id3 AND d.id3 = e.id3 "
                            "GROUP BY d.w",
            "ungrouped_sum": "SELECT sum(s.v1) FROM source s, dim d "
                             "WHERE s.id3 = d.id3"}.get(case, QUERIES["qjg"])
-    with pytest.raises(NotImplementedError, match="6b"):
-        ts.execute(sql)
+    _same_rows(js, ts, sql)
+
+
+J1_X = "x.id1, x.id2, x.id3, x.id4, x.id5, x.id6, x.v1"
+J1 = {  # db-benchmark's join questions, as its SQL solutions write them
+    "q1": "SELECT {x}, small.id4 AS small_id4, v2 FROM x JOIN small "
+          "USING (id1)",
+    "q2": "SELECT {x}, medium.id1 AS medium_id1, medium.id4 AS medium_id4, "
+          "medium.id5 AS medium_id5, v2 FROM x JOIN medium USING (id2)",
+    "q3": "SELECT {x}, medium.id1 AS medium_id1, medium.id4 AS medium_id4, "
+          "medium.id5 AS medium_id5, v2 FROM x LEFT JOIN medium USING (id2)",
+    "q4": "SELECT {x}, medium.id1 AS medium_id1, medium.id2 AS medium_id2, "
+          "medium.id4 AS medium_id4, v2 FROM x JOIN medium USING (id5)",
+    "q5": "SELECT {x}, big.id1 AS big_id1, big.id2 AS big_id2, "
+          "big.id4 AS big_id4, big.id5 AS big_id5, big.id6 AS big_id6, v2 "
+          "FROM x JOIN big USING (id3)",
+}
+
+
+@pytest.fixture(scope="module")
+def j1():
+    tables = h2o_j1(10_000, SEED)
+    flat = {name: {c: (a, dicts[c]) if c in dicts else a
+                   for c, a in arrays.items()}
+            for name, (arrays, dicts) in tables.items()}
+    return tables, _load_any(flat)
+
+
+def test_h2o_j1_shape(j1):
+    """join-datagen.R's shape: sizes, unique right keys where the R
+    script draws each key once, and about 90% of x's keys matching."""
+    tables, _ = j1
+    x, small, medium, big = (tables[t][0] for t in ("x", "small", "medium",
+                                                    "big"))
+    assert [len(t["v1" if t is x else "v2"]) for t in (x, small, medium,
+                                                       big)] == \
+        [10_000, 10, 10, 10_000]
+    assert list(x) == ["id1", "id2", "id3", "id4", "id5", "id6", "v1"]
+    assert list(medium) == ["id1", "id2", "id4", "id5", "v2"]
+    for t, k in ((small, "id1"), (medium, "id2"), (big, "id3"), (x, "id3")):
+        assert len(np.unique(t[k])) == len(t[k])
+    for t, k in ((small, "id1"), (medium, "id2"), (big, "id3")):
+        assert 0.85 < np.isin(x[k], t[k]).mean() < 0.95
+    assert tables["x"][1]["id5"] is not tables["medium"][1]["id5"]
+
+
+@pytest.mark.parametrize("q", sorted(J1))
+def test_j1_questions_match_jax(q, j1):
+    """Each question as the benchmark runs it, a CREATE TABLE AS of the
+    join, against the JAX package's SELECT. ``x.*`` is x's columns; the
+    JAX package expands a qualified star to every source's (ROADMAP
+    queue 3), so its query names them."""
+    _tables, (js, ts) = j1
+    ts.execute(f"CREATE TABLE ans AS {J1[q].format(x='x.*')}")
+    jr = js.execute(J1[q].format(x=J1_X))
+    tr = ts.execute("SELECT * FROM ans")
+    assert tr.column_names() == [nm.split(".")[-1]
+                                 for nm in jr.column_names()]
+    assert [c.sqltype.name for c in tr.table.columns.values()] == \
+        [c.sqltype.name for c in jr.table.columns.values()]
+    assert tr.rows() == jr.rows()
+    _same_rows(js, ts, f"SELECT count(*) AS c, sum(v1) AS s1, sum(v2) AS s2 "
+                       f"FROM ({J1[q].format(x=J1_X)}) j", rtol=1e-12)
+
+
+GENERAL_JOINS = {
+    # outer joins with aggregates over the NULL side
+    "left_grouped_null_side": "SELECT medium.id4, count(*) AS c, "
+                              "sum(x.v1) AS s, count(v2) AS cv, "
+                              "avg(v2) AS av, min(v2) AS mn, max(medium.id1) "
+                              "AS mx FROM x LEFT JOIN medium USING (id2) "
+                              "GROUP BY medium.id4",
+    "right_grouped": "SELECT small.id4, count(x.v1) AS c, max(x.v1) AS m "
+                     "FROM x RIGHT JOIN small ON x.id1 = small.id1 "
+                     "GROUP BY small.id4 ORDER BY small.id4",
+    "full_is_null": "SELECT count(*) AS c, count(x.id1) AS cx, "
+                    "count(small.id1) AS cs FROM x FULL JOIN small "
+                    "ON x.id1 = small.id1",
+    "left_anti": "SELECT x.id3, x.id1 FROM x LEFT JOIN small USING (id1) "
+                 "WHERE v2 IS NULL ORDER BY x.id3 LIMIT 40",
+    # three tables, multi-column keys, derived tables
+    "three_tables": "SELECT x.id1, count(*) AS c, sum(big.v2) AS s FROM x, "
+                    "big, small WHERE x.id3 = big.id3 AND big.id1 = small.id1 "
+                    "GROUP BY x.id1",
+    "chained_join": "SELECT medium.id5, count(*) AS c FROM x JOIN medium "
+                    "USING (id2) JOIN small ON small.id1 = medium.id1 "
+                    "GROUP BY medium.id5",
+    "multi_column": "SELECT count(*) AS c, sum(x.v1) AS s FROM x JOIN big "
+                    "ON x.id1 = big.id1 AND x.id2 = big.id2 AND "
+                    "x.id3 = big.id3",
+    "multi_column_using": "SELECT x.id3, big.v2 FROM x JOIN big "
+                          "USING (id1, id2) ORDER BY x.id3, big.v2 LIMIT 50",
+    "derived_left": "SELECT t.id1, count(*) AS c FROM (SELECT id1, id2 FROM x "
+                    "WHERE v1 > 50) t JOIN medium USING (id2) GROUP BY t.id1",
+    "derived_right": "SELECT x.id1, sum(s.v2) AS sv FROM x JOIN (SELECT id1, "
+                     "v2 FROM small WHERE v2 > 20) s ON x.id1 = s.id1 "
+                     "GROUP BY x.id1",
+    "comma_residual": "SELECT count(*) AS c FROM x, medium WHERE "
+                      "x.id2 = medium.id2 AND x.v1 > medium.v2",
+    # duplicate keys, strings in two dictionaries, natural join
+    "duplicate_keys": "SELECT x.id3, medium.id2, medium.v2 FROM x JOIN medium "
+                      "ON x.id1 = medium.id1 WHERE x.id3 < 40",
+    "string_keys": "SELECT x.id4, count(*) AS c FROM x JOIN small "
+                   "ON x.id4 = small.id4 GROUP BY x.id4",
+    "natural": "SELECT count(*) AS c FROM small NATURAL JOIN medium",
+    "star_ungrouped": "SELECT * FROM small JOIN medium USING (id1) "
+                      "ORDER BY small.v2, medium.v2",
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL_JOINS))
+def test_general_joins_match_jax(name, j1):
+    _tables, (js, ts) = j1
+    _same_rows(js, ts, GENERAL_JOINS[name], rtol=1e-12)
+
+
+def test_joins_over_null_keys_match_jax():
+    """NULL keys on either side match nothing; an outer join keeps their
+    rows with a NULL other side."""
+    rng = np.random.default_rng(4)
+    lk = np.ma.masked_array(rng.integers(0, 6, 60).astype(np.int32),
+                            mask=rng.random(60) < 0.2)
+    rk = np.ma.masked_array(rng.integers(0, 6, 25).astype(np.int32),
+                            mask=rng.random(25) < 0.2)
+    js, ts = _load_any({"l": {"k": lk, "a": np.arange(60, dtype=np.int32)},
+                        "r": {"k": rk, "b": np.arange(25, dtype=np.int32)}})
+    for kind in ("", "LEFT", "RIGHT", "FULL"):
+        _same_rows(js, ts, f"SELECT a, b FROM l {kind} JOIN r ON l.k = r.k")
+    got = ts.execute("SELECT count(*) FROM l JOIN r ON l.k = r.k").rows()
+    lv, rv = lk.compressed(), rk.compressed()
+    assert got == [(int((lv[:, None] == rv[None, :]).sum()),)]
+
+
+def test_join_hash_collisions_are_dropped(monkeypatch):
+    """With a hash that collides almost everywhere, the key comparison
+    still keeps exactly the equal pairs, in left-then-right order."""
+    from aquery2_tpu_torch.engine import join as TJ
+
+    rng = np.random.default_rng(8)
+    lk = rng.integers(0, 40, 300).astype(np.int32)
+    rk = rng.integers(0, 40, 90).astype(np.int32)
+    lk2 = rng.integers(0, 3, 300).astype(np.int32)
+    rk2 = rng.integers(0, 3, 90).astype(np.int32)
+    ts = aquery2_tpu_torch.connect(device="cpu")
+    ts.catalog.create(TTable.from_numpy("l", {"k": lk, "j": lk2}, device="cpu"))
+    ts.catalog.create(TTable.from_numpy("r", {"k": rk, "j": rk2}, device="cpu"))
+    monkeypatch.setattr(TJ, "_key_hash",
+                        lambda cols: cols[0].to(torch.int64) % 3)
+    pairs = [(i, j) for i in range(300) for j in range(90)
+             if lk[i] == rk[j] and lk2[i] == rk2[j]]
+    ts.execute("CREATE TABLE lr AS SELECT l.k AS lk, r.k AS rk, l.j AS lj, "
+               "r.j AS rj FROM l JOIN r ON l.k = r.k AND l.j = r.j")
+    got = ts.execute("SELECT lk, rk, lj, rj FROM lr").rows()
+    assert got == [(int(lk[i]), int(rk[j]), int(lk2[i]), int(rk2[j]))
+                   for i, j in pairs]
+    left = ts.execute("SELECT count(*) FROM l LEFT JOIN r "
+                      "ON l.k = r.k AND l.j = r.j").rows()
+    hit = {i for i, _j in pairs}
+    assert left == [(len(pairs) + 300 - len(hit),)]
+
+
+def test_joins_the_jax_package_refuses_raise():
+    ts = aquery2_tpu_torch.connect(device="cpu")
+    ts.execute("CREATE TABLE a(k INT); CREATE TABLE b(k INT);"
+               "INSERT INTO a VALUES (1), (2); INSERT INTO b VALUES (2)")
+    with pytest.raises(TE.ExecError, match="CROSS JOIN not supported"):
+        ts.execute("SELECT * FROM a CROSS JOIN b")
+    with pytest.raises(TE.ExecError, match="without a connecting equality"):
+        ts.execute("SELECT a.k FROM a, b WHERE a.k > b.k")

@@ -29,6 +29,7 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.engine.fused_join, "
             "aquery2_tpu_torch.engine.eval, "
             "aquery2_tpu_torch.engine.fused_scan, "
+            "aquery2_tpu_torch.engine.join, "
             "aquery2_tpu_torch.ops.hashing; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
@@ -46,7 +47,7 @@ def test_sources_name_no_jax():
     paths = sorted(PKG.rglob("*.py"))
     assert {PKG / "engine" / nm for nm in (
         "fused_star.py", "fused_join.py", "eval.py", "fused_scan.py",
-        "groupby.py", "grouped_agg.py")} | {PKG / "ops" / nm for nm in (
+        "groupby.py", "grouped_agg.py", "join.py")} | {PKG / "ops" / nm for nm in (
             "agg.py", "filter.py", "ragged.py", "hashing.py")} \
         <= set(paths)
     for path in paths:
@@ -441,3 +442,62 @@ def test_general_engine_matches_numpy_on_card():
     db.execute("DELETE FROM t WHERE price > 250")
     assert db.execute("SELECT count(*) FROM t").scalar() == int((p <= 250)
                                                                 .sum())
+
+
+@pytest.mark.gpu
+def test_joins_and_set_operations_match_numpy_on_card():
+    """db-benchmark's join q2 and q3 (J1 at 2e5 rows) by their row count
+    and sums, an EXCEPT ALL and an INTERSECT, count(DISTINCT …) per group
+    (seg_cumsum_i64) and a NaN float sum (the general engine) through
+    connect() on the card, against numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch import types as T
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import h2o_j1
+
+    tables = h2o_j1(200_000, 5)
+    db = aquery2_tpu_torch.connect()
+    for name, (arrays, dicts) in tables.items():
+        db.catalog.create(Table.from_numpy(
+            name, arrays, {c: T.StrT for c in dicts}, dictionaries=dicts,
+            device="cuda"))
+    x, med = tables["x"][0], tables["medium"][0]
+    pos = {k: i for i, k in enumerate(med["id2"].tolist())}
+    hit = np.array([k in pos for k in x["id2"].tolist()])
+    v2 = np.array([med["v2"][pos[k]] for k in x["id2"][hit].tolist()])
+    for kind, rows, s2 in (("", hit.sum(), v2.sum()),
+                           ("LEFT", len(hit), v2.sum())):
+        r = db.execute(f"SELECT count(*), sum(v1), sum(v2) FROM x {kind} "
+                       f"JOIN medium USING (id2)").rows()[0]
+        assert r[0] == rows
+        np.testing.assert_allclose(r[1:], [x["v1"][hit].sum()
+                                           if not kind else x["v1"].sum(),
+                                           s2], rtol=1e-9)
+    got = db.execute("SELECT id2 FROM x EXCEPT ALL SELECT id2 FROM medium")
+    keep = np.ones(len(x["id2"]), bool)
+    for k in med["id2"].tolist():           # medium's id2 are unique
+        first = np.flatnonzero(x["id2"] == k)[:1]
+        keep[first] = False
+    np.testing.assert_array_equal(got.table["id2"].to_numpy(),
+                                  x["id2"][keep])
+    got = db.execute("SELECT id1 FROM x INTERSECT SELECT id1 FROM small")
+    _u, first = np.unique(x["id1"], return_index=True)
+    want = x["id1"][np.sort(first)]
+    np.testing.assert_array_equal(got.table["id1"].to_numpy(),
+                                  want[np.isin(want, tables["small"][0]["id1"])])
+    before = K.LAUNCHES["seg_cumsum_i64"]
+    r = db.execute("SELECT id1, count(DISTINCT id2) AS c FROM x GROUP BY id1")
+    assert K.LAUNCHES["seg_cumsum_i64"] > before
+    keys = np.unique(x["id1"])
+    np.testing.assert_array_equal(r.table["c"].to_numpy(),
+                                  [len(np.unique(x["id2"][x["id1"] == k]))
+                                   for k in keys])
+    v = np.ones(1000, np.float32)
+    v[7] = np.nan
+    db.catalog.create(Table.from_numpy(
+        "f", {"g": np.arange(1000, dtype=np.int32) % 3, "v": v},
+        device="cuda"))
+    got = db.execute("SELECT g, sum(v) AS s FROM f GROUP BY g")
+    np.testing.assert_array_equal(got.table["s"].to_numpy(),
+                                  [334.0, np.nan, 333.0])
