@@ -18,8 +18,10 @@ OR are Kleene (NULL AND false = false, NULL OR true = true); NOT NULL is
 NULL; CASE never takes a NULL condition; aggregates skip NULL arguments
 (the evaluator folds them into the argument's ``mask``).
 
-Not here: OVER windows (ROADMAP queue 1, item 7c) and UDF or module calls
-(item 7d).
+OVER windows (``_window``) sort the rows once by (validity, partition
+keys, order keys) and compute every frame with the segmented scans of
+ops/window.py. User FUNCTIONs are inlined (engine/udf.py). Not here:
+module calls (ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -29,17 +31,19 @@ import re
 from dataclasses import dataclass, replace
 from typing import Any
 
+import numpy as np
 import torch
 
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import fused_groupby as fg
+from aquery2_tpu_torch.engine import udf as udf_mod
 from aquery2_tpu_torch.ops import scan
+from aquery2_tpu_torch.ops import window as W
+from aquery2_tpu_torch.ops.reduce import big_of, small_of
 from aquery2_tpu_torch.ops.sort import lexsort
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.table import StringDict, Table
-
-WINDOWS = "ROADMAP queue 1, item 7c (OVER windows)"
 
 
 class EvalError(Exception):
@@ -55,6 +59,26 @@ class Value:
     mask: torch.Tensor | None = None   # row kind: rows an aggregate reads
     pack_cols: list | None = None      # pack(): the row tensors packed
     nulls: torch.Tensor | None = None  # True = NULL; None = no NULLs
+
+
+@dataclass
+class _Layout:
+    """A window's sorted domain: the permutation into it, and there each
+    row's validity, partition and peer-group starts, position in its
+    partition (int32) and its partition's first and last row (int64)."""
+    perm: torch.Tensor
+    valid_s: torch.Tensor
+    flags: torch.Tensor
+    peer_flags: torch.Tensor
+    pos: torch.Tensor
+    start: torch.Tensor
+    last: torch.Tensor
+
+    def unsort(self, a: torch.Tensor) -> torch.Tensor:
+        """a, in the sorted domain, back in row order (one scatter)."""
+        out = torch.empty_like(a)
+        out[self.perm] = a
+        return out
 
 
 _MATH_FNS = {
@@ -84,7 +108,9 @@ class WorkingSet:
     def __init__(self, sources: list[tuple[str | None, Table]],
                  indices: list[torch.Tensor | None], n: int, capacity: int,
                  device: torch.device,
-                 missing: list[torch.Tensor | None] | None = None) -> None:
+                 missing: list[torch.Tensor | None] | None = None,
+                 merged: list[tuple[str, int, int, bool]] | None = None
+                 ) -> None:
         self.sources = sources
         self.indices = indices
         self.n = n
@@ -94,6 +120,10 @@ class WorkingSet:
         # NULL side): every column of that source reads NULL there
         self.missing = missing if missing is not None \
             else [None] * len(sources)
+        # a NATURAL or USING join's keys, which SELECT * shows once: (name,
+        # left source, right source, coalesce); a RIGHT or FULL join's key
+        # is COALESCE(left, right)
+        self.merged = merged if merged is not None else []
         self._cache: dict[tuple[int, str], torch.Tensor] = {}
 
     @classmethod
@@ -165,24 +195,36 @@ class WorkingSet:
     def all_columns(self, qualifier: str | None = None
                     ) -> list[tuple[str, Value | tuple]]:
         """SELECT * (or ``t.*``, the sources named t): (name, Value or
-        (source index, VectorColumn)) in schema order, a repeated name (a
-        natural join's key) once."""
+        (source index, VectorColumn)) in schema order. A NATURAL or USING
+        join's key comes once, at its left column (``merged``); every
+        other repeated name stays, for output_names to suffix. A
+        qualified star shows its sources' own columns."""
         out: list[tuple[str, Any]] = []
-        seen: set[str] = set()
+        keys: dict[tuple[int, str], list[tuple[int, bool]]] = {}
+        for nm, li, ri, co in () if qualifier else self.merged:
+            keys.setdefault((li, nm), []).append((ri, co))
+        dropped = {(ri, nm) for (_li, nm), rs in keys.items() for ri, _ in rs}
         for si, (alias, tbl) in enumerate(self.sources):
             if qualifier and qualifier.lower() not in (
                     (alias or "").lower(), tbl.name.lower()):
                 continue
             for col in tbl.columns.values():
-                if col.name.lower() in seen:
+                k = (si, col.name.lower())
+                if k in dropped:
                     continue
-                seen.add(col.name.lower())
                 if col.is_vector:
                     out.append((col.name, (si, col)))
-                else:
-                    out.append((col.name, Value(
-                        "row", self.gather(si, col), col.sqltype,
-                        col.dictionary, nulls=self.gather_nulls(si, col))))
+                    continue
+                v = Value("row", self.gather(si, col), col.sqltype,
+                          col.dictionary, nulls=self.gather_nulls(si, col))
+                for ri, co in keys.get(k, ()):
+                    if co:
+                        rcol = self.sources[ri][1].columns[col.name]
+                        v = _coalesce(v, Value(
+                            "row", self.gather(ri, rcol), rcol.sqltype,
+                            rcol.dictionary,
+                            nulls=self.gather_nulls(ri, rcol)))
+                out.append((col.name, v))
         return out
 
     def permuted(self, perm: torch.Tensor, new_n: int) -> "WorkingSet":
@@ -193,7 +235,7 @@ class WorkingSet:
         miss = [None if m is None else m[perm.clamp(0, m.shape[0] - 1)]
                 for m in self.missing]
         return WorkingSet(self.sources, idxs, new_n, int(perm.shape[0]),
-                          self.device, missing=miss)
+                          self.device, missing=miss, merged=self.merged)
 
 
 class EvalContext:
@@ -203,6 +245,8 @@ class EvalContext:
         self.ws = ws
         self.session = session
         self.grouping = grouping        # rows already permuted by it
+        self.env: list[dict[str, Value]] = []   # FUNCTION locals, inner last
+        self._layouts: dict[str, _Layout] = {}  # each window's sort, by spec
         dev = ws.device
         if grouping is not None:
             self.G = grouping.num_groups
@@ -248,6 +292,9 @@ class EvalContext:
         if isinstance(e, A.Literal):
             return _literal(e)
         if isinstance(e, A.ColumnRef):
+            for frame in reversed(self.env):    # FUNCTION locals shadow
+                if e.table is None and e.name in frame:
+                    return frame[e.name]
             return self.ws.column_value(e.name, e.table)
         if isinstance(e, A.BinOp):
             return self._binop(e)
@@ -256,7 +303,7 @@ class EvalContext:
         if isinstance(e, A.Call):
             return self._call(e)
         if isinstance(e, A.WindowExpr):
-            raise NotImplementedError(f"OVER: {WINDOWS}")
+            return self._window(e)
         if isinstance(e, A.CaseWhen):
             return self._case(e)
         if isinstance(e, A.Index):
@@ -490,6 +537,9 @@ class EvalContext:
 
     def _call(self, e: A.Call) -> Value:
         name = e.func
+        udfs = getattr(self.session, "udfs", None)
+        if udfs and name in udfs:
+            return self._call_udf(udfs[name], e)
         if name == "count" and (not e.args or isinstance(e.args[0], A.Star)):
             return Value("group", self.group_lens, T.LongT)
         if name in AGG_NAMES:
@@ -591,6 +641,12 @@ class EvalContext:
         return Value("row", data, scan.result_type(base, v.sqltype),
                      v.dictionary)
 
+    def _call_udf(self, udf, e: A.Call) -> Value:
+        args = [self.eval(a) for a in e.args]
+        if udf.is_aggregation:
+            return udf_mod.run_aggregation_udf(self, udf, args)
+        return udf_mod.run_scalar_udf(self, udf, args)
+
     def _call_subvec(self, e: A.Call) -> Value:
         v = self.to_row(self.eval(e.args[0]))
         a = int(_host_scalar(self.eval(e.args[1]).data))
@@ -599,6 +655,261 @@ class EvalContext:
         if v.mask is not None:
             mask = mask & v.mask
         return Value("row", v.data, v.sqltype, v.dictionary, mask=mask)
+
+    # -- SQL window functions (OVER) ---------------------------------------
+
+    def _window_layout(self, e: A.WindowExpr) -> "_Layout":
+        """The sorted domain of e's PARTITION BY and ORDER BY, made once
+        per query for each distinct pair: one stable lexsort by
+        (validity, partition keys, order keys); partitions start where
+        the validity or a partition key changes, peer groups where an
+        order key also does. A NULL key equals every other NULL (one
+        partition, one peer group); a NULL order key sorts first
+        ascending and last descending, as ORDER BY sorts it."""
+        spec = repr((e.partition_by, e.order_by))
+        if spec in self._layouts:
+            return self._layouts[spec]
+        cap = self.ws.capacity
+        dev = self.ws.device
+        idx = torch.arange(cap, device=dev)
+        keys = [(idx >= self.ws.n, True)]
+        part_keys: list[int] = []       # positions in keys, per kind
+        order_keys: list[int] = []
+        items = [(x, True, part_keys) for x in e.partition_by] + \
+            [(o.expr, o.ascending, order_keys) for o in e.order_by]
+        for x, asc, into in items:
+            v = self._window_value(x)
+            d, bounds = self._window_key(x, v)
+            if v.nulls is not None:
+                into.append(len(keys))
+                keys.append((v.nulls, into is part_keys or not asc))
+                d = torch.where(v.nulls, torch.zeros((), dtype=d.dtype,
+                                                     device=dev), d)
+            into.append(len(keys))
+            keys.append((d, asc) if bounds is None else (d, asc, bounds))
+        perm, sk = lexsort(keys)
+
+        def edges(acc: torch.Tensor, positions) -> torch.Tensor:
+            for i in positions:
+                acc[1:] |= fg._differs(sk[i])
+            return acc
+
+        flags = torch.ones(cap, dtype=torch.bool, device=dev)
+        flags[1:] = sk[0][1:] != sk[0][:-1]
+        flags = edges(flags, part_keys)
+        peer_flags = edges(flags.clone(), order_keys)
+        pos = W.positions(flags)
+        lay = _Layout(perm, ~sk[0], flags, peer_flags, pos, idx - pos,
+                      W.last_index(flags).to(torch.int64))
+        self._layouts[spec] = lay
+        return lay
+
+    def _window_key(self, x: A.Expr, v: Value):
+        """(sort key, (lo, hi) bounds or None) of a window's key value:
+        strings by their dictionary rank, bounded by its size; an integer
+        column within its (cached) stats, so that the keys pack into
+        fewer bits and fewer sorts."""
+        if v.sqltype.is_string and v.dictionary is not None:
+            return _to_ranks(v).data, (0, max(len(v.dictionary) - 1, 0))
+        d = v.data
+        if (isinstance(x, A.ColumnRef) and not self.env
+                and not d.is_floating_point() and d.dtype != torch.bool):
+            return d, self.ws.find(x.name, x.table)[1].stats()
+        return d, None
+
+    def _window_value(self, x: A.Expr) -> Value:
+        """A window key or argument: one value per row."""
+        v = self.to_row(self.eval(x))
+        if v.kind != "row":
+            raise EvalError(f"window keys and arguments must vary by row: "
+                            f"{x}")
+        return v
+
+    def _window_arg(self, x: A.Expr, lay: "_Layout"):
+        """(Value, its data sorted, its NULL mask sorted or None) of a
+        window function's argument."""
+        v = self._window_value(x)
+        return (v, v.data[lay.perm],
+                None if v.nulls is None else v.nulls[lay.perm])
+
+    def _window(self, e: A.WindowExpr) -> Value:
+        """fn(...) OVER (PARTITION BY ... ORDER BY ... [frame]): every
+        frame computed at once in the sorted domain (_window_layout) by
+        the segmented scans of ops/window.py, the results scattered back
+        to row order."""
+        if self.grouping is not None:
+            raise EvalError(
+                "window functions over GROUP BY queries are not supported; "
+                "wrap the grouped query in a derived table")
+        fname = e.func.func
+        args = list(e.func.args)
+        if e.func.distinct:
+            raise EvalError("DISTINCT window aggregates are not supported")
+        lay = self._window_layout(e)
+        cap = self.ws.capacity
+        dev = self.ws.device
+        idx = torch.arange(cap, device=dev)
+        flags, peer_flags, pos = lay.flags, lay.peer_flags, lay.pos
+        start_i, last_i = lay.start, lay.last
+        part_len = last_i - start_i + 1
+
+        def out(data_s, sqltype, nulls_s=None, dictionary=None) -> Value:
+            return Value("row", lay.unsort(data_s), sqltype, dictionary,
+                         nulls=None if nulls_s is None
+                         else lay.unsort(nulls_s))
+
+        # ranking functions (no frame)
+        if fname in ("row_number", "rank", "dense_rank", "percent_rank",
+                     "cume_dist", "ntile"):
+            if fname == "row_number":
+                return out((pos + 1).to(torch.int64), T.LongT)
+            if fname == "dense_rank":
+                return out(scan.seg_cumsum(peer_flags.to(torch.int64), flags),
+                           T.LongT)
+            if fname == "ntile":
+                k = int(_host_scalar(self.eval(args[0]).data))
+                return out(pos.to(torch.int64) * k
+                           // torch.clamp(part_len, min=1) + 1, T.LongT)
+            if fname == "cume_dist":
+                peer_last = W.last_index(peer_flags).to(torch.int64)
+                return out((peer_last - start_i + 1).to(torch.float64)
+                           / part_len.to(torch.float64), T.DoubleT)
+            peer_first = W.first_index(peer_flags).to(torch.int64)
+            if fname == "rank":
+                return out(peer_first - start_i + 1, T.LongT)
+            rk = (peer_first - start_i).to(torch.float64)
+            denom = torch.clamp(part_len - 1, min=1).to(torch.float64)
+            return out(torch.where(part_len > 1, rk / denom, 0.0), T.DoubleT)
+
+        # lag / lead
+        if fname in ("lag", "lead"):
+            v, x_s, n_s = self._window_arg(args[0], lay)
+            off = 1
+            if len(args) >= 2:
+                off = int(_host_scalar(self.eval(args[1]).data))
+            default = self.eval(args[2]) if len(args) >= 3 else None
+            tgt = idx - off if fname == "lag" else idx + off
+            in_part = (tgt >= start_i) & (tgt <= last_i)
+            g = tgt.clamp(0, cap - 1)
+            data = torch.where(in_part, x_s[g], x_s)
+            nulls = torch.zeros(cap, dtype=torch.bool, device=dev) \
+                if n_s is None else in_part & n_s[g]
+            d = v.dictionary
+            if default is not None and default.data is not None:
+                dv = default.data
+                if v.sqltype.is_string:
+                    if not (default.sqltype.is_string and d is not None):
+                        raise EvalError("lag/lead default must match type")
+                    if d.lookup(str(dv)) < 0:   # the catalog's stays as it is
+                        d = StringDict(d.strings())
+                    dv = d.encode_one(str(dv))
+                data = torch.where(in_part, data, torch.full_like(data, dv))
+            else:
+                nulls = nulls | ~in_part
+            return out(data, v.sqltype, nulls, d)
+
+        # the frame
+        lo: int | None
+        hi: int | None
+        lo_idx = hi_idx = None
+        if e.frame is None:
+            if e.order_by:
+                # the default: RANGE UNBOUNDED PRECEDING .. CURRENT ROW
+                lo, hi = None, 0
+                hi_idx = W.last_index(peer_flags)
+            else:
+                lo = hi = None          # the whole partition
+        else:
+            frame = e.frame
+
+            def bound(b: A.FrameBound, is_start: bool):
+                if b.kind in ("unbounded_preceding", "unbounded_following"):
+                    return None, None
+                if b.kind == "current":
+                    if frame.unit == "range":
+                        return 0, (W.first_index(peer_flags) if is_start
+                                   else W.last_index(peer_flags))
+                    return 0, None
+                if frame.unit == "range":
+                    raise EvalError(
+                        "RANGE frames with numeric offsets are not "
+                        "supported; use ROWS")
+                return (b.offset if b.kind == "following" else -b.offset,
+                        None)
+            lo, lo_idx = bound(frame.start, True)
+            hi, hi_idx = bound(frame.end, False)
+            if frame.start.kind == "unbounded_following" or \
+                    frame.end.kind == "unbounded_preceding":
+                raise EvalError("invalid window frame bounds")
+        lo_i, hi_i, empty = W.frame_bounds(start_i, last_i, lo, hi, lo_idx,
+                                           hi_idx)
+
+        # first/last/nth value
+        if fname in ("first_value", "last_value", "nth_value"):
+            v, x_s, n_s = self._window_arg(args[0], lay)
+            if fname == "first_value":
+                g = lo_i
+            elif fname == "last_value":
+                g = hi_i
+            else:
+                k = int(_host_scalar(self.eval(args[1]).data))
+                g = lo_i + (k - 1)
+                empty = empty | (g > hi_i)
+                g = g.clamp(0, cap - 1)
+            nulls = empty if n_s is None else n_s[g] | empty
+            return out(x_s[g], v.sqltype, nulls, v.dictionary)
+
+        # frame aggregates
+        if fname not in ("sum", "avg", "mean", "min", "max", "count", "var",
+                         "stddev"):
+            raise EvalError(f"unsupported window function {fname}")
+        if fname == "count" and (not args or isinstance(args[0], A.Star)):
+            return out(torch.where(empty, 0, hi_i - lo_i + 1), T.LongT)
+
+        v, x_s, null_s = self._window_arg(args[0], lay)
+        if v.mask is not None:
+            m = v.mask[lay.perm]
+            null_s = ~m if null_s is None else null_s | ~m
+        ind = lay.valid_s if null_s is None else lay.valid_s & ~null_s
+
+        if fname in ("count", "min", "max"):
+            C = scan.seg_cumsum(ind.to(torch.int64), flags)
+            c = C[hi_i] - C[lo_i] + ind[lo_i].to(torch.int64)
+            if fname == "count":
+                return out(torch.where(empty, 0, c), T.LongT)
+            if lo is not None and hi is not None and not lo <= 0 <= hi:
+                raise EvalError(
+                    "bounded min/max window frames must include the "
+                    "current row")
+            op = torch.minimum if fname == "min" else torch.maximum
+            is_str = v.sqltype.is_string and v.dictionary is not None
+            xv = _to_ranks(replace(v, data=x_s, mask=None, nulls=None)).data \
+                if is_str else x_s
+            ident = big_of(xv.dtype) if fname == "min" else small_of(xv.dtype)
+            xe = torch.where(ind, xv, torch.full((), ident, dtype=xv.dtype,
+                                                 device=dev))
+            r = W.frame_extreme(xe, flags, pos, lo, hi, op, lo_i, hi_i)
+            if is_str and len(v.dictionary):
+                # a lexicographic rank back to its code
+                code_of_rank = torch.from_numpy(np.argsort(
+                    v.dictionary.ranks).astype(np.int32)).to(dev)
+                r = code_of_rank[r.clamp(0, len(v.dictionary) - 1).long()]
+            return out(r, v.sqltype, empty | (c == 0), v.dictionary)
+
+        xz = torch.where(ind, x_s, torch.zeros((), dtype=x_s.dtype,
+                                               device=dev))
+        if fname == "sum":
+            s, c = W.frame_sum_count(xz, ind, flags, lo_i, hi_i)
+            return out(s, T.long_type(v.sqltype), empty | (c == 0))
+        s, q, c = W.frame_moments(xz, ind, flags, lo_i, hi_i)
+        nulls = empty | (c == 0)
+        cs = torch.clamp(c, min=1.0)
+        if fname in ("avg", "mean"):
+            return out(s / cs, T.DoubleT, nulls)
+        varv = torch.clamp(q / cs - (s / cs) ** 2, min=0.0)
+        if fname == "var":
+            return out(varv, T.DoubleT, nulls)
+        return out(torch.sqrt(varv), T.DoubleT, nulls)
 
 
 # --- helpers --------------------------------------------------------------
@@ -666,6 +977,26 @@ def _to_ranks(v: Value) -> Value:
     ranks = _ranks(v.dictionary, v.data.device)
     return Value(v.kind, ranks[v.data.clamp(0, len(ranks) - 1).long()],
                  T.IntT, mask=v.mask, nulls=v.nulls)
+
+
+def _coalesce(a: Value, b: Value) -> Value:
+    """COALESCE(a, b) of two row Values: a where it is not NULL, else b.
+    Strings of two dictionaries come out in a new one that holds a's
+    strings, in a's codes, and then b's."""
+    if a.nulls is None:
+        return a
+    bdata, d = b.data, a.dictionary
+    if (a.sqltype.is_string and d is not None and b.dictionary is not None
+            and b.dictionary is not d):
+        d = StringDict(d.strings())
+        remap = torch.tensor([d.encode_one(s) for s in b.dictionary.strings()]
+                             or [0], dtype=torch.int32, device=bdata.device)
+        bdata = remap[bdata.clamp(0, remap.shape[0] - 1).long()]
+    t = a.sqltype if a.sqltype == b.sqltype else T.promote(a.sqltype,
+                                                           b.sqltype)
+    dt = torch.promote_types(a.data.dtype, bdata.dtype)
+    return Value("row", torch.where(a.nulls, bdata.to(dt), a.data.to(dt)), t,
+                 d, nulls=None if b.nulls is None else a.nulls & b.nulls)
 
 
 def _translate_codes(v: Value, target: StringDict) -> Value:

@@ -31,9 +31,13 @@ values, SELECT), DELETE, UPDATE, CREATE INDEX and CACHE TABLE (no-ops:
 scans are always vectorized, tables always on the device) and <sql>
 passthrough blocks.
 
+CREATE [AGGREGATION] FUNCTION registers a user function
+(engine/udf.py); accumulation-loop AGGREGATION FUNCTION calls are
+rewritten into aggregates before the tiers (engine/udf_rewrite.py).
+
 What the port does not run yet raises NotImplementedError naming its
-ROADMAP item: OVER windows (item 7c); user functions (item 7d); LOAD,
-INTO OUTFILE, modules and triggers (item 8).
+ROADMAP item: AGGREGATION FUNCTION calls the rewrite declines (item 7e);
+LOAD, INTO OUTFILE, modules and triggers (item 8).
 """
 
 from __future__ import annotations
@@ -49,9 +53,10 @@ from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
                                       fused_ordered, fused_scan, fused_star)
 from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
-from aquery2_tpu_torch.engine import grouped_agg
+from aquery2_tpu_torch.engine import grouped_agg, udf_rewrite
 from aquery2_tpu_torch.engine.eval import (EvalContext, Value, WorkingSet,
                                            _host_scalar, _translate_codes)
+from aquery2_tpu_torch.engine.udf import Udf
 from aquery2_tpu_torch.ops import filter as filter_ops
 from aquery2_tpu_torch.ops import ragged
 from aquery2_tpu_torch.ops import scan as S
@@ -64,7 +69,6 @@ from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
 from aquery2_tpu_torch.utils import base62uuid
 
 _SERVICES = "ROADMAP queue 1, item 8 (services)"
-_UDFS = "ROADMAP queue 1, item 7d (UDFs)"
 
 
 class ExecError(Exception):
@@ -108,7 +112,8 @@ class Executor:
                     last = r
             return last
         if isinstance(stmt, A.CreateFunction):
-            raise NotImplementedError(f"CREATE FUNCTION: {_UDFS}")
+            self.session.udfs[stmt.name.lower()] = Udf(stmt)
+            return None
         raise NotImplementedError(f"{type(stmt).__name__}: {_SERVICES}")
 
     def _create_table(self, stmt: A.CreateTable) -> None:
@@ -242,6 +247,12 @@ class Executor:
 
     def _select(self, sel: A.Select) -> Table:
         catalog = self.session.catalog
+        if self.session.udfs:
+            # accumulation-loop AGGREGATION FUNCTIONs become aggregate
+            # expressions first, so that every tier below runs them
+            sel2 = udf_rewrite.rewrite_select(self.session, sel)
+            if sel2 is not None:
+                sel = sel2
         sel2 = _distinct_to_groupby(sel, catalog)
         if sel2 is not None:
             sel = sel2
@@ -399,13 +410,15 @@ class Executor:
                     sub.name = src.alias
                 return WorkingSet.from_table(sub, dev, src.alias)
             left, right = build(src.left), build(src.right)
+            using = None
             if src.kind == "natural":
-                keys = _common_columns(left, right)
-                if not keys:
+                using = _common_columns(left, right)
+                if not using:
                     raise ExecError("NATURAL JOIN with no common columns")
-                pairs = [((None, k), (None, k)) for k in keys]
             elif src.using:
-                pairs = [((None, k), (None, k)) for k in src.using]
+                using = list(src.using)
+            if using:
+                pairs = [((None, k), (None, k)) for k in using]
             elif src.on is not None:
                 pairs = []
                 for c in _split_conjuncts(src.on):
@@ -419,7 +432,7 @@ class Executor:
                 raise ExecError("JOIN requires ON/USING")
             return self._join(left, right, pairs,
                               src.kind if src.kind in ("left", "right", "full")
-                              else "inner")
+                              else "inner", using)
 
         ws = build(sel.sources[0])
         for src in sel.sources[1:]:
@@ -442,10 +455,13 @@ class Executor:
                                     if not used[i]])
 
     def _join(self, left: WorkingSet, right: WorkingSet, pairs,
-              kind: str = "inner") -> WorkingSet:
+              kind: str = "inner", using: list[str] | None = None
+              ) -> WorkingSet:
         """left ⋈ right on the column pairs: one WorkingSet over both
         sides' sources, each source's row indices composed with the
-        pairs', and on an outer join's NULL side a ``missing`` mask."""
+        pairs', and on an outer join's NULL side a ``missing`` mask. The
+        keys of a NATURAL or USING join (``using``) are recorded for
+        SELECT * to show once."""
         lkeys, rkeys = [], []
         lnulls = rnulls = None
         for (lq, lname), (rq, rname) in pairs:
@@ -482,8 +498,14 @@ class Executor:
                     om = om[safe.clamp(max=om.shape[0] - 1)]
                     om = om if gone is None else om | gone
                 missing.append(gone if om is None else om)
+        nl = len(left.sources)
+        merged = left.merged + [(nm, lsi + nl, rsi + nl, co)
+                                for nm, lsi, rsi, co in right.merged]
+        for k in using or ():
+            merged.append((k.lower(), left.find(k)[0],
+                           right.find(k)[0] + nl, kind in ("right", "full")))
         return WorkingSet(sources, indices, m, int(li.shape[0]),
-                          self.session.device, missing=missing)
+                          self.session.device, missing=missing, merged=merged)
 
     def _apply_assuming(self, ws: WorkingSet, assumptions) -> WorkingSet:
         """The stable sort of ASSUMING ASC/DESC columns: strings by their
@@ -576,7 +598,7 @@ class Executor:
                                                            device=dev),
                               nrows=nrows, valid=torch.zeros(
                                   nrows, dtype=torch.bool, device=dev))
-            data = torch.as_tensor(v.data, device=dev).to(dt).reshape(1)
+            data = torch.as_tensor(v.data, dtype=dt, device=dev).reshape(1)
             valid = None
             if v.nulls is not None:
                 valid = (~torch.as_tensor(v.nulls, device=dev)).reshape(1) \

@@ -7,8 +7,8 @@
     >>> print(db.execute("SELECT a, sum(b) FROM t GROUP BY a").format())
 
 Counterpart of ``aquery2_tpu/session.py``: a catalog of tables on one
-device and statement execution. Every tensor the session makes lives on
-``session.device``.
+device, the user FUNCTIONs, and statement execution. Every tensor the
+session makes lives on ``session.device``.
 """
 
 from __future__ import annotations
@@ -19,12 +19,14 @@ from aquery2_tpu_torch.engine.executor import Executor
 from aquery2_tpu_torch.parser import parse
 from aquery2_tpu_torch.storage.catalog import Catalog
 from aquery2_tpu_torch.storage.result import Result
+from aquery2_tpu_torch.utils import CaseInsensitiveDict
 
 
 class Session:
     def __init__(self, device: torch.device | str) -> None:
         self.device = torch.device(device)
         self.catalog = Catalog()
+        self.udfs: CaseInsensitiveDict = CaseInsensitiveDict()  # FUNCTIONs
         self.executor = Executor(self)
 
     def execute(self, text: str) -> Result | None:

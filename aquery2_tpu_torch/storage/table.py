@@ -60,10 +60,15 @@ class StringDict:
         return out
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
-        arr = np.asarray(self._strings, dtype=object)
+        """Each code's string; None for a code the dictionary lacks (-1,
+        and every code of an empty dictionary, as an outer join's NULL
+        side of an empty table gives)."""
         codes = np.asarray(codes)
+        if not self._strings:
+            return np.full(codes.shape, None, dtype=object)
+        arr = np.asarray(self._strings, dtype=object)
         ok = (codes >= 0) & (codes < len(arr))
-        return np.where(ok, arr[np.clip(codes, 0, max(len(arr) - 1, 0))], None)
+        return np.where(ok, arr[np.clip(codes, 0, len(arr) - 1)], None)
 
     @property
     def ranks(self) -> np.ndarray:

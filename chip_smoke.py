@@ -68,13 +68,27 @@ Phases, in order (any mismatch raises; there is no fallback):
      q10 over a fresh G1_1e7_1e1_0_0 whose v3 holds a NaN, three +inf
      and three -inf (one id3 group both), against numpy's nan-aware sums,
      with the path that answered each;
-  7. each query launched its path's kernel: onehot_segment_sums (the
+  7. OVER windows and user FUNCTIONs, through connect(device="cuda")
+     .execute, each against numpy with its median of 3 warm runs, its
+     host syncs (read and measured) and its launches per run: on x =
+     G1_1e7_1e1_0_0 db-benchmark's SQL of q8 (row_number in a derived
+     table), sum and count(*) over id3's 1e6 partitions, a sum over the
+     default RANGE frame's peers, percent_rank, cume_dist and ntile, and
+     the AGGREGATION FUNCTION udfcov in q9's shape (rewritten into the
+     fused dense tier); on trades rank, dense_rank and row_number, lag and
+     lead, a 5-row moving avg (held to avgs(5, price)), max over +-5 rows
+     and a running min, and a scalar FUNCTION f inlined into sum(); on x
+     = G1_1e7_1e1_5_0 count and avg over +-2 rows of the 5%-NULL v3;
+  8. each query launched its path's kernel: onehot_segment_sums (the
      dense tier, qjg's group-by), seg_cumsum_i64 (packed and multikey
      sums, integer running sums, g_moving's windowed sum, set operations'
      run counts, DISTINCT counts and sums), seg_scan_multi (min/max, q8's
      positions, the float64 running sums, mins in g_best, g_best_desc
      and g_firstlast, the general engine's float sums), and best_profit
-     fused_running_stats; qj and the J1 questions launch none (no TPU
+     fused_running_stats, the windows seg_scan_multi (positions,
+     partition ends, min/max, float64 frame sums) and seg_cumsum_i64
+     (integer frame sums, counts, dense_rank), udfcov
+     onehot_segment_sums; qj and the J1 questions launch none (no TPU
      kernel computes a join), q6 and q8 on the 5%-NULL variant their
      group sums and counts by seg_cumsum_i64 and seg_scan_multi (q8 the
      first only), and the other general queries' launches are recorded;
@@ -187,7 +201,21 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "q1@nonfinite": ["onehot_segment_sums"],
                "q3@nonfinite": ["seg_cumsum_i64", "seg_scan_multi"],
                "q5@nonfinite": ["seg_cumsum_i64", "seg_scan_multi"],
-               "q10@nonfinite": ["seg_scan_multi"]}
+               "q10@nonfinite": ["seg_scan_multi"],
+               # phase 7: a window's positions and partition ends are
+               # int32 scans (seg_scan_multi), its integer sums and counts
+               # int64 ones (seg_cumsum_i64); udfcov is rewritten into
+               # the fused dense tier's sums; f's float64 group sums
+               "w_q8": ["seg_scan_multi"],
+               "w_partition": ["seg_scan_multi", "seg_cumsum_i64"],
+               "w_peers": ["seg_scan_multi", "seg_cumsum_i64"],
+               "w_dist": ["seg_scan_multi"],
+               "udf_cov": ["onehot_segment_sums"],
+               "w_rank": ["seg_scan_multi", "seg_cumsum_i64"],
+               "w_lag": ["seg_scan_multi"], "w_moving": ["seg_scan_multi"],
+               "w_extreme": ["seg_scan_multi", "seg_cumsum_i64"],
+               "udf_scalar": ["seg_scan_multi"],
+               "w_nulls": ["seg_scan_multi", "seg_cumsum_i64"]}
 # phase 4's launches over its 4 runs of each h2o query, as an H100 run
 # counted them before the fused tiers' float-sum gate existed (the gate
 # must add none over finite data)
@@ -237,6 +265,53 @@ SET_QUERIES = {
     "distinct_ungrouped": "SELECT count(DISTINCT id3) FROM x",
 }
 NONFINITE = ("q1", "q3", "q5", "q10")
+# phase 7: OVER windows and user FUNCTIONs, on x = G1_1e7_1e1_0_0, the
+# trades table and x = G1_1e7_1e1_5_0
+OVER_RANK = "OVER (PARTITION BY stocksymbol ORDER BY price DESC)"
+OVER_TIME = "OVER (PARTITION BY stocksymbol ORDER BY time"
+OVER_DIST = "OVER (PARTITION BY id1 ORDER BY v3)"
+OVER_NULLS = ("OVER (PARTITION BY id1 ORDER BY id4 ROWS BETWEEN 2 PRECEDING "
+              "AND 2 FOLLOWING)")
+WINDOW_QUERIES = {
+    # db-benchmark's own SQL of h2o q8
+    "w_q8": ("SELECT id6, largest2_v3 FROM (SELECT id6, v3 AS largest2_v3, "
+             "row_number() OVER (PARTITION BY id6 ORDER BY v3 DESC) AS "
+             "order_v3 FROM x WHERE v3 IS NOT NULL) sub_query "
+             "WHERE order_v3 <= 2"),
+    "w_partition": ("SELECT id3, sum(v1) OVER (PARTITION BY id3) AS s, "
+                    "count(*) OVER (PARTITION BY id3) AS c FROM x"),
+    "w_peers": ("SELECT id4, id6, sum(v1) OVER (PARTITION BY id4 ORDER BY "
+                "id6) AS s FROM x"),
+    "w_dist": (f"SELECT id1, v3, percent_rank() {OVER_DIST} AS pr, "
+               f"cume_dist() {OVER_DIST} AS cd, ntile(4) {OVER_DIST} AS nt "
+               f"FROM x"),
+    "udf_cov": "SELECT id2, id4, udfcov(v1, v2) FROM x GROUP BY id2, id4",
+    "w_rank": (f"SELECT stocksymbol, price, rank() {OVER_RANK} AS rk, "
+               f"dense_rank() {OVER_RANK} AS dr, row_number() {OVER_RANK} "
+               f"AS rn FROM trades"),
+    "w_lag": (f"SELECT stocksymbol, time, price - lag(price) {OVER_TIME}) "
+              f"AS d, lead(price, 2, 0) {OVER_TIME}) AS ld FROM trades"),
+    "w_moving": (f"SELECT stocksymbol, time, avg(price) {OVER_TIME} ROWS "
+                 f"BETWEEN 4 PRECEDING AND CURRENT ROW) AS a FROM trades"),
+    "w_extreme": (f"SELECT stocksymbol, time, max(price) {OVER_TIME} ROWS "
+                  f"BETWEEN 5 PRECEDING AND 5 FOLLOWING) AS mx, min(price) "
+                  f"{OVER_TIME} ROWS UNBOUNDED PRECEDING) AS mn FROM trades"),
+    "udf_scalar": ("SELECT stocksymbol, sum(f(price, quantity)) AS s FROM "
+                   "trades GROUP BY stocksymbol"),
+    "w_nulls": (f"SELECT id1, id4, v3, count(v3) {OVER_NULLS} AS c, "
+                f"avg(v3) {OVER_NULLS} AS a FROM x"),
+}
+PHASE7 = (("h2o", ("w_q8", "w_partition", "w_peers", "w_dist", "udf_cov")),
+          ("trades", ("w_rank", "w_lag", "w_moving", "w_extreme",
+                      "udf_scalar")),
+          ("nas", ("w_nulls",)))
+UDFCOV = """AGGREGATION FUNCTION udfcov(x, y){
+    sx := 0.; sy := 0.; sxy := 0.;
+    l := _builtin_len;
+    for (i := 0; i < l; i += 1) { sx += x[i]; sy += y[i]; sxy += x[i]*y[i]; }
+    (sxy - sx * sy / l) / l
+}"""
+SCALAR_UDF = "FUNCTION f(p, q) { v := p * q; w := v / 100; w - p }"
 # host syncs of one run of each phase-6 query, counted by reading the code
 # (engine/join.py, executor.py, groupby.py, fused_scan.py): a join 2
 # (candidates, pairs) + 1 per outer side; a string key's dictionary remap
@@ -253,13 +328,26 @@ SYNCS = {"j1_q1": 2, "j1_q2": 2, "j1_q3": 3, "j1_q4": 3, "j1_q5": 2,
          "set_intersect": 3, "set_except_all": 3, "set_intersect_all": 3,
          "distinct_grouped": 4, "distinct_ungrouped": 0,
          "q1@nonfinite": 1, "q3@nonfinite": 4, "q5@nonfinite": 4,
-         "q10@nonfinite": 6}
+         "q10@nonfinite": 6,
+         # phase 7: a general WHERE 1 (its kept rows; w_q8 has two); a
+         # string partition key 1 (its rank table's host-to-device copy,
+         # once per distinct PARTITION BY and ORDER BY); an integer key
+         # column's stats 1, cached after the first run; the fused dense
+         # tier 1; the general GROUP BY of a string key 4
+         "w_q8": 2, "w_partition": 0, "w_peers": 0, "w_dist": 0,
+         "udf_cov": 1, "w_rank": 1, "w_lag": 1, "w_moving": 1,
+         "w_extreme": 1, "udf_scalar": 4, "w_nulls": 0}
 GENERAL_NAS = ("q6", "q8")      # G1_1e7_1e1_5_0 through the general engine
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
 EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
 ADD_F32_RTOL = 2e-5     # float32 'add' lanes: |err| ≤ this · running Σ|x|
 RUN_SUM_TOL = 1e-5      # float32 running sums: |err| ≤ this · running Σ|x|
 ADD_F64_TOL = 1e-12     # float64 'add' lanes: |err| ≤ this · running Σ|x|
+# a float window frame's sum is a difference of prefix sums, S[hi] - S[lo]
+# + x[lo], and the float add lanes are not bit-reproducible on the card:
+# its error is bounded by this · the partition's running Σ|x| at hi, not
+# by the frame's own value
+FRAME_F64_TOL = 1e-12
 # trades: the float64 running sums of integer prices are exact in any
 # order (below 2^53), and the rest is the oracle's own sequence of
 # correctly rounded operations; 1e-12 leaves room for one more rounding
@@ -919,14 +1007,21 @@ def check_result(q: str, res, want: dict[str, np.ndarray],
             np.testing.assert_array_equal(got, w, err_msg=f"{q}.{nm}")
 
 
-def check_q8(res, data) -> None:
-    """q8: per id6, its two largest v3 in descending order, and the
-    VectorColumn's offsets (cumulative min(count, 2))."""
+def q8_oracle(data):
+    """q8's answer: the id6 values ascending, each one's row count, and
+    the two largest v3 of each, in descending order, concatenated."""
     id6, v3 = data["id6"], data["v3"]
     ids, cnt = np.unique(id6, return_counts=True)
     order = np.lexsort((-v3, id6))
     first = np.r_[0, np.cumsum(cnt)[:-1]]
     pos = np.arange(ROWS) - np.repeat(first, cnt)
+    return ids, cnt, v3[order][pos < 2]
+
+
+def check_q8(res, data) -> None:
+    """q8: per id6, its two largest v3 in descending order, and the
+    VectorColumn's offsets (cumulative min(count, 2))."""
+    ids, cnt, top2 = q8_oracle(data)
     cols = res.table.columns
     if res.column_names() != ["id6", "largest2_v3"]:
         raise AssertionError(f"q8: columns {res.column_names()}")
@@ -935,8 +1030,7 @@ def check_q8(res, data) -> None:
     np.testing.assert_array_equal(v.offsets_numpy(),
                                   np.r_[0, np.cumsum(np.minimum(cnt, 2))],
                                   err_msg="q8 offsets")
-    np.testing.assert_array_equal(v.to_numpy(), v3[order][pos < 2],
-                                  err_msg="q8 values")
+    np.testing.assert_array_equal(v.to_numpy(), top2, err_msg="q8 values")
 
 
 def timed_runs(db, sql: str, reps: int):
@@ -1746,6 +1840,248 @@ def run_slice10(dev, walls) -> dict[str, dict[str, int]]:
     return launches
 
 
+def sorted_domain(parts, orders):
+    """numpy's side of a window: the stable order by (parts, orders), most
+    significant first (ties in row order), and in that order each row's
+    partition start, peer-group start (partition or an order key
+    changes), partition's first and last row, and peer group's last
+    row."""
+    order = np.lexsort(tuple(reversed(list(parts) + list(orders))))
+    idx = np.arange(len(order))
+
+    def starts(keys):
+        f = np.zeros(len(order), bool)
+        f[0] = True
+        for k in keys:
+            ks = k[order]
+            f[1:] |= ks[1:] != ks[:-1]
+        return f
+
+    def ends(f):
+        e = np.r_[np.flatnonzero(f)[1:], len(order)] - 1
+        return e[np.cumsum(f) - 1]
+
+    ps = starts(parts)
+    qs = starts(list(parts) + list(orders))
+    start = np.maximum.accumulate(np.where(ps, idx, 0))
+    return order, ps, qs, start, ends(ps), ends(qs)
+
+
+def unsort(order, a):
+    out = np.empty_like(a)
+    out[order] = a
+    return out
+
+
+def window_oracle(tables, q: str) -> dict[str, np.ndarray]:
+    """Each phase-7 window query's answer columns in row order, a column
+    with NULLs as (values, NULL mask), from sorted_domain."""
+    if q in ("w_rank", "w_lag", "w_moving", "w_extreme"):
+        t = tables["trades"]
+        sym, tm, price = t["stocksymbol"], t["time"], t["price"]
+    else:
+        x = tables["nas" if q == "w_nulls" else "h2o"]
+    if q == "w_partition":
+        s = np.bincount(x["id3"], weights=x["v1"]).astype(np.int64)
+        c = np.bincount(x["id3"])
+        return {"s": s[x["id3"]], "c": c[x["id3"]]}
+    if q == "w_rank":
+        order, ps, qs, start, last, peer_last = sorted_domain(
+            [sym], [-price.astype(np.int64)])
+        idx = np.arange(ROWS)
+        peer_first = np.maximum.accumulate(np.where(qs, idx, 0))
+        c = np.cumsum(qs)
+        return {"rk": unsort(order, peer_first - start + 1),
+                "dr": unsort(order, c - c[start] + 1),
+                "rn": unsort(order, idx - start + 1)}
+    if q in ("w_lag", "w_moving", "w_extreme"):
+        order, ps, qs, start, last, peer_last = sorted_domain([sym], [tm])
+        p = price[order].astype(np.int64)
+        idx = np.arange(ROWS)
+        if q == "w_lag":
+            prev = np.r_[0, p[:-1]]
+            lead = np.r_[p[2:], 0, 0]
+            return {"d": (unsort(order, p - prev), unsort(order,
+                                                          idx == start)),
+                    "ld": unsort(order, np.where(idx + 2 <= last, lead, 0))}
+        if q == "w_moving":
+            _syms, _cnt, a = trades_oracle(t, "avgs")   # avgs(5, price)
+            return {"a": unsort(order, a)}
+        mx = p.copy()
+        for s in range(1, 6):
+            ahead = np.r_[p[s:], np.zeros(s, np.int64)]
+            behind = np.r_[np.zeros(s, np.int64), p[:-s]]
+            mx = np.maximum(mx, np.where(idx + s <= last, ahead, mx))
+            mx = np.maximum(mx, np.where(idx - s >= start, behind, mx))
+        part = np.cumsum(ps) - 1                   # segmented running min
+        mn = np.minimum.accumulate(p - part * 1000) + part * 1000
+        return {"mx": unsort(order, mx.astype(np.int32)),
+                "mn": unsort(order, mn.astype(np.int32))}
+    if q == "w_peers":
+        order, ps, qs, start, last, peer_last = sorted_domain(
+            [x["id4"]], [x["id6"]])
+        v = x["v1"][order].astype(np.int64)
+        c = np.cumsum(v)
+        run = c - c[start] + v[start]
+        return {"s": unsort(order, run[peer_last])}
+    if q == "w_dist":
+        order, ps, qs, start, last, peer_last = sorted_domain(
+            [x["id1"]], [x["v3"]])
+        idx = np.arange(ROWS)
+        peer_first = np.maximum.accumulate(np.where(qs, idx, 0))
+        n = last - start + 1
+        pr = np.where(n > 1, (peer_first - start).astype(np.float64)
+                      / np.maximum(n - 1, 1), 0.0)
+        cd = (peer_last - start + 1).astype(np.float64) / n
+        return {"pr": unsort(order, pr), "cd": unsort(order, cd),
+                "nt": unsort(order, (idx - start) * 4 // n + 1)}
+    if q == "w_nulls":
+        order, ps, qs, start, last, peer_last = sorted_domain(
+            [x["id1"]], [x["id4"]])
+        v3 = x["v3"]
+        ok = ~np.ma.getmaskarray(v3)[order]
+        v = np.where(ok, np.ma.getdata(v3)[order], 0).astype(np.float64)
+        idx = np.arange(ROWS)
+        cnt = np.zeros(ROWS, np.int64)
+        tot = np.zeros(ROWS)
+        for s in range(-2, 3):
+            j = np.clip(idx + s, 0, ROWS - 1)
+            inside = (idx + s >= start) & (idx + s <= last)
+            cnt += inside & ok[j]
+            tot += np.where(inside, v[j], 0.0)
+        r = np.cumsum(np.abs(v))
+        run_abs = (r - r[start] + np.abs(v)[start])[np.minimum(idx + 2,
+                                                               last)]
+        return {"c": unsort(order, cnt),
+                "a": (unsort(order, tot / np.maximum(cnt, 1)),
+                      unsort(order, cnt == 0)),
+                "a_tol": unsort(order, FRAME_F64_TOL * run_abs
+                                / np.maximum(cnt, 1))}
+    raise KeyError(q)
+
+
+def check_window(tables, q: str, res) -> None:
+    """A phase-7 window query against window_oracle: row counts, NULLs,
+    integers, ranks, counts and row picks exactly; w_moving to
+    TRADES_RTOL; w_nulls' avg within its a_tol (FRAME_F64_TOL)."""
+    if q == "w_q8":
+        ids, cnt, top2 = q8_oracle(tables["h2o"])
+        if res.column_names() != ["id6", "largest2_v3"]:
+            raise AssertionError(f"w_q8: columns {res.column_names()}")
+        id6 = res.table.columns["id6"].to_numpy()
+        v3 = res.table.columns["largest2_v3"].to_numpy()
+        order = np.lexsort((-v3, id6))          # per id6, v3 descending
+        np.testing.assert_array_equal(id6[order],
+                                      np.repeat(ids, np.minimum(cnt, 2)),
+                                      err_msg="w_q8 id6")
+        np.testing.assert_array_equal(v3[order], top2, err_msg="w_q8 v3")
+        return
+    want = window_oracle(tables, q)
+    if res.nrows != ROWS:
+        raise AssertionError(f"{q}: {res.nrows} rows")
+    for nm, w in want.items():
+        if nm.endswith("_tol"):
+            continue
+        col = res.table.columns[nm]
+        got = col.to_numpy()
+        null = (np.zeros(ROWS, bool) if col.valid is None
+                else ~col.valid[:ROWS].cpu().numpy())
+        w, wnull = w if isinstance(w, tuple) else (w, np.zeros(ROWS, bool))
+        np.testing.assert_array_equal(null, wnull, err_msg=f"{q}.{nm} NULL")
+        if q == "w_moving":
+            err = float(np.max(np.abs(got - w) / np.abs(w)))
+            if not err <= TRADES_RTOL:
+                raise AssertionError(f"{q}.{nm}: relative error {err}")
+        elif nm == "a":                             # w_nulls' avg
+            bad = ~null & (np.abs(got - w) > want["a_tol"])
+            if bad.any():
+                i = int(np.flatnonzero(bad)[0])
+                raise AssertionError(f"{q}.a: {int(bad.sum())} rows differ, "
+                                     f"first {i}: {got[i]!r} vs {w[i]!r}")
+        else:
+            np.testing.assert_array_equal(np.where(null, 0, got),
+                                          np.where(null, 0, w),
+                                          err_msg=f"{q}.{nm}")
+
+
+def udf_oracle(tables, q: str):
+    """udf_cov: per (id2, id4), key-ascending, udfcov's loop as the
+    aggregates it rewrites into, over exact int64 sums; udf_scalar: per
+    symbol, the sum of f(price, quantity) in float64."""
+    if q == "udf_cov":
+        x = tables["h2o"]
+        keys, inv, _order, _starts, cnt = _groups({"id2": x["id2"],
+                                                   "id4": x["id4"]})
+        a, b = x["v1"].astype(np.int64), x["v2"].astype(np.int64)
+        sx, sy, sxy = (np.bincount(inv, weights=z).astype(np.int64)
+                       for z in (a, b, a * b))
+        n = cnt.astype(np.int64)
+        return {"id2": keys["id2"].astype(np.int32),
+                "id4": keys["id4"].astype(np.int32),
+                "udfcov_v1_v2": (sxy - sx * sy / n) / n}, cnt, {}
+    t = tables["trades"]
+    p, qty = t["price"].astype(np.float64), t["quantity"]
+    f = (t["price"] * qty) / 100 - p
+    syms = np.unique(t["stocksymbol"])
+    return (syms, np.bincount(t["stocksymbol"], weights=f),
+            np.bincount(t["stocksymbol"], weights=np.abs(f)))
+
+
+def check_udf(tables, q: str, res) -> None:
+    if q == "udf_cov":
+        check_result(q, res, *udf_oracle(tables, q))
+        return
+    syms, want, abs_sum = udf_oracle(tables, q)
+    cols = res.table.columns
+    np.testing.assert_array_equal(cols["stocksymbol"].to_numpy(), syms,
+                                  err_msg="udf_scalar symbols")
+    got = cols["s"].to_numpy()
+    bad = np.abs(got - want) > ADD_F64_TOL * abs_sum
+    if bad.any():
+        raise AssertionError(f"udf_scalar: {int(bad.sum())} symbols differ")
+
+
+def run_slice11(dev, data, walls) -> dict[str, dict[str, int]]:
+    """Phase 7: OVER windows and user FUNCTIONs through
+    connect(device="cuda").execute at 1e7 rows, on G1_1e7_1e1_0_0 (as x),
+    trades and G1_1e7_1e1_5_0 (as x); each against numpy, with its median
+    of 3 warm runs, its host syncs (read and measured) and its launches
+    per run."""
+    launches = {}
+    trade_arrays, d = trades(ROWS, 100, 7)
+    tables = {"h2o": data, "trades": trade_arrays}
+    for name, queries in PHASE7:
+        db = connect(device=dev)
+        if name == "trades":
+            load(db, "trades", trade_arrays, dev,
+                 types={"stocksymbol": T.StrT},
+                 dictionaries={"stocksymbol": d})
+        else:
+            if name == "nas":
+                tables["nas"] = h2o_g1(ROWS, K_GROUPS, SEED, nas=5)
+            load(db, "x", tables[name], dev)
+        db.execute(UDFCOV)
+        db.execute(SCALAR_UDF)
+        for q in queries:
+            sql = WINDOW_QUERIES[q]
+            reset_launches()
+            res, ms = timed_runs(db, sql, 3)
+            total = {k: v for k, v in K.LAUNCHES.items() if v}
+            launches[q] = total
+            if q.startswith("udf"):
+                check_udf(tables, q, res)
+            else:
+                check_window(tables, q, res)
+            walls[q] = ms
+            per_run = {k: v / 4 for k, v in total.items()}
+            print(f"# {q}: {res.nrows} rows, {ms:.3f} ms (median of 3 warm "
+                  f"runs), syncs read {SYNCS[q]} measured "
+                  f"{count_syncs(db, sql)}, matches numpy, launches per run "
+                  f"{per_run}", flush=True)
+        del db
+    return launches
+
+
 def ptxas_line(r: dict) -> str:
     return (f"{r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
@@ -1841,6 +2177,11 @@ def main() -> int:
     phase(f"6. joins, set operations, DISTINCT aggregates, non-finite "
           f"sums: {len(slice10)} queries match numpy")
 
+    slice11 = run_slice11(dev, data, walls)
+    launches.update(slice11)
+    phase(f"7. OVER windows and user FUNCTIONs: {len(slice11)} queries match "
+          f"numpy")
+
     for q, per in launches.items():
         want = MAIN_KERNEL.get(q, MAIN_KERNEL.get(q.split("@")[0],
                                                   ["fused_running_stats"]))
@@ -1861,7 +2202,7 @@ def main() -> int:
     print(f"# the star build, {build:.4f} ms of device time, is "
           f"{build / walls['qjg']:.1%} of qjg's {walls['qjg']:.3f} ms wall "
           f"(qj {walls['qj']:.3f} ms)", flush=True)
-    phase("7. each query launched its path's kernels (q1-q10, qj and qjg "
+    phase("8. each query launched its path's kernels (q1-q10, qj and qjg "
           "exactly as before the float-sum gate), best_profit "
           "fused_running_stats")
 

@@ -6,7 +6,8 @@ query on one CUDA card.
 
 Loads the tables chip_smoke.py loads (h2o G1_1e7_1e1_0_0 with its dim
 table, trades, G1_1e7_1e1_5_0) and, for each of its queries (the general
-engine's of phase 5 too): one first run, the median
+engine's of phase 5 and the windows and FUNCTIONs of phase 7 too): one
+first run, the median
 wall time of three warm runs (host clock around execute plus a
 synchronize, as chip_smoke.py times them), then one profiled run. In the
 profiled run, "device ms" is the union of the intervals of the device
@@ -78,23 +79,45 @@ def main() -> int:
         args.out.mkdir(parents=True, exist_ok=True)
     dev = torch.device("cuda", 0)
     K.build()
+    profile_phases_4_5(dev, args.out)
+    profile_phase_7(dev, args.out)
+    return 0
 
+
+def profile_phase_7(dev, out: Path | None) -> None:
+    """Phase 7's windows and FUNCTIONs, on the tables it loads."""
+    arrays, d = trades(C.ROWS, 100, 7)
+    for name, queries in C.PHASE7:
+        db = connect(device=dev)
+        if name == "trades":
+            C.load(db, "trades", arrays, dev, types={"stocksymbol": T.StrT},
+                   dictionaries={"stocksymbol": d})
+        else:
+            C.load(db, "x", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED,
+                                   nas=5 if name == "nas" else 0), dev)
+        db.execute(C.UDFCOV)
+        db.execute(C.SCALAR_UDF)
+        for q in queries:
+            profile_query(db, q, C.WINDOW_QUERIES[q], out)
+
+
+def profile_phases_4_5(dev, out: Path | None) -> None:
+    """Phases 4 and 5's queries, on the tables they load."""
     db = connect(device=dev)
     C.load(db, "source", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED), dev)
     C.load(db, "dim", h2o_dim(C.ROWS, C.K_GROUPS, C.SEED), dev)
     for q, sql in C.QUERIES.items():
-        profile_query(db, q, sql, args.out)
+        profile_query(db, q, sql, out)
     arrays, d = trades(C.ROWS, 100, 7)
     db = connect(device=dev)
     C.load(db, "trades", arrays, dev, types={"stocksymbol": T.StrT},
            dictionaries={"stocksymbol": d})
     for q, sql in {**C.TRADES, **C.general_queries(arrays)}.items():
-        profile_query(db, q, sql, args.out)
+        profile_query(db, q, sql, out)
     db = connect(device=dev)
     C.load(db, "source", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED, nas=5), dev)
     for q in C.NAS_QUERIES + C.GENERAL_NAS:
-        profile_query(db, q + "@5pct_NA", C.QUERIES[q], args.out)
-    return 0
+        profile_query(db, q + "@5pct_NA", C.QUERIES[q], out)
 
 
 if __name__ == "__main__":

@@ -486,8 +486,6 @@ GENERAL_JOINS = {
     "string_keys": "SELECT x.id4, count(*) AS c FROM x JOIN small "
                    "ON x.id4 = small.id4 GROUP BY x.id4",
     "natural": "SELECT count(*) AS c FROM small NATURAL JOIN medium",
-    "star_ungrouped": "SELECT * FROM small JOIN medium USING (id1) "
-                      "ORDER BY small.v2, medium.v2",
 }
 
 
@@ -495,6 +493,99 @@ GENERAL_JOINS = {
 def test_general_joins_match_jax(name, j1):
     _tables, (js, ts) = j1
     _same_rows(js, ts, GENERAL_JOINS[name], rtol=1e-12)
+
+
+def test_star_over_using_join_matches_numpy(j1):
+    """SELECT * over a USING join: the key once, then every other column of
+    both sides, a repeated name suffixed _1. The JAX package keeps one
+    column per name and drops medium's id4 and v2 (ROADMAP queue 3), so
+    numpy holds this shape."""
+    tables, (_js, ts) = j1
+    (sa, sd), (ma, md) = tables["small"], tables["medium"]
+    r = ts.execute("SELECT * FROM small JOIN medium USING (id1) "
+                   "ORDER BY small.v2, medium.v2")
+    assert r.column_names() == ["id1", "id4", "v2", "id2", "id4_1", "id5",
+                                "v2_1"]
+    i, j = np.nonzero(sa["id1"][:, None] == ma["id1"][None, :])
+    order = np.lexsort((ma["v2"][j], sa["v2"][i]))
+    i, j = i[order], j[order]
+
+    def dec(d, codes):
+        return [d.strings()[c] for c in codes]
+    assert r.rows() == list(zip(
+        sa["id1"][i].tolist(), dec(sd["id4"], sa["id4"][i]),
+        sa["v2"][i].tolist(), ma["id2"][j].tolist(),
+        dec(md["id4"], ma["id4"][j]), dec(md["id5"], ma["id5"][j]),
+        ma["v2"][j].tolist()))
+
+
+def _fault_tables():
+    ts = aquery2_tpu_torch.connect(device="cpu")
+    ts.execute("CREATE TABLE e(a INT, c INT, s VARCHAR(10))")
+    ts.execute("CREATE TABLE t(a INT, c INT)")
+    ts.execute("INSERT INTO t VALUES (1, 2), (3, 4)")
+    ts.execute("CREATE TABLE t3(a INT, b INT, s VARCHAR(5))")
+    ts.execute("INSERT INTO t3 VALUES (1, 2, 'tx'), (3, 4, 'ty')")
+    ts.execute("CREATE TABLE u(a INT, s VARCHAR(5))")
+    ts.execute("INSERT INTO u VALUES (1, 'up'), (5, 'uq')")
+    ts.execute("CREATE TABLE v(a INT, w INT)")
+    ts.execute("INSERT INTO v VALUES (1, 10), (6, 60)")
+    ts.execute("CREATE TABLE p(a INT, z INT)")
+    ts.execute("INSERT INTO p VALUES (1, 7), (5, 8)")
+    return ts
+
+
+EMPTY_DICTIONARY = {
+    "left_join": ("SELECT t.a, e.s FROM t LEFT JOIN e ON t.a = e.a",
+                  ["a", "s"], [(1, None), (3, None)]),
+    "right_join_star": ("SELECT * FROM e RIGHT JOIN t ON t.a = e.a",
+                        ["a", "c", "s", "a_1", "c_1"],
+                        [(None, None, None, 1, 2), (None, None, None, 3, 4)]),
+    "count": ("SELECT count(e.s) AS n FROM t LEFT JOIN e ON t.a = e.a",
+              ["n"], [(0,)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(EMPTY_DICTIONARY))
+def test_null_strings_of_an_empty_dictionary_follow_sql(case):
+    """An empty table's string column read through an outer join: NULL in
+    every row (the JAX package raises IndexError, ROADMAP queue 3)."""
+    sql, names, rows = EMPTY_DICTIONARY[case]
+    r = _fault_tables().execute(sql)
+    assert (r.column_names(), r.rows()) == (names, rows)
+
+
+STAR_JOINS = {
+    "on": ("SELECT * FROM t3 JOIN u ON t3.a = u.a",
+           ["a", "b", "s", "a_1", "s_1"], [(1, 2, "tx", 1, "up")]),
+    "right_using": ("SELECT * FROM u RIGHT JOIN t3 USING (a)",
+                    ["a", "s", "b", "s_1"],
+                    [(1, "up", 2, "tx"), (3, None, 4, "ty")]),
+    "full_using": ("SELECT * FROM t3 FULL JOIN u USING (a)",
+                   ["a", "b", "s", "s_1"],
+                   [(1, 2, "tx", "up"), (3, 4, "ty", None),
+                    (5, None, None, "uq")]),
+    "full_using_strings": ("SELECT * FROM t3 FULL JOIN u USING (a, s)",
+                           ["a", "b", "s"],
+                           [(1, 2, "tx"), (3, 4, "ty"), (1, None, "up"),
+                            (5, None, "uq")]),
+    "natural": ("SELECT * FROM t3 NATURAL JOIN u", ["a", "b", "s"], []),
+    "chained_using": ("SELECT * FROM u FULL JOIN v USING (a) JOIN p "
+                      "USING (a)", ["a", "s", "w", "z"],
+                      [(1, "up", 10, 7), (5, "uq", None, 8)]),
+    "qualified": ("SELECT u.* FROM u RIGHT JOIN t3 USING (a)", ["a", "s"],
+                  [(1, "up"), (None, None)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(STAR_JOINS))
+def test_star_over_joins_follows_sql(case):
+    """SELECT * keeps every column of an ON join; a NATURAL or USING key
+    comes once, as COALESCE(left, right) under RIGHT and FULL (the JAX
+    package keeps one column per name, ROADMAP queue 3)."""
+    sql, names, rows = STAR_JOINS[case]
+    r = _fault_tables().execute(sql)
+    assert (r.column_names(), r.rows()) == (names, rows)
 
 
 def test_joins_over_null_keys_match_jax():

@@ -30,6 +30,9 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.engine.eval, "
             "aquery2_tpu_torch.engine.fused_scan, "
             "aquery2_tpu_torch.engine.join, "
+            "aquery2_tpu_torch.engine.udf, "
+            "aquery2_tpu_torch.engine.udf_rewrite, "
+            "aquery2_tpu_torch.ops.window, "
             "aquery2_tpu_torch.ops.hashing; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
@@ -47,8 +50,9 @@ def test_sources_name_no_jax():
     paths = sorted(PKG.rglob("*.py"))
     assert {PKG / "engine" / nm for nm in (
         "fused_star.py", "fused_join.py", "eval.py", "fused_scan.py",
-        "groupby.py", "grouped_agg.py", "join.py")} | {PKG / "ops" / nm for nm in (
-            "agg.py", "filter.py", "ragged.py", "hashing.py")} \
+        "groupby.py", "grouped_agg.py", "join.py", "udf.py",
+        "udf_rewrite.py")} | {PKG / "ops" / nm for nm in (
+            "agg.py", "filter.py", "ragged.py", "hashing.py", "window.py")} \
         <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -501,3 +505,80 @@ def test_joins_and_set_operations_match_numpy_on_card():
     got = db.execute("SELECT g, sum(v) AS s FROM f GROUP BY g")
     np.testing.assert_array_equal(got.table["s"].to_numpy(),
                                   [334.0, np.nan, 333.0])
+
+
+@pytest.mark.gpu
+def test_windows_and_functions_match_numpy_on_card():
+    """OVER windows and FUNCTIONs through connect() on the card at 2e5
+    trades rows against numpy: row_number and lag (seg_scan_multi),
+    dense_rank (seg_cumsum_i64), a 5-row moving avg (one three-lane
+    seg_scan_multi), max over +-2 rows, and udfcov rewritten into the
+    dense tier (onehot_segment_sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch import types as T
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import trades
+
+    n = 200_000
+    a, d = trades(n, 20, 5)
+    db = aquery2_tpu_torch.connect()
+    db.catalog.create(Table.from_numpy("t", a, {"stocksymbol": T.StrT},
+                                       device="cuda",
+                                       dictionaries={"stocksymbol": d}))
+    sym, t = a["stocksymbol"], a["time"]
+    order = np.lexsort((t, sym))
+    ps, ts = a["price"][order].astype(np.int64), t[order]
+    idx = np.arange(n)
+    part = np.r_[True, sym[order][1:] != sym[order][:-1]]
+    start = np.maximum.accumulate(np.where(part, idx, 0))
+    pos = idx - start
+    peer = part | np.r_[True, ts[1:] != ts[:-1]]
+    c = np.cumsum(peer)
+    run = np.cumsum(ps)
+    run = run - run[start] + ps[start]
+    behind = np.where(pos >= 5, run[np.maximum(idx - 5, 0)], 0)
+    last = np.r_[np.flatnonzero(part)[1:], n] - 1
+    last = last[np.cumsum(part) - 1]
+    mx = ps.copy()
+    for s in (1, 2):
+        mx = np.maximum(mx, np.where(idx + s <= last,
+                                     ps[np.minimum(idx + s, n - 1)], mx))
+        mx = np.maximum(mx, np.where(idx - s >= start, ps[idx - s], mx))
+    want = {"rn": pos + 1, "dr": c - c[start] + 1,
+            "lg": np.where(pos > 0, ps[idx - 1], 0),
+            "a": (run - behind) / np.minimum(pos + 1, 5), "mx": mx}
+    over = "OVER (PARTITION BY stocksymbol ORDER BY time"
+    before = dict(K.LAUNCHES)
+    r = db.execute(f"SELECT row_number() {over}) AS rn, dense_rank() "
+                   f"{over}) AS dr, lag(price) {over}) AS lg, avg(price) "
+                   f"{over} ROWS BETWEEN 4 PRECEDING AND CURRENT ROW) AS a, "
+                   f"max(price) {over} ROWS BETWEEN 2 PRECEDING AND 2 "
+                   f"FOLLOWING) AS mx FROM t")
+    for k in ("seg_scan_multi", "seg_cumsum_i64"):
+        assert K.LAUNCHES[k] > before[k], k
+    for nm, w in want.items():
+        got = r.table[nm].to_numpy()[order]
+        if nm == "a":
+            np.testing.assert_allclose(got, w, rtol=1e-12)
+        else:
+            if nm == "lg":
+                valid = r.table[nm].valid[:n].cpu().numpy()[order]
+                np.testing.assert_array_equal(valid, pos > 0)
+                got = np.where(valid, got, 0)
+            np.testing.assert_array_equal(got, w, err_msg=nm)
+    db.execute("AGGREGATION FUNCTION udfcov(x, y){ sx := 0.; sy := 0.; "
+               "sxy := 0.; l := _builtin_len; for (i := 0; i < l; i += 1) "
+               "{ sx += x[i]; sy += y[i]; sxy += x[i]*y[i]; } "
+               "(sxy - sx * sy / l) / l }")
+    before = K.LAUNCHES["onehot_segment_sums"]
+    r = db.execute("SELECT stocksymbol, udfcov(price, quantity) AS c FROM t "
+                   "GROUP BY stocksymbol")
+    assert K.LAUNCHES["onehot_segment_sums"] > before
+    x, y = a["price"].astype(np.int64), a["quantity"].astype(np.int64)
+    cov = []
+    for s in np.unique(sym):
+        m = sym == s
+        sx, sy, sxy, k = x[m].sum(), y[m].sum(), (x[m] * y[m]).sum(), m.sum()
+        cov.append((sxy - sx * sy / k) / k)
+    np.testing.assert_allclose(r.table["c"].to_numpy(), cov, rtol=1e-12)
