@@ -21,7 +21,7 @@ NULL; CASE never takes a NULL condition; aggregates skip NULL arguments
 OVER windows (``_window``) sort the rows once by (validity, partition
 keys, order keys) and compute every frame with the segmented scans of
 ops/window.py. User FUNCTIONs are inlined (engine/udf.py). Not here:
-module calls (ROADMAP queue 1, item 8).
+module calls (ROADMAP queue 1, item 8c).
 """
 
 from __future__ import annotations
@@ -269,6 +269,13 @@ class EvalContext:
             self.group_ends = torch.full((1,), ws.n, dtype=torch.int64,
                                          device=dev)
         self.group_lens = self.group_ends - self.group_starts
+
+    def np_offsets(self) -> np.ndarray:
+        """Group g's rows are [offsets[g], offsets[g + 1]) of the row
+        layout, on the host (the host interpreter's per-group slices)."""
+        if self.grouping is not None:
+            return self.grouping.offsets.cpu().numpy()
+        return np.asarray([0, self.ws.n], dtype=np.int64)
 
     # -- kind coercion -----------------------------------------------------
 

@@ -33,11 +33,18 @@ passthrough blocks.
 
 CREATE [AGGREGATION] FUNCTION registers a user function
 (engine/udf.py); accumulation-loop AGGREGATION FUNCTION calls are
-rewritten into aggregates before the tiers (engine/udf_rewrite.py).
+rewritten into aggregates before the tiers (engine/udf_rewrite.py); a
+grouped call over one table that the fused tiers decline takes the fused
+UDF tier (engine/udf_device.try_run_fused), and any other call runs its
+body in the general pipeline (engine/udf_device.py, through eval).
+
+LOAD [COMPLEX] DATA INFILE appends a CSV file to a table
+(storage/csvio.py); SELECT … INTO OUTFILE writes the result, on every
+route, as a CSV file without a header. Paths resolve under the session's
+``base_dir``.
 
 What the port does not run yet raises NotImplementedError naming its
-ROADMAP item: AGGREGATION FUNCTION calls the rewrite declines (item 7e);
-LOAD, INTO OUTFILE, modules and triggers (item 8).
+ROADMAP item: LOAD MODULE (item 8c) and CREATE/DROP TRIGGER (item 8b).
 """
 
 from __future__ import annotations
@@ -53,7 +60,7 @@ from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
                                       fused_ordered, fused_scan, fused_star)
 from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
-from aquery2_tpu_torch.engine import grouped_agg, udf_rewrite
+from aquery2_tpu_torch.engine import grouped_agg, udf_device, udf_rewrite
 from aquery2_tpu_torch.engine.eval import (EvalContext, Value, WorkingSet,
                                            _host_scalar, _translate_codes)
 from aquery2_tpu_torch.engine.udf import Udf
@@ -63,12 +70,14 @@ from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.reduce import big_of, small_of
 from aquery2_tpu_torch.ops.sort import sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.storage import csvio
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
                                              VectorColumn, recode)
 from aquery2_tpu_torch.utils import base62uuid
 
-_SERVICES = "ROADMAP queue 1, item 8 (services)"
+_MODULES = "ROADMAP queue 1, item 8c (modules)"
+_TRIGGERS = "ROADMAP queue 1, item 8b (triggers)"
 
 
 class ExecError(Exception):
@@ -114,7 +123,18 @@ class Executor:
         if isinstance(stmt, A.CreateFunction):
             self.session.udfs[stmt.name.lower()] = Udf(stmt)
             return None
-        raise NotImplementedError(f"{type(stmt).__name__}: {_SERVICES}")
+        if isinstance(stmt, A.Load):
+            csvio.load_csv_into(self.session.catalog.get(stmt.table),
+                                self.session.resolve_path(stmt.path),
+                                field_sep=stmt.field_sep,
+                                element_sep=stmt.element_sep,
+                                complex_cells=stmt.complex)
+            return None
+        if isinstance(stmt, A.LoadModule):
+            raise NotImplementedError(f"LOAD MODULE: {_MODULES}")
+        if isinstance(stmt, (A.CreateTrigger, A.DropTrigger)):
+            raise NotImplementedError(f"{type(stmt).__name__}: {_TRIGGERS}")
+        raise ExecError(f"cannot execute {type(stmt).__name__}")
 
     def _create_table(self, stmt: A.CreateTable) -> None:
         catalog = self.session.catalog
@@ -237,12 +257,13 @@ class Executor:
     # ------------------------------------------------------------------ #
 
     def run_select(self, sel: A.Select) -> Table:
-        if sel.into_outfile:
-            raise NotImplementedError(f"SELECT … INTO OUTFILE: {_SERVICES}")
         table = self._select(sel)
         if sel.into_table:
             table.name = sel.into_table
             self.session.catalog.create(table, replace=True)
+        if sel.into_outfile:
+            Result(table).to_csv(self.session.resolve_path(sel.into_outfile),
+                                 sep=sel.outfile_sep, header=False)
         return table
 
     def _select(self, sel: A.Select) -> Table:
@@ -268,6 +289,8 @@ class Executor:
             t = fused_groupby.run(sel, table)
             if t is None:
                 t = fused_ordered.run(sel, table)
+            if t is None:
+                t = udf_device.try_run_fused(self.session, sel, table)
             if t is not None:
                 return t
         if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):

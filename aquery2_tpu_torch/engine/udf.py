@@ -13,12 +13,15 @@ element reads x[i] and slices x(a, b).
 * A scalar FUNCTION whose arguments are all scalars, or whose body has
   if/for, runs in ``_HostEval``, a numpy interpreter, as the JAX package
   runs it on the host by design.
-* An AGGREGATION FUNCTION runs only as the aggregate expression that
-  engine/udf_rewrite.py makes of an accumulation loop, before any tier
-  sees the query. A call the rewrite declines (a vector-returning body, a
-  loop over part of the group, nullable arguments, if/else) raises
-  NotImplementedError: the JAX package traces those bodies into vmapped
-  device loops (its udf_device.py), which is ROADMAP item 7e here.
+* An AGGREGATION FUNCTION call that engine/udf_rewrite.py rewrote into
+  aggregates never reaches this module. Any other call runs its body on
+  the device, batched over the groups (engine/udf_device.py: if/elif/else
+  and for loops under per-group masks, over power-of-two length classes
+  of the padded group matrix). Only a body the device path cannot run
+  (its ``_Untraceable``: an unbound name, a NULL literal in an
+  expression, an unknown call, a loop that mutates nothing, a rank
+  change) runs in ``_HostEval`` once per group, as in the JAX package.
+  Every call notes its route in ``session.stats`` (runtime/stats.py).
 """
 
 from __future__ import annotations
@@ -30,10 +33,6 @@ import torch
 
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.parser import ast_nodes as A
-
-DEVICE_LOOPS = ("ROADMAP queue 1, item 7e (aggregation FUNCTION bodies "
-                "traced as device loops)")
-
 
 class UdfError(Exception):
     pass
@@ -59,10 +58,12 @@ def run_scalar_udf(ctx, udf: Udf, args: list):
     """A scalar FUNCTION's value: inlined into the evaluator, or through
     the host interpreter for all-scalar arguments or if/for bodies."""
     if all(v.kind == "scalar" for v in args) or _has_control_flow(udf.body):
+        _note(ctx, "scalar_host")
         np_args = [_to_host(ctx, v) for v in args]
         res = _HostEval(ctx, dict(zip(udf.params, np_args))).run(udf.body)
         return _from_host(ctx, res)
 
+    _note(ctx, "scalar_device")
     frame = dict(zip(udf.params, args))
     ctx.env.append(frame)
     try:
@@ -92,13 +93,55 @@ def run_scalar_udf(ctx, udf: Udf, args: list):
         ctx.env.pop()
 
 
+def _note(ctx, route: str) -> None:
+    if ctx.session is not None:
+        ctx.session.stats.note_udf(route)
+
+
 def run_aggregation_udf(ctx, udf: Udf, args: list):
     """An AGGREGATION FUNCTION call that engine/udf_rewrite.py did not
-    rewrite into aggregates."""
-    raise NotImplementedError(
-        f"AGGREGATION FUNCTION {udf.name}: this body or call does not "
-        f"rewrite into aggregates (a vector result, a loop over part of "
-        f"the group, nullable arguments, if/else, a join): {DEVICE_LOOPS}")
+    rewrite: the batched device body (engine/udf_device.py), or, where
+    that declines the body's shape (it returns None), the host
+    interpreter once per group. Nothing else is caught: an error of the
+    device path propagates."""
+    from aquery2_tpu_torch.engine import udf_device
+    from aquery2_tpu_torch.engine.eval import Value
+
+    dv = udf_device.try_run_aggregation_udf(ctx, udf, args)
+    if dv is not None:
+        _note(ctx, "traced")
+        return dv
+
+    _note(ctx, "interpreted")
+    offsets = ctx.np_offsets()
+    np_args = [_to_host(ctx, v) for v in args]
+    rets: list[np.ndarray] = []
+    scalars: list[Any] = []
+    returns_vector = False
+    for g in range(ctx.G):
+        lo, hi = int(offsets[g]), int(offsets[g + 1])
+        env: dict[str, Any] = {}
+        for p, a in zip(udf.params, np_args):
+            env[p] = a[lo:hi] if isinstance(a, np.ndarray) else a
+        env["_builtin_len"] = hi - lo
+        env["_builtin_ret"] = np.zeros(hi - lo, dtype=np.float64)
+        h = _HostEval(ctx, env)
+        res = h.run(udf.body)
+        if res is None or h.ret_written:
+            returns_vector = True
+            rets.append(env["_builtin_ret"])
+        else:
+            scalars.append(res)
+
+    dev = ctx.ws.device
+    if returns_vector:
+        flat = np.concatenate(rets) if rets else np.zeros(0)
+        out = np.zeros(ctx.ws.capacity, dtype=np.float64)
+        out[:len(flat)] = flat
+        return Value("row", torch.from_numpy(out).to(dev), T.DoubleT)
+    arr = np.zeros(ctx.gcap, dtype=np.float64)
+    arr[:ctx.G] = np.asarray(scalars, dtype=np.float64)
+    return Value("group", torch.from_numpy(arr).to(dev), T.DoubleT)
 
 
 def _to_host(ctx, v) -> Any:

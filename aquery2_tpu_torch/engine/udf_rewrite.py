@@ -20,7 +20,8 @@ onehot_segment_sums or seg_cumsum_i64 kernels), the general engine,
 HAVING and ungrouped aggregation run it as they run built-in aggregates.
 
 Rewrite conditions (anything else returns None, and the call reaches
-engine/udf.run_aggregation_udf, which raises naming ROADMAP item 7e):
+engine/udf.run_aggregation_udf, which runs the body on the device,
+engine/udf_device.py):
   * an AGGREGATION FUNCTION returning a scalar (no ``_builtin_ret``
     writes);
   * statements are scalar assignments, at most one accumulation FOR
@@ -338,7 +339,7 @@ def _args_rewritable(call: A.Call, tables) -> bool:
     plain non-nullable numeric column of a FROM table (a Column without
     validity, not a VectorColumn): SQL aggregates skip NULL rows while
     the loop visits every group row, so a nullable input keeps the loop's
-    semantics (ROADMAP item 7e)."""
+    semantics (engine/udf_device.py runs it)."""
     refs: set[str] = set()
     for a in call.args:
         if isinstance(a, A.Star):
@@ -435,5 +436,6 @@ def rewrite_select(session, sel) -> "A.Select | None":
             new_having = nh
     if not changed:
         return None
+    session.stats.note_udf("rewritten")
     return dataclasses.replace(sel, projections=list(new_projs),
                                having=new_having)

@@ -1,0 +1,84 @@
+"""Per-query phase timers and user-FUNCTION routes.
+
+Counterpart of ``aquery2_tpu/runtime/stats.py`` (the reference's
+``QueryStats``, prompt.py:125-161): the parse and execution time of each
+``Session.execute`` and which route each FUNCTION call took.
+
+The timers read the host's clock when a phase returns, and add no
+``torch.cuda.synchronize``: CUDA work is queued asynchronously (as JAX
+dispatches it), so ``exec`` is the time the host took to run the
+statement, which includes the device's work only where the statement
+itself waited for it (a host sync). A caller that wants the device's
+time synchronizes itself. The host syncs a query makes are counted
+elsewhere, and a timer must not add to them.
+
+UDF routes (``note_udf``), with the JAX package's names:
+  rewritten      an accumulation loop rewritten into aggregates
+                 (engine/udf_rewrite.py), so every tier runs it;
+  fused          the fused UDF tier (engine/udf_device.try_run_fused);
+  traced         the batched device body in the general pipeline
+                 (engine/udf_device.try_run_aggregation_udf);
+  interpreted    the host interpreter, once per group: bodies the device
+                 path cannot run (engine/udf.run_aggregation_udf);
+  scalar_device  a scalar FUNCTION inlined into the evaluator;
+  scalar_host    a scalar FUNCTION run by the host interpreter.
+The mesh counters of the JAX package (``dist_*``) wait for ROADMAP
+item 9, and its on/off switch (``enabled``, set only by the REPL's
+``stats on|off``) for item 8c.
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from dataclasses import dataclass, field
+
+
+@dataclass
+class QueryStats:
+    parse_time: float = 0.0
+    exec_time: float = 0.0
+    queries: int = 0
+    history: list = field(default_factory=list)   # (text[:120], seconds)
+    udf_paths: dict = field(default_factory=dict)
+
+    def note_udf(self, path: str) -> None:
+        self.udf_paths[path] = self.udf_paths.get(path, 0) + 1
+
+    @contextmanager
+    def timed(self, phase: str):
+        """Add the host time of the block to ``parse`` or else ``exec``."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            if phase == "parse":
+                self.parse_time += dt
+            else:
+                self.exec_time += dt
+
+    def record_query(self, text: str, seconds: float) -> None:
+        self.queries += 1
+        self.history.append((text[:120], seconds))
+
+    def reset(self) -> None:
+        self.parse_time = self.exec_time = 0.0
+        self.queries = 0
+        self.history.clear()
+        self.udf_paths.clear()
+
+    def format(self) -> str:
+        lines = [
+            f"Queries executed: {self.queries}",
+            f"Parse time:       {self.parse_time * 1000:.3f} ms",
+            f"Execution time:   {self.exec_time * 1000:.3f} ms",
+        ]
+        if self.udf_paths:
+            lines.append("UDF paths:        " + ", ".join(
+                f"{k}={v}" for k, v in sorted(self.udf_paths.items())))
+        if self.history:
+            lines.append("Recent:")
+            for text, dt in self.history[-10:]:
+                lines.append(f"  {dt * 1000:9.3f} ms  {text}")
+        return "\n".join(lines)

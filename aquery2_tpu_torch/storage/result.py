@@ -1,7 +1,8 @@
 """Query results: rows, formatting, scalars.
 
-Counterpart of ``aquery2_tpu/storage/result.py`` (its CSV and pandas
-exports wait for the services layer, ROADMAP queue 1, item 8).
+Counterpart of ``aquery2_tpu/storage/result.py``: rows, the text
+table, the CSV file of SELECT … INTO OUTFILE (``to_csv``) and a pandas
+DataFrame (``to_pandas``, which imports pandas only when called).
 """
 
 from __future__ import annotations
@@ -61,6 +62,26 @@ class Result:
         if limit is not None and self.table.nrows > shown:
             buf.write(f"... ({self.table.nrows - shown} more rows)\n")
         return buf.getvalue()
+
+    def to_csv(self, path: str, sep: str = ",", header: bool = True) -> None:
+        """The rows as a CSV file (INTO OUTFILE writes no header). A
+        vector cell is its elements joined by ';', as the reference
+        prints it; a NULL is an empty cell."""
+        with open(path, "w") as f:
+            if header:
+                f.write(sep.join(self.column_names()) + "\n")
+            for row in self.rows():
+                f.write(sep.join(";".join(_fmt_value(x) for x in v)
+                                 if isinstance(v, (list, tuple))
+                                 else _fmt_value(v) for v in row) + "\n")
+
+    def to_pandas(self):
+        """The rows as a pandas DataFrame (pandas is imported here: the
+        port does not need it otherwise)."""
+        import pandas as pd
+
+        return pd.DataFrame({c.name: c.to_python()
+                             for c in self.table.columns.values()})
 
     def to_dict(self) -> dict[str, list]:
         """Each column's display values, by name."""

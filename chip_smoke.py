@@ -79,7 +79,27 @@ Phases, in order (any mismatch raises; there is no fallback):
      lead, a 5-row moving avg (held to avgs(5, price)), max over +-5 rows
      and a running min, and a scalar FUNCTION f inlined into sum(); on x
      = G1_1e7_1e1_5_0 count and avg over +-2 rows of the 5%-NULL v3;
-  8. each query launched its path's kernel: onehot_segment_sums (the
+  8. AGGREGATION FUNCTION bodies that the accumulation-loop rewrite
+     declines, through connect(device="cuda").execute, each against a
+     numpy oracle that runs the body's loop one position at a time over
+     all groups at once, with its median of 3 warm runs, its host syncs
+     (read from the code, udf_syncs, and measured), its route in
+     session.stats.udf_paths (never "interpreted") and its launches: on
+     x = G1_1e7_1e1_0_0 covariances2 (tests/test_udf_device.py) per id3,
+     1e6 groups (a vector result, if and for, x[i - w], slices; the
+     general pipeline), clipsum (an if inside a for) per id3 and per
+     (id4, id6) under WHERE v1 > 2 (the fused UDF tier; each also
+     through the general pipeline, in 10 pairs of warm runs against the
+     fused tier); on trades ewma
+     per symbol (100 series of about 1e5 rows: a loop of about 1e5 host
+     driven passes); then io_trades: the trades table written as CSV
+     with a header under a temporary directory, LOAD DATA INFILE into a
+     new table (every column equal to the generated arrays, the load's
+     seconds and rows per second), ewma on it equal to the run on the
+     generated table, and a grouped sum INTO OUTFILE read back with
+     numpy; io_h2o_na: G1_1e7_1e1_5_0 written as CSV with its NULLs as
+     empty cells and LOADed, every column's values and NULLs equal;
+  9. each query launched its path's kernel: onehot_segment_sums (the
      dense tier, qjg's group-by), seg_cumsum_i64 (packed and multikey
      sums, integer running sums, g_moving's windowed sum, set operations'
      run counts, DISTINCT counts and sums), seg_scan_multi (min/max, q8's
@@ -88,7 +108,9 @@ Phases, in order (any mismatch raises; there is no fallback):
      fused_running_stats, the windows seg_scan_multi (positions,
      partition ends, min/max, float64 frame sums) and seg_cumsum_i64
      (integer frame sums, counts, dense_rank), udfcov
-     onehot_segment_sums; qj and the J1 questions launch none (no TPU
+     onehot_segment_sums, io_trades' INTO OUTFILE query
+     onehot_segment_sums (the dense tier); qj, the J1 questions and the
+     batched FUNCTION bodies launch none (no TPU
      kernel computes a join), q6 and q8 on the 5%-NULL variant their
      group sums and counts by seg_cumsum_i64 and seg_scan_multi (q8 the
      first only), and the other general queries' launches are recorded;
@@ -106,6 +128,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -118,6 +141,7 @@ from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import executor as E
 from aquery2_tpu_torch.engine import fused_groupby, fused_join, fused_star
 from aquery2_tpu_torch.engine import join as J
+from aquery2_tpu_torch.engine import udf_device
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import ragged
 from aquery2_tpu_torch.ops import scan as S
@@ -215,7 +239,13 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "w_lag": ["seg_scan_multi"], "w_moving": ["seg_scan_multi"],
                "w_extreme": ["seg_scan_multi", "seg_cumsum_i64"],
                "udf_scalar": ["seg_scan_multi"],
-               "w_nulls": ["seg_scan_multi", "seg_cumsum_i64"]}
+               "w_nulls": ["seg_scan_multi", "seg_cumsum_i64"],
+               # phase 8: a batched FUNCTION body is torch ops (its
+               # grouping too: the general dense grouping, the fused UDF
+               # tier's sort); io_trades' INTO OUTFILE query is the fused
+               # dense tier
+               "u_cov2": [], "u_clip": [], "u_clip_where": [], "u_ewma": [],
+               "io_trades": ["onehot_segment_sums"]}
 # phase 4's launches over its 4 runs of each h2o query, as an H100 run
 # counted them before the fused tiers' float-sum gate existed (the gate
 # must add none over finite data)
@@ -337,6 +367,42 @@ SYNCS = {"j1_q1": 2, "j1_q2": 2, "j1_q3": 3, "j1_q4": 3, "j1_q5": 2,
          "w_q8": 2, "w_partition": 0, "w_peers": 0, "w_dist": 0,
          "udf_cov": 1, "w_rank": 1, "w_lag": 1, "w_moving": 1,
          "w_extreme": 1, "udf_scalar": 4, "w_nulls": 0}
+# phase 8: AGGREGATION FUNCTION bodies the rewrite declines, on x =
+# G1_1e7_1e1_0_0 and the trades table, and CSV in and out
+COVARIANCES2 = """AGGREGATION FUNCTION covariances2(x, y, win){
+    xmeans := 0.; ymeans := 0.; l := _builtin_len;
+    if (l > 0) { xmeans := x[0]; ymeans := y[0]; _builtin_ret[0] := 0.; }
+    w := win;
+    if (w > l) w := l;
+    for (i := 1, j:= 0; i < w; i := i+1) {
+        xmeans += x[i]; ymeans += y[i];
+        _builtin_ret[i] := avg (( x(0, i) - xmeans/i ) * (y(0, i) - ymeans/i ));
+    }
+    xmeans /= w; ymeans /= w;
+    for (i := w; i < l; i += 1) {
+        xmeans += (x[i] - x[i - w]) / w; ymeans += (y[i] - y[i - w]) / w;
+        _builtin_ret[i] := avg (( x(i-w, i) - xmeans ) * (y(i - w, i) - ymeans ));
+    }
+    Null
+}"""
+CLIPSUM = """AGGREGATION FUNCTION clipsum(x, c){ s := 0.; l := _builtin_len;
+    for (i := 0; i < l; i += 1) { if (x[i] > c) { s += c; }
+    else { s += x[i]; } } s }"""
+EWMA = """AGGREGATION FUNCTION ewma(x, a){ m := x[0]; l := _builtin_len;
+    for (i := 0; i < l; i += 1) { m := a * x[i] + (1 - a) * m;
+    _builtin_ret[i] := m; } Null }"""
+UDF_QUERIES = {
+    "u_cov2": "SELECT id3, covariances2(v1, v3, 4) FROM x GROUP BY id3",
+    "u_clip": "SELECT id3, clipsum(v3, 50) AS s FROM x GROUP BY id3",
+    "u_clip_where": ("SELECT id4, id6, clipsum(v3, 50) AS s FROM x WHERE "
+                     "v1 > 2 GROUP BY id4, id6"),
+    "u_ewma": ("SELECT stocksymbol, ewma(price, 0.1) FROM trades GROUP BY "
+               "stocksymbol"),
+}
+UDF_ROUTE = {"u_cov2": "traced", "u_clip": "fused", "u_clip_where": "fused",
+             "u_ewma": "traced"}
+COV2_RTOL, COV2_ATOL = 1e-9, 1e-12     # tests/test_udf_device.py's
+CLIP_RTOL = EWMA_RTOL = 1e-12
 GENERAL_NAS = ("q6", "q8")      # G1_1e7_1e1_5_0 through the general engine
 FLOAT_RTOL = 1e-9       # float sums/averages vs the float64 numpy oracle
 EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
@@ -358,9 +424,14 @@ SLEEP_CYCLES = 2_000_000    # about 1 ms of the card's clock: longer than
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
+    """Print that a phase passed, with the seconds since the script
+    started."""
     torch.cuda.synchronize()
-    print(f"# {name}", flush=True)
+    print(f"# {name} ({time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, reps: int = 10, host_gaps: bool = False) -> float:
@@ -2082,6 +2153,408 @@ def run_slice11(dev, data, walls) -> dict[str, dict[str, int]]:
     return launches
 
 
+def group_matrix(keys: np.ndarray, vals: np.ndarray):
+    """Key-ascending groups of vals, rows in insertion order: (unique keys,
+    counts, the [G, Lmax] float64 matrix of each group's rows, zeros
+    past each group's end)."""
+    order = np.argsort(keys, kind="stable")
+    uk, starts, cnt = np.unique(keys[order], return_index=True,
+                                return_counts=True)
+    gid = np.repeat(np.arange(len(uk)), cnt)
+    pos = np.arange(len(keys)) - np.repeat(starts, cnt)
+    mat = np.zeros((len(uk), int(cnt.max())))
+    mat[gid, pos] = vals[order]
+    return uk, cnt, mat
+
+
+def cov2_oracle(x: np.ndarray, y: np.ndarray, cnt: np.ndarray, win: int):
+    """covariances2's two loops, one position at a time over every group
+    at once (the body's own sequence of float64 operations); the [G,
+    Lmax] _builtin_ret."""
+    g, lmax = x.shape
+    rows = np.arange(g)
+    ln = cnt.astype(np.float64)
+    ret = np.zeros((g, lmax))
+    xm, ym = x[:, 0].copy(), y[:, 0].copy()          # every group has a row
+    w = np.where(win > ln, ln, float(win))
+    for i in range(1, win):
+        act = i < w
+        xm = np.where(act, xm + x[:, i], xm)
+        ym = np.where(act, ym + y[:, i], ym)
+        d = (x[:, :i] - (xm / i)[:, None]) * (y[:, :i] - (ym / i)[:, None])
+        ret[:, i] = np.where(act, d.sum(1) / i, ret[:, i])
+    xm, ym = xm / w, ym / w
+    for i in range(1, lmax):
+        act = (i >= w) & (i < ln)
+        if not act.any():
+            continue
+        if not (w[act] == win).all():
+            raise AssertionError("cov2 oracle: a second-loop group has w < win")
+        back = np.clip(i - w.astype(np.int64), 0, lmax - 1)
+        xm = np.where(act, xm + (x[:, i] - x[rows, back]) / w, xm)
+        ym = np.where(act, ym + (y[:, i] - y[rows, back]) / w, ym)
+        lo = max(i - win, 0)
+        d = (x[:, lo:i] - xm[:, None]) * (y[:, lo:i] - ym[:, None])
+        ret[:, i] = np.where(act, d.sum(1) / win, ret[:, i])
+    return ret
+
+
+def ewma_oracle(x: np.ndarray, cnt: np.ndarray, a: float):
+    """ewma's loop, one position at a time over every group at once."""
+    m = x[:, 0].copy()
+    b = 1 - a
+    ret = np.zeros_like(x)
+    for i in range(x.shape[1]):
+        m = np.where(i < cnt, a * x[:, i] + b * m, m)
+        ret[:, i] = m
+    return ret
+
+
+def flat_rows(mat: np.ndarray, cnt: np.ndarray) -> np.ndarray:
+    """Each group's first cnt values, group after group."""
+    return mat[np.arange(mat.shape[1]) < cnt[:, None]]
+
+
+def loop_syncs(passes: int) -> int:
+    """The host checks of a device loop of ``passes`` passes
+    (engine/udf_device._Tracer._for): after condition 1, 2, 4, 8, 16, 32
+    and then every 32nd, up to the first at or past condition passes + 1,
+    where no group is active."""
+    check, k = 1, 1
+    while check < passes + 1:
+        check += min(check, 32)
+        k += 1
+    return k
+
+
+def class_max(cnt: np.ndarray) -> list[int]:
+    """The longest group of each power-of-two length class present."""
+    cls = np.frexp(np.maximum(cnt - 1, 0).astype(np.float64))[1]
+    return [int(cnt[cls == c].max()) for c in np.unique(cls)]
+
+
+def udf_syncs(q: str, cnt: np.ndarray) -> int:
+    """Host syncs of one warm run, read from the code: the general GROUP
+    BY of one key column 4 (the key's stats, executor._KeyCol, 1; the
+    dense grouping's torch.bincount 2 and group count 1), the length
+    classes 1 (the fused tier: its one preamble sync, the group count
+    and the classes together), then each class's loops (loop_syncs of
+    the class's longest group): covariances2 min(4, l) - 1 and l - 4
+    passes, clipsum and ewma l."""
+    loops = 0
+    for mx in class_max(cnt):
+        if q == "u_cov2":
+            loops += loop_syncs(min(4, mx) - 1) + loop_syncs(max(mx - 4, 0))
+        else:
+            loops += loop_syncs(mx)
+    head = {"u_cov2": 4, "u_ewma": 4}.get(q, 0)
+    return head + 1 + loops
+
+
+def udf_oracle12(tables, q: str):
+    """(keys, counts, expected values: per group for a scalar body, flat
+    row values for a vector one) of a phase-8 query."""
+    if q == "u_ewma":
+        t = tables["trades"]
+        uk, cnt, mat = group_matrix(t["stocksymbol"], t["price"])
+        return uk, cnt, flat_rows(ewma_oracle(mat, cnt, 0.1), cnt)
+    x = tables["h2o"]
+    if q == "u_cov2":
+        uk, cnt, xm = group_matrix(x["id3"], x["v1"])
+        _uk, _cnt, ym = group_matrix(x["id3"], x["v3"])
+        return uk, cnt, flat_rows(cov2_oracle(xm, ym, cnt, 4), cnt)
+    keep = np.ones(len(x["v3"]), bool) if q == "u_clip" else x["v1"] > 2
+    if q == "u_clip":
+        key = x["id3"].astype(np.int64)
+    else:
+        key = x["id4"].astype(np.int64) << 20 | x["id6"]
+    uk, inv = np.unique(key[keep], return_inverse=True)
+    cnt = np.bincount(inv)
+    s = np.bincount(inv, weights=np.minimum(x["v3"][keep], 50.0))
+    if q == "u_clip_where":
+        uk = (uk >> 20, uk & ((1 << 20) - 1))
+    return uk, cnt, s
+
+
+def check_udf12(q: str, res, want) -> None:
+    uk, cnt, vals = want
+    cols = list(res.table.columns.values())
+    if q == "u_clip_where":
+        np.testing.assert_array_equal(cols[0].to_numpy(), uk[0],
+                                      err_msg=f"{q} id4")
+        np.testing.assert_array_equal(cols[1].to_numpy(), uk[1],
+                                      err_msg=f"{q} id6")
+    else:
+        np.testing.assert_array_equal(cols[0].to_numpy(), uk,
+                                      err_msg=f"{q} keys")
+    got = cols[-1]
+    if q in ("u_cov2", "u_ewma"):
+        np.testing.assert_array_equal(got.offsets_numpy(),
+                                      np.r_[0, np.cumsum(cnt)],
+                                      err_msg=f"{q} offsets")
+    g = got.to_numpy()
+    if g.dtype != np.float64 or g.shape != vals.shape:
+        raise AssertionError(f"{q}: {g.dtype} {g.shape} vs {vals.shape}")
+    rtol, atol = ((COV2_RTOL, COV2_ATOL) if q == "u_cov2"
+                  else (CLIP_RTOL, 0.0))
+    bad = ~(np.abs(g - vals) <= atol + rtol * np.abs(vals))
+    if bad.any():
+        i = int(np.flatnonzero(bad)[0])
+        raise AssertionError(f"{q}: {int(bad.sum())} values differ, first "
+                             f"{i}: {g[i]!r} vs {vals[i]!r}")
+
+
+def write_trades_csv(path: Path, arrays, d) -> None:
+    """The trades table as CSV with a header, in column order."""
+    names = list(arrays)
+    syms = np.asarray(d.strings(), dtype=object)[arrays["stocksymbol"]]
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        for lo in range(0, len(syms), 1_000_000):
+            cols = [syms[lo:lo + 1_000_000].tolist()] + [
+                arrays[nm][lo:lo + 1_000_000].tolist() for nm in names[1:]]
+            f.write("".join(f"{a},{b},{c},{e}\n" for a, b, c, e in zip(*cols)))
+
+
+def ewma_by_symbol(res) -> dict[str, np.ndarray]:
+    cols = list(res.table.columns.values())
+    offs, vals = cols[1].offsets_numpy(), cols[1].to_numpy()
+    return {s: vals[offs[i]:offs[i + 1]]
+            for i, s in enumerate(cols[0].to_python())}
+
+
+def run_io(dev, arrays, d, ewma_res, tmp: Path) -> dict[str, int]:
+    """io_trades: the trades table written as CSV (a header, four
+    columns) and LOADed into a new table, every column equal to the
+    generated arrays; ewma on it equal to the run on the generated table;
+    a grouped sum written INTO OUTFILE and read back with numpy. Returns
+    the launches after the load."""
+    n = len(arrays["price"])
+    path = tmp / "trades.csv"
+    t0 = time.perf_counter()
+    write_trades_csv(path, arrays, d)
+    wrote = time.perf_counter() - t0
+    db = connect(device=dev, base_dir=str(tmp))
+    db.execute("CREATE TABLE trades_csv(stocksymbol VARCHAR(8), time INT, "
+               "quantity INT, price INT)")
+    db.execute(EWMA)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.execute('LOAD DATA INFILE "trades.csv" INTO TABLE trades_csv '
+               'FIELDS TERMINATED BY ","')
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tbl = db.catalog.get("trades_csv")
+    if tbl.nrows != n:
+        raise AssertionError(f"io_trades: {tbl.nrows} rows loaded of {n}")
+    sym = tbl.columns["stocksymbol"]
+    names = np.asarray(sym.dictionary.strings(), dtype=object)[sym.to_numpy()]
+    want = np.asarray(d.strings(), dtype=object)[arrays["stocksymbol"]]
+    if not (names == want).all():
+        raise AssertionError("io_trades: stocksymbol differs")
+    for nm in ("time", "quantity", "price"):
+        np.testing.assert_array_equal(tbl.columns[nm].to_numpy(), arrays[nm],
+                                      err_msg=f"io_trades {nm}")
+    print(f"# io_trades: wrote {n} rows ({path.stat().st_size} bytes) in "
+          f"{wrote:.2f} s; LOAD DATA INFILE {load_s:.3f} s, "
+          f"{n / load_s:.0f} rows/s; every column equals the generated "
+          f"arrays", flush=True)
+    reset_launches()
+    got = ewma_by_symbol(db.execute(UDF_QUERIES["u_ewma"].replace(
+        "FROM trades", "FROM trades_csv")))
+    base = ewma_by_symbol(ewma_res)
+    if sorted(got) != sorted(base):
+        raise AssertionError("io_trades: ewma symbols differ")
+    for s_, v in base.items():
+        np.testing.assert_allclose(got[s_], v, rtol=EWMA_RTOL, atol=0,
+                                   err_msg=f"io_trades ewma {s_}")
+    db.execute("SELECT stocksymbol, sum(quantity) FROM trades_csv GROUP BY "
+               "stocksymbol INTO OUTFILE \"sums.csv\" FIELDS TERMINATED BY "
+               "\",\"")
+    launches = {k: v for k, v in K.LAUNCHES.items() if v}
+    back = np.loadtxt(tmp / "sums.csv", delimiter=",", comments=None,
+                      dtype=[("s", object), ("q", np.int64)], ndmin=1)
+    qty = np.bincount(arrays["stocksymbol"], weights=arrays["quantity"])
+    want = {s_: int(qty[i]) for i, s_ in enumerate(d.strings())}
+    if {str(s_): int(q) for s_, q in back} != want or len(back) != len(want):
+        raise AssertionError("io_trades: INTO OUTFILE differs")
+    if db.stats.udf_paths != {"traced": 1}:
+        raise AssertionError(f"io_trades routes {db.stats.udf_paths}")
+    print(f"# io_trades: ewma on the loaded table equals the generated "
+          f"table's; INTO OUTFILE read back with numpy equals the sums; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
+def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
+    """Phase 8: AGGREGATION FUNCTION bodies the rewrite declines through
+    connect(device="cuda").execute, on x = G1_1e7_1e1_0_0 and trades (1e7
+    rows, 100 symbols), each against a numpy oracle that runs the body's
+    loop one position at a time over all groups at once, with its median
+    of 3 warm runs, its host syncs (read: udf_syncs; measured), its route
+    (session.stats.udf_paths, never interpreted) and its launches; then
+    io_trades (CSV LOAD, INTO OUTFILE)."""
+    launches = {}
+    trade_arrays, d = trades(ROWS, 100, 7)
+    tables = {"h2o": data, "trades": trade_arrays}
+    ewma_res = None
+    for name, queries in (("h2o", ("u_cov2", "u_clip", "u_clip_where")),
+                          ("trades", ("u_ewma",))):
+        db = connect(device=dev)
+        if name == "trades":
+            load(db, "trades", trade_arrays, dev,
+                 types={"stocksymbol": T.StrT},
+                 dictionaries={"stocksymbol": d})
+        else:
+            load(db, "x", data, dev)
+        for body in (COVARIANCES2, CLIPSUM, EWMA):
+            db.execute(body)
+        for q in queries:
+            sql = UDF_QUERIES[q]
+            want = udf_oracle12(tables, q)
+            reset_launches()
+            db.stats.reset()
+            res, ms = timed_runs(db, sql, 3)
+            total = {k: v for k, v in K.LAUNCHES.items() if v}
+            launches[q] = total
+            paths = dict(db.stats.udf_paths)
+            if paths != {UDF_ROUTE[q]: 4}:
+                raise AssertionError(f"{q}: routes {paths}, want "
+                                     f"{UDF_ROUTE[q]} only")
+            check_udf12(q, res, want)
+            walls[q] = ms
+            if q == "u_ewma":
+                ewma_res = res
+            per_run = {k: v / 4 for k, v in total.items()}
+            print(f"# {q}: {res.nrows} groups, {ms:.3f} ms (median of 3 "
+                  f"warm runs), route {UDF_ROUTE[q]}, syncs read "
+                  f"{udf_syncs(q, want[1])} measured {count_syncs(db, sql)}, "
+                  f"matches numpy, launches per run {per_run}", flush=True)
+            if UDF_ROUTE[q] == "fused":
+                walls[q + " general"] = general_route(db, q, sql, want)
+        del db
+    with tempfile.TemporaryDirectory() as tmp:
+        launches["io_trades"] = run_io(dev, trade_arrays, d, ewma_res,
+                                       Path(tmp))
+        walls["io_h2o_na"] = run_io_nulls(dev, Path(tmp))
+    return launches
+
+
+def general_route(db, q: str, sql: str, want) -> float:
+    """A fused-tier query against the general pipeline's traced route,
+    which answers it when try_run_fused declines: the same answer, its
+    syncs, and 10 pairs of warm runs, alternating which route runs
+    first. Returns the general route's median ms."""
+    fused = udf_device.try_run_fused
+
+    def declined(*a):
+        return None
+
+    def run(general: bool) -> float:
+        udf_device.try_run_fused = declined if general else fused
+        try:
+            t1 = time.perf_counter()
+            db.execute(sql)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t1) * 1e3
+        finally:
+            udf_device.try_run_fused = fused
+
+    udf_device.try_run_fused = declined
+    try:
+        db.stats.reset()
+        res = db.execute(sql)
+        if db.stats.udf_paths != {"traced": 1}:
+            raise AssertionError(f"{q} general: routes {db.stats.udf_paths}")
+        check_udf12(q, res, want)
+        syncs = count_syncs(db, sql)
+    finally:
+        udf_device.try_run_fused = fused
+    db.stats.reset()
+    pairs = []
+    for i in range(10):
+        general_first = bool(i % 2)
+        a = run(general_first)
+        b = run(not general_first)
+        pairs.append((b, a) if general_first else (a, b))  # (fused, general)
+    if db.stats.udf_paths != {"fused": 10, "traced": 10}:
+        raise AssertionError(f"{q} pairs: routes {db.stats.udf_paths}")
+    f_ms = float(np.median([p[0] for p in pairs]))
+    g_ms = float(np.median([p[1] for p in pairs]))
+    wins = sum(g < f for f, g in pairs)
+    print(f"# {q} through the general pipeline (try_run_fused declining): "
+          f"matches numpy, syncs measured {syncs}; 10 alternating pairs of "
+          f"warm runs: fused median {f_ms:.3f} ms (runs "
+          f"{', '.join(f'{p[0]:.3f}' for p in pairs)}), general median "
+          f"{g_ms:.3f} ms (runs {', '.join(f'{p[1]:.3f}' for p in pairs)}), "
+          f"general faster in {wins} of 10", flush=True)
+    return g_ms
+
+
+H2O_NA_CSV = ("CREATE TABLE x_csv(id1 INT, id2 INT, id3 INT, id4 INT, "
+              "id5 INT, id6 INT, v1 INT, v2 INT, v3 DOUBLE)")
+
+
+def write_nulls_csv(path: Path, data) -> None:
+    """G1_1e7_1e1_5_0 as db-benchmark's CSV holds it: a header, a NULL
+    as an empty cell; v3 written as the shortest float64 text of its
+    float32 value, so that it reads back exactly."""
+    names = list(data)
+    with open(path, "w") as f:
+        f.write(",".join(names) + "\n")
+        for lo in range(0, len(data["v3"]), 1_000_000):
+            cols = []
+            for nm in names:
+                a = data[nm][lo:lo + 1_000_000]
+                strs = np.ma.getdata(a).astype(
+                    np.float64 if nm == "v3" else np.int64).astype(str)
+                strs[np.ma.getmaskarray(a)] = ""
+                cols.append(strs.tolist())
+            f.write("".join(",".join(r) + "\n" for r in zip(*cols)))
+
+
+def run_io_nulls(dev, tmp: Path) -> float:
+    """io_h2o_na: G1_1e7_1e1_5_0 written as CSV with its NULLs as empty
+    cells and LOADed (np.loadtxt reading the numeric columns as strings):
+    every column's values and NULLs equal the generated ones. Returns
+    the load's seconds."""
+    data = h2o_g1(ROWS, K_GROUPS, SEED, nas=5)
+    n = len(data["v3"])
+    path = tmp / "g1_na.csv"
+    t0 = time.perf_counter()
+    write_nulls_csv(path, data)
+    wrote = time.perf_counter() - t0
+    db = connect(device=dev, base_dir=str(tmp))
+    db.execute(H2O_NA_CSV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    db.execute('LOAD DATA INFILE "g1_na.csv" INTO TABLE x_csv '
+               'FIELDS TERMINATED BY ","')
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    tbl = db.catalog.get("x_csv")
+    if tbl.nrows != n:
+        raise AssertionError(f"io_h2o_na: {tbl.nrows} rows loaded of {n}")
+    nulls = 0
+    for nm, a in data.items():
+        col = tbl.columns[nm]
+        null = np.ma.getmaskarray(a)
+        valid = (np.ones(n, bool) if col.valid is None
+                 else col.valid[:n].cpu().numpy())
+        np.testing.assert_array_equal(valid, ~null,
+                                      err_msg=f"io_h2o_na {nm} NULLs")
+        want = np.ma.getdata(a).astype(col.to_numpy().dtype)
+        np.testing.assert_array_equal(col.to_numpy()[~null], want[~null],
+                                      err_msg=f"io_h2o_na {nm}")
+        nulls += int(null.sum())
+    print(f"# io_h2o_na: wrote {n} rows ({path.stat().st_size} bytes, "
+          f"{nulls} empty cells) in {wrote:.2f} s; LOAD DATA INFILE "
+          f"{load_s:.3f} s, {n / load_s:.0f} rows/s; every column's values "
+          f"and NULLs equal the generated arrays", flush=True)
+    path.unlink()
+    return load_s * 1e3
+
+
 def ptxas_line(r: dict) -> str:
     return (f"{r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
@@ -2182,6 +2655,11 @@ def main() -> int:
     phase(f"7. OVER windows and user FUNCTIONs: {len(slice11)} queries match "
           f"numpy")
 
+    slice12 = run_slice12(dev, data, walls)
+    launches.update(slice12)
+    phase(f"8. AGGREGATION FUNCTION bodies on the device and CSV in and "
+          f"out: {len(slice12)} queries match numpy")
+
     for q, per in launches.items():
         want = MAIN_KERNEL.get(q, MAIN_KERNEL.get(q.split("@")[0],
                                                   ["fused_running_stats"]))
@@ -2202,7 +2680,7 @@ def main() -> int:
     print(f"# the star build, {build:.4f} ms of device time, is "
           f"{build / walls['qjg']:.1%} of qjg's {walls['qjg']:.3f} ms wall "
           f"(qj {walls['qj']:.3f} ms)", flush=True)
-    phase("8. each query launched its path's kernels (q1-q10, qj and qjg "
+    phase("9. each query launched its path's kernels (q1-q10, qj and qjg "
           "exactly as before the float-sum gate), best_profit "
           "fused_running_stats")
 

@@ -6,8 +6,9 @@ query on one CUDA card.
 
 Loads the tables chip_smoke.py loads (h2o G1_1e7_1e1_0_0 with its dim
 table, trades, G1_1e7_1e1_5_0) and, for each of its queries (the general
-engine's of phase 5 and the windows and FUNCTIONs of phase 7 too): one
-first run, the median
+engine's of phase 5, the windows and FUNCTIONs of phase 7 and the
+AGGREGATION FUNCTION bodies of phase 8 but u_ewma, whose 1.5e6 launches
+a run are more than one trace should hold): one first run, the median
 wall time of three warm runs (host clock around execute plus a
 synchronize, as chip_smoke.py times them), then one profiled run. In the
 profiled run, "device ms" is the union of the intervals of the device
@@ -81,6 +82,7 @@ def main() -> int:
     K.build()
     profile_phases_4_5(dev, args.out)
     profile_phase_7(dev, args.out)
+    profile_phase_8(dev, args.out)
     return 0
 
 
@@ -99,6 +101,16 @@ def profile_phase_7(dev, out: Path | None) -> None:
         db.execute(C.SCALAR_UDF)
         for q in queries:
             profile_query(db, q, C.WINDOW_QUERIES[q], out)
+
+
+def profile_phase_8(dev, out: Path | None) -> None:
+    """Phase 8's AGGREGATION FUNCTION bodies on x = G1_1e7_1e1_0_0."""
+    db = connect(device=dev)
+    C.load(db, "x", h2o_g1(C.ROWS, C.K_GROUPS, C.SEED), dev)
+    db.execute(C.COVARIANCES2)
+    db.execute(C.CLIPSUM)
+    for q in ("u_cov2", "u_clip", "u_clip_where"):
+        profile_query(db, q, C.UDF_QUERIES[q], out)
 
 
 def profile_phases_4_5(dev, out: Path | None) -> None:

@@ -32,6 +32,9 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.engine.join, "
             "aquery2_tpu_torch.engine.udf, "
             "aquery2_tpu_torch.engine.udf_rewrite, "
+            "aquery2_tpu_torch.engine.udf_device, "
+            "aquery2_tpu_torch.runtime.stats, "
+            "aquery2_tpu_torch.storage.csvio, "
             "aquery2_tpu_torch.ops.window, "
             "aquery2_tpu_torch.ops.hashing; "
             "new = set(sys.modules) - before; "
@@ -51,8 +54,9 @@ def test_sources_name_no_jax():
     assert {PKG / "engine" / nm for nm in (
         "fused_star.py", "fused_join.py", "eval.py", "fused_scan.py",
         "groupby.py", "grouped_agg.py", "join.py", "udf.py",
-        "udf_rewrite.py")} | {PKG / "ops" / nm for nm in (
+        "udf_rewrite.py", "udf_device.py")} | {PKG / "ops" / nm for nm in (
             "agg.py", "filter.py", "ragged.py", "hashing.py", "window.py")} \
+        | {PKG / "runtime" / "stats.py", PKG / "storage" / "csvio.py"} \
         <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
@@ -582,3 +586,59 @@ def test_windows_and_functions_match_numpy_on_card():
         sx, sy, sxy, k = x[m].sum(), y[m].sum(), (x[m] * y[m]).sum(), m.sum()
         cov.append((sxy - sx * sy / k) / k)
     np.testing.assert_allclose(r.table["c"].to_numpy(), cov, rtol=1e-12)
+
+
+@pytest.mark.gpu
+def test_function_bodies_and_csv_match_numpy_on_card(tmp_path):
+    """AGGREGATION FUNCTION bodies on the card at 2e5 trades rows against
+    numpy: clipsum on the fused UDF tier (an if inside a for), a running
+    sum into _builtin_ret in the general pipeline, both over 2e4 groups
+    of several length classes, then the table through CSV LOAD and INTO
+    OUTFILE."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch import types as T
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import trades
+
+    n = 200_000
+    a, d = trades(n, 20, 5)
+    db = aquery2_tpu_torch.connect(base_dir=str(tmp_path))
+    db.catalog.create(Table.from_numpy("t", a, {"stocksymbol": T.StrT},
+                                       device="cuda",
+                                       dictionaries={"stocksymbol": d}))
+    db.execute("AGGREGATION FUNCTION clipsum(x, c){ s := 0.; "
+               "l := _builtin_len; for (i := 0; i < l; i += 1) { "
+               "if (x[i] > c) { s += c; } else { s += x[i]; } } s }")
+    db.execute("AGGREGATION FUNCTION runsum(x){ s := 0.; for (i := 0; "
+               "i < _builtin_len; i += 1) { s += x[i]; _builtin_ret[i] "
+               ":= s; } Null }")
+    sym, price = a["stocksymbol"], a["price"].astype(np.float64)
+    r = db.execute("SELECT time, clipsum(price, 250) AS s FROM t "
+                   "GROUP BY time")
+    keys, inv = np.unique(a["time"], return_inverse=True)
+    np.testing.assert_array_equal(r.table["time"].to_numpy(), keys)
+    np.testing.assert_allclose(r.table["s"].to_numpy(), np.bincount(
+        inv, weights=np.minimum(price, 250)), rtol=1e-12)
+    r = db.execute("SELECT time, runsum(price) AS r FROM t GROUP BY time "
+                   "ORDER BY time")
+    order = np.argsort(inv, kind="stable")
+    starts = np.r_[0, np.cumsum(np.bincount(inv))[:-1]]
+    run = np.cumsum(price[order])
+    want = run - np.repeat(run[starts] - price[order][starts],
+                           np.bincount(inv))
+    np.testing.assert_allclose(r.table["r"].to_numpy(), want, rtol=1e-12)
+    assert db.stats.udf_paths == {"fused": 1, "traced": 1}
+    (tmp_path / "t.csv").write_text("stocksymbol,time,quantity,price\n" + "".join(
+        f"{d.strings()[s]},{t},{q},{p}\n" for s, t, q, p in zip(
+            sym, a["time"], a["quantity"], a["price"])))
+    db.execute("CREATE TABLE c(stocksymbol VARCHAR(8), time INT, "
+               "quantity INT, price INT)")
+    db.execute('LOAD DATA INFILE "t.csv" INTO TABLE c')
+    db.execute('SELECT stocksymbol, sum(quantity) FROM c GROUP BY '
+               'stocksymbol INTO OUTFILE "o.csv"')
+    back = np.loadtxt(tmp_path / "o.csv", delimiter=",", comments=None,
+                      dtype=[("s", object), ("q", np.int64)], ndmin=1)
+    qty = np.bincount(sym, weights=a["quantity"]).astype(np.int64)
+    assert {str(s): int(q) for s, q in back} == {
+        d.strings()[i]: int(qty[i]) for i in np.unique(sym)}

@@ -3,7 +3,8 @@ tests/test_udf_rewrite.py but the mesh one (ROADMAP item 9), through the
 port (aquery2_tpu_torch.connect("cpu")) against the JAX package
 (aquery2_tpu.connect()) on the same seeded rows, then scalar FUNCTION
 inlining and the host interpreter, and the AGGREGATION FUNCTION calls the
-rewrite declines, which raise naming ROADMAP item 7e.
+rewrite declines, which run their bodies on the device
+(engine/udf_device.py) and equal the JAX package's.
 
 The rewritten udfcov sums integer lanes exactly, so it matches the JAX
 package's interpreted loop to REL (float64 formula); a scalar FUNCTION's
@@ -174,33 +175,53 @@ def test_minus_accumulation_and_literal_param(ts, js):
         assert s == pytest.approx(-2.0 * a[k2 == kk].sum())
 
 
-def test_vector_returning_udf_does_not_rewrite(ts):
-    ts.execute(RUNSUM)
+def test_vector_returning_udf_does_not_rewrite(ts, js):
+    for db in (ts, js):
+        db.execute(RUNSUM)
     call = A.Call("runsum", (A.ColumnRef("a"),))
     assert udf_rewrite.rewrite_call(ts.udfs["runsum"], call, ts.udfs) is None
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        ts.execute("SELECT runsum(a), k2 FROM t GROUP BY k2")
+    q = "SELECT runsum(a), k2 FROM t GROUP BY k2"
+    got = ts.execute(q).rows()
+    assert ts.stats.udf_paths == {"traced": 1}
+    want = js.execute(q).rows()
+    assert [r[1] for r in got] == [r[1] for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g[0], w[0], rtol=REL)
 
 
-def test_partial_range_loop_does_not_rewrite(ts):
+def test_partial_range_loop_does_not_rewrite(ts, js):
     """A loop over part of the group keeps the loop's semantics."""
-    ts.execute(FIRSTHALF)
+    for db in (ts, js):
+        db.execute(FIRSTHALF)
     call = A.Call("firsthalf", (A.ColumnRef("a"),))
     assert udf_rewrite.rewrite_call(ts.udfs["firsthalf"], call,
                                     ts.udfs) is None
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        ts.execute("SELECT k2, firsthalf(a) FROM t GROUP BY k2")
+    q = "SELECT k2, firsthalf(a) FROM t GROUP BY k2"
+    got = ts.execute(q).rows()
+    assert ts.stats.udf_paths == {"fused": 1}
+    _approx_rows(got, js.execute(q).rows())
+    k2, a = _np(ts, "k2"), _np(ts, "a").astype(np.float64)
+    for kk, v in got:
+        x = a[k2 == kk]
+        assert v == pytest.approx(x[:int(np.ceil(len(x) / 2))].sum(),
+                                  rel=REL)
 
 
-def test_nullable_args_do_not_rewrite(ts):
+def test_nullable_args_do_not_rewrite(ts, js):
     """SQL aggregates skip NULLs and the loop visits every row: a nullable
-    argument column keeps the loop's semantics."""
-    ts.execute("CREATE TABLE tn(k INT, a INT, b INT)")
-    ts.execute("INSERT INTO tn VALUES (1, 1, 2), (1, NULL, 3), (2, 4, 5)")
+    argument column keeps the loop's semantics (a NULL row reads its
+    stored 0, as in the JAX package)."""
+    for db in (ts, js):
+        db.execute("CREATE TABLE tn(k INT, a INT, b INT)")
+        db.execute("INSERT INTO tn VALUES (1, 1, 2), (1, NULL, 3), "
+                   "(2, 4, 5)")
     sel = parse("SELECT k, udfcov(a, b) FROM tn GROUP BY k")[0]
     assert udf_rewrite.rewrite_select(ts, sel) is None
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        ts.execute("SELECT k, udfcov(a, b) FROM tn GROUP BY k")
+    q = "SELECT k, udfcov(a, b) FROM tn GROUP BY k"
+    got = ts.execute(q).rows()
+    assert ts.stats.udf_paths == {"traced": 1}
+    _approx_rows(got, js.execute(q).rows())
+    assert got == [(1, pytest.approx((2 - 1 * 5 / 2) / 2)), (2, 0.0)]
 
 
 # --- registering, scalar FUNCTIONs, the host interpreter --------------------
@@ -258,11 +279,23 @@ def test_scalar_function_host_path(ts, monkeypatch):
     assert len(runs) == 4
 
 
-def test_aggregation_function_over_a_join_raises(ts):
+def test_aggregation_function_over_a_join(ts, js):
     """The rewrite reads only single-table FROMs, as the JAX package's
-    does; elsewhere an AGGREGATION FUNCTION raises naming 7e."""
-    ts.execute("CREATE TABLE d(k INT, w INT)")
-    ts.execute("INSERT INTO d VALUES (1, 10), (2, 20)")
-    with pytest.raises(NotImplementedError, match="item 7e"):
-        ts.execute("SELECT t.k2, udfcov(t.a, d.w) FROM t JOIN d ON t.k = d.k "
-                   "GROUP BY t.k2")
+    does; over a join the body runs in the general pipeline."""
+    for db in (ts, js):
+        db.execute("CREATE TABLE d(k INT, w INT)")
+        db.execute("INSERT INTO d VALUES (1, 10), (2, 20)")
+    q = ("SELECT t.k2, udfcov(t.a, d.w) FROM t JOIN d ON t.k = d.k "
+         "GROUP BY t.k2 ORDER BY t.k2")
+    got = ts.execute(q).rows()
+    assert ts.stats.udf_paths == {"traced": 1}
+    _approx_rows(got, js.execute(q).rows())
+    k, k2 = _np(ts, "k"), _np(ts, "k2")
+    a = _np(ts, "a").astype(np.float64)
+    m = k <= 2
+    w = np.where(k == 1, 10.0, 20.0)
+    for kk, v in got:
+        g = m & (k2 == kk)
+        x, y = a[g], w[g]
+        assert v == pytest.approx((x * y).mean() - x.mean() * y.mean(),
+                                  rel=1e-9, abs=1e-12)
