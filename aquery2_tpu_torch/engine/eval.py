@@ -20,8 +20,8 @@ NULL; CASE never takes a NULL condition; aggregates skip NULL arguments
 
 OVER windows (``_window``) sort the rows once by (validity, partition
 keys, order keys) and compute every frame with the segmented scans of
-ops/window.py. User FUNCTIONs are inlined (engine/udf.py). Not here:
-module calls (ROADMAP queue 1, item 8c).
+ops/window.py. User FUNCTIONs are inlined (engine/udf.py). A loaded
+module's function runs on the host (sdk/modules.call_module_function).
 """
 
 from __future__ import annotations
@@ -547,6 +547,11 @@ class EvalContext:
         udfs = getattr(self.session, "udfs", None)
         if udfs and name in udfs:
             return self._call_udf(udfs[name], e)
+        mods = getattr(self.session, "module_functions", None)
+        if mods and name in mods:
+            from aquery2_tpu_torch.sdk import modules
+
+            return modules.call_module_function(self, mods[name], e.args)
         if name == "count" and (not e.args or isinstance(e.args[0], A.Star)):
             return Value("group", self.group_lens, T.LongT)
         if name in AGG_NAMES:

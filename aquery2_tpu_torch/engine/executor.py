@@ -41,10 +41,9 @@ body in the general pipeline (engine/udf_device.py, through eval).
 LOAD [COMPLEX] DATA INFILE appends a CSV file to a table
 (storage/csvio.py); SELECT … INTO OUTFILE writes the result, on every
 route, as a CSV file without a header. Paths resolve under the session's
-``base_dir``.
-
-What the port does not run yet raises NotImplementedError naming its
-ROADMAP item: LOAD MODULE (item 8c) and CREATE/DROP TRIGGER (item 8b).
+``base_dir``. LOAD MODULE registers a module's functions (sdk/modules.py);
+CREATE/DROP TRIGGER go to the session's trigger host
+(runtime/triggers.py), and every LOAD and INSERT then notifies it.
 """
 
 from __future__ import annotations
@@ -75,9 +74,6 @@ from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
                                              VectorColumn, recode)
 from aquery2_tpu_torch.utils import base62uuid
-
-_MODULES = "ROADMAP queue 1, item 8c (modules)"
-_TRIGGERS = "ROADMAP queue 1, item 8b (triggers)"
 
 
 class ExecError(Exception):
@@ -124,16 +120,24 @@ class Executor:
             self.session.udfs[stmt.name.lower()] = Udf(stmt)
             return None
         if isinstance(stmt, A.Load):
-            csvio.load_csv_into(self.session.catalog.get(stmt.table),
-                                self.session.resolve_path(stmt.path),
+            tbl = self.session.catalog.get(stmt.table)
+            csvio.load_csv_into(tbl, self.session.resolve_path(stmt.path),
                                 field_sep=stmt.field_sep,
                                 element_sep=stmt.element_sep,
                                 complex_cells=stmt.complex)
+            self.session.notify_insert(tbl.name)
             return None
         if isinstance(stmt, A.LoadModule):
-            raise NotImplementedError(f"LOAD MODULE: {_MODULES}")
-        if isinstance(stmt, (A.CreateTrigger, A.DropTrigger)):
-            raise NotImplementedError(f"{type(stmt).__name__}: {_TRIGGERS}")
+            from aquery2_tpu_torch.sdk import modules
+
+            modules.load_module(self.session, stmt)
+            return None
+        if isinstance(stmt, A.CreateTrigger):
+            self.session.triggers.create(stmt)
+            return None
+        if isinstance(stmt, A.DropTrigger):
+            self.session.triggers.drop(stmt.name)
+            return None
         raise ExecError(f"cannot execute {type(stmt).__name__}")
 
     def _create_table(self, stmt: A.CreateTable) -> None:
@@ -157,6 +161,7 @@ class Executor:
         tbl = self.session.catalog.get(stmt.table)
         if stmt.select is not None:
             tbl.append_table(self.run_select(stmt.select))
+            self.session.notify_insert(tbl.name)
             return None
         rows = []
         for row in stmt.values:
@@ -179,6 +184,7 @@ class Executor:
             perm = [order.index(nm) for nm in names]
             rows = [[r[i] for i in perm] for r in rows]
         tbl.append_rows(rows)
+        self.session.notify_insert(tbl.name)
         return None
 
     def _where_mask(self, ctx: EvalContext, where: A.Expr) -> torch.Tensor:
@@ -609,6 +615,9 @@ class Executor:
                                 total=n * k)
 
         dev = ws.device
+        if v.kind == "scalar" and v.sqltype.is_vector:   # a module's vector
+            return VectorColumn.from_lists(name, v.sqltype, [v.data] * nrows,
+                                           device=dev)
         if v.kind == "scalar":
             if isinstance(v.data, str):
                 d = StringDict([v.data])

@@ -22,9 +22,9 @@ UDF routes (``note_udf``), with the JAX package's names:
                  path cannot run (engine/udf.run_aggregation_udf);
   scalar_device  a scalar FUNCTION inlined into the evaluator;
   scalar_host    a scalar FUNCTION run by the host interpreter.
-The mesh counters of the JAX package (``dist_*``) wait for ROADMAP
-item 9, and its on/off switch (``enabled``, set only by the REPL's
-``stats on|off``) for item 8c.
+``enabled`` (the REPL's ``stats on|off``) stops and restarts the
+counting. The mesh counters of the JAX package (``dist_*``) wait for
+ROADMAP item 9.
 """
 
 from __future__ import annotations
@@ -36,6 +36,7 @@ from dataclasses import dataclass, field
 
 @dataclass
 class QueryStats:
+    enabled: bool = True
     parse_time: float = 0.0
     exec_time: float = 0.0
     queries: int = 0
@@ -43,7 +44,8 @@ class QueryStats:
     udf_paths: dict = field(default_factory=dict)
 
     def note_udf(self, path: str) -> None:
-        self.udf_paths[path] = self.udf_paths.get(path, 0) + 1
+        if self.enabled:
+            self.udf_paths[path] = self.udf_paths.get(path, 0) + 1
 
     @contextmanager
     def timed(self, phase: str):
@@ -53,14 +55,15 @@ class QueryStats:
             yield
         finally:
             dt = time.perf_counter() - t0
-            if phase == "parse":
+            if self.enabled and phase == "parse":
                 self.parse_time += dt
-            else:
+            elif self.enabled:
                 self.exec_time += dt
 
     def record_query(self, text: str, seconds: float) -> None:
-        self.queries += 1
-        self.history.append((text[:120], seconds))
+        if self.enabled:
+            self.queries += 1
+            self.history.append((text[:120], seconds))
 
     def reset(self) -> None:
         self.parse_time = self.exec_time = 0.0

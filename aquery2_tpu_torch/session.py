@@ -7,11 +7,15 @@
     >>> print(db.execute("SELECT a, sum(b) FROM t GROUP BY a").format())
 
 Counterpart of ``aquery2_tpu/session.py``: a catalog of tables on one
-device, the user FUNCTIONs, the query stats (``stats``), the directory
-that relative file paths resolve against (``base_dir``: LOAD DATA
-INFILE, INTO OUTFILE) and statement execution. Every tensor the session
-makes lives on ``session.device``. Procedures, triggers and attached
-data sources (ROADMAP item 8b) and the mesh (item 9) are not here.
+device, the user FUNCTIONs, the functions of loaded modules (LOAD
+MODULE, sdk/modules.py), stored procedures (``procedures``; a batch is
+recorded while one records), triggers (``triggers``, whose threads
+``close`` stops), attached SQL backends (``attach``, ``backend_exec``,
+``backend_append``), the query stats (``stats``), the directory that
+relative file paths resolve against (``base_dir``: LOAD DATA INFILE,
+INTO OUTFILE, LOAD MODULE, the procedures' .aqp files) and statement
+execution. Every tensor the session makes lives on ``session.device``.
+The mesh (ROADMAP item 9) is not here.
 """
 
 from __future__ import annotations
@@ -21,10 +25,12 @@ import time
 
 import torch
 
-from aquery2_tpu_torch.engine.executor import Executor
+from aquery2_tpu_torch.engine.executor import ExecError, Executor
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.parser import parse
+from aquery2_tpu_torch.runtime.procedures import ProcedureStore
 from aquery2_tpu_torch.runtime.stats import QueryStats
+from aquery2_tpu_torch.runtime.triggers import TriggerHost
 from aquery2_tpu_torch.storage.catalog import Catalog
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.utils import CaseInsensitiveDict
@@ -36,7 +42,11 @@ class Session:
         self.device = torch.device(device)
         self.catalog = Catalog()
         self.udfs: CaseInsensitiveDict = CaseInsensitiveDict()  # FUNCTIONs
+        self.module_functions: CaseInsensitiveDict = CaseInsensitiveDict()
         self.stats = QueryStats()
+        self.triggers = TriggerHost(self)
+        self.procedures = ProcedureStore(self)
+        self.sources: dict[str, object] = {}     # attached backends by alias
         self.base_dir = base_dir or os.getcwd()
         self.log_level = "info"             # "info" | "error" | "silent"
         self.executor = Executor(self)
@@ -47,8 +57,6 @@ class Session:
             return path
         return os.path.join(self.base_dir, path)
 
-    # log, log_error and log_level have no caller in the port yet: the
-    # JAX package's callers are triggers and the REPL (ROADMAP 8b, 8c).
     def log(self, msg: str) -> None:
         if self.log_level == "info":
             print(msg)
@@ -65,6 +73,8 @@ class Session:
             stmts = parse(text)
         last: Result | None = None
         t0 = time.perf_counter()
+        if stmts and self.procedures.recording is not None:
+            self.procedures.record(text.strip())
         with self.stats.timed("exec"):
             for stmt in stmts:
                 r = self.executor.execute(stmt)
@@ -84,10 +94,67 @@ class Session:
                 last = r
         return last
 
+    # -- attached SQL backends (storage/datasource.py) ----------------------
+
+    def attach(self, alias: str, source) -> None:
+        """Attach a SQL backend under ``alias``: a DataSource, a DB-API
+        connection, or a SQLite spec (a path under ``base_dir``,
+        ``sqlite:<path>`` or ``:memory:``)."""
+        from aquery2_tpu_torch.storage.datasource import (DataSource,
+                                                          DBAPISource,
+                                                          open_source)
+
+        if isinstance(source, str):
+            if source != ":memory:" and not source.startswith("sqlite:"):
+                source = self.resolve_path(source)
+            source = open_source(source)
+        elif not isinstance(source, DataSource):
+            source = DBAPISource(source)
+        self.sources[alias.lower()] = source
+
+    def detach(self, alias: str) -> None:
+        src = self.sources.pop(alias.lower(), None)
+        if src is not None:
+            src.close()
+
+    def _source(self, alias: str):
+        src = self.sources.get(alias.lower())
+        if src is None:
+            raise ExecError(f"no attached backend {alias!r}; use attach()")
+        return src
+
+    def backend_exec(self, alias: str, sql: str, into: str | None = None):
+        """Run SQL on an attached backend; a statement that returns rows
+        comes back as a Table on ``device`` (in the catalog as ``into``
+        or ``backend_result``), any other as None."""
+        return self._source(alias).exec(sql, session=self, into=into)
+
+    def backend_append(self, alias: str, table_name: str,
+                       target: str | None = None) -> None:
+        """Write a table of the catalog into an attached backend (CREATE
+        TABLE IF NOT EXISTS, then its rows)."""
+        self._source(alias).append_table(self.catalog.get(table_name),
+                                         target or table_name)
+
+    # -- stored procedures and triggers ------------------------------------
+
+    def run_procedure(self, name: str) -> Result | None:
+        return self.procedures.run(name)
+
+    def notify_insert(self, table_name: str) -> None:
+        """Rows went into ``table_name``: queue its conditional triggers."""
+        self.triggers.notify_insert(table_name)
+
     def close(self) -> None:
-        """Nothing to release yet: the session holds no threads, files or
-        connections (the JAX package's close stops triggers and attached
-        sources, ROADMAP item 8b). Tables go with the session."""
+        """Stop the trigger threads and close the attached backends.
+        Tables go with the session."""
+        self.triggers.shutdown()
+        for src in self.sources.values():
+            try:
+                src.close()
+            except Exception:
+                pass
+        self.sources.clear()
 
     def __enter__(self) -> "Session":
         return self

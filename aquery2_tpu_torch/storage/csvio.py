@@ -3,35 +3,50 @@
 Counterpart of ``aquery2_tpu/storage/csvio.py`` (the reference's MonetDB
 ``COPY OFFSET 2`` for plain loads, engine/ast.py:1427-1437, and its
 generated ``AQCSVReader`` loop for ``LOAD COMPLEX DATA``,
-engine/ast.py:1448-1496), on numpy alone (no pandas). Two routes:
+engine/ast.py:1448-1496), without pandas. Three routes, chosen from the
+table's schema before the file is read (``route``):
 
-* ``_load_numpy``, for a plain load with a one-byte separator:
-  ``np.loadtxt``'s C parser reads the file once into a structured array.
-  A byte scan first looks for an empty cell (``_has_empty_cell``). Where
-  there is none, numeric columns parse straight into their dtype; where
-  there is one, numeric columns are read as strings, an empty one is
-  NULL and the rest are cast (``astype`` of the strings: Python's
-  ``int`` and ``float``, the line reader's own parse). String,
-  temporal and bool columns are read as strings. A cell that does not
-  parse, or a row whose field count differs from the schema, raises
-  loadtxt's ValueError, as it raises in the line reader.
-* ``_load_python``, for LOAD COMPLEX DATA (vector cells split by the
-  element separator), a table with a vector column and a longer or
-  non-ASCII separator: a line-by-line reader, the JAX package's.
+* ``native``, for a plain load with a one-byte separator into a table
+  whose columns are all int32, int64, float32 or float64: the C++
+  scanner (native/csvscan.cpp, built at first use), which reads the file
+  once in up to 16 threads straight into the columns. A cell it cannot
+  read (a float or an out-of-range number in an integer column, any
+  other text) or a line without one field per column raises ValueError.
+* ``loadtxt`` (``_load_numpy``), for any other plain load with a
+  one-byte separator: ``np.loadtxt``'s C parser reads the file once into
+  a structured array. A byte scan first looks for an empty cell
+  (``_has_empty_cell``). Where there is none, numeric columns parse
+  straight into their dtype (an integer cell that parses only as a
+  float fails); where there is one, numeric columns are read as
+  strings, an empty one is NULL and the rest are cast (``astype`` of
+  the strings: Python's ``int`` and ``float``, the line reader's own
+  parse). String, temporal and bool columns are read as
+  strings. A cell that does not parse, or a row whose field count
+  differs from the schema, raises loadtxt's ValueError, as it raises in
+  the line reader.
+* ``lines`` (``_load_python``), for LOAD COMPLEX DATA (vector cells split
+  by the element separator), a table with a vector column and a longer
+  or non-ASCII separator: a line-by-line reader, the JAX package's.
 
-Either route gives the JAX package's table: the first line is a header
-(skipped) when it does not parse under the schema; an empty cell is NULL
-except in a string column, where it is ""; cells are stripped; temporal
-cells parse through ``types.parse_temporal_literal``; bool cells are
-true for 1, true, t, yes; string cells are coded into the column's
-dictionary in the order they first appear. The native scanner of the
-JAX package (``AQ_TPU_NATIVE_CSV``) is ROADMAP item 8b.
+Every route gives the JAX package's table: the first line is a header
+(skipped) when it does not parse under the schema; an empty or blank
+cell is NULL except in a string column, where it is ""; a blank line is
+skipped; cells are stripped; temporal cells parse through
+``types.parse_temporal_literal``; bool cells are true for 1, true, t,
+yes; string cells are coded into the column's dictionary in the order
+they first appear. Where the JAX package's own scanner reads a cell
+wrongly (nan and inf as 0, a float in an INT column truncated, an int32
+overflow wrapped, a blank line as a row of NULLs), the port follows
+numpy and SQL.
 """
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 
+from aquery2_tpu_torch import native
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
                                              VectorColumn, _append_column)
@@ -70,14 +85,45 @@ def _schema(table: Table):
     return [(c.name, c.sqltype) for c in table.columns.values()]
 
 
-def load_csv_into(table: Table, path: str, field_sep: str = ",",
-                  element_sep: str = ";", complex_cells: bool = False) -> int:
-    """Append the file's rows to an existing table; the rows loaded."""
+def route(table: Table, field_sep: str = ",",
+          complex_cells: bool = False) -> str:
+    """The route a LOAD into ``table`` takes: "native", "loadtxt" or
+    "lines"."""
     schema = _schema(table)
     if complex_cells or any(t.is_vector for _, t in schema) \
             or len(field_sep.encode()) != 1:
-        return _load_python(table, path, field_sep, element_sep)
-    return _load_numpy(table, path, field_sep)
+        return "lines"
+    if schema and all(t.kind in ("int", "float")
+                      and t.np_dtype.name in native.SPEC for _, t in schema):
+        return "native"
+    return "loadtxt"
+
+
+def load_csv_into(table: Table, path: str, field_sep: str = ",",
+                  element_sep: str = ";", complex_cells: bool = False) -> int:
+    """Append the file's rows to an existing table; the rows loaded."""
+    r = route(table, field_sep, complex_cells)
+    if r == "native":
+        return _load_native(table, path, field_sep)
+    if r == "loadtxt":
+        return _load_numpy(table, path, field_sep)
+    return _load_python(table, path, field_sep, element_sep)
+
+
+def _load_native(table: Table, path: str, sep: str) -> int:
+    schema = _schema(table)
+    first = _first_line(path)
+    if first is None:
+        return 0
+    cols, masks = native.parse_numeric_csv(
+        path, [t.np_dtype for _, t in schema], sep,
+        skip_header=not _line_parses(schema, first.split(sep)))
+    device = next(iter(table.columns.values())).device
+    for (name, t), arr, valid in zip(schema, cols, masks):
+        table.columns[name] = _append_column(
+            table.columns[name], Column(name, t, arr, valid=valid,
+                                        device=device))
+    return len(cols[0])
 
 
 def _first_line(path: str) -> str | None:
@@ -132,8 +178,17 @@ def _load_numpy(table: Table, path: str, sep: str) -> int:
     typed = not _has_empty_cell(path, sep)
     dtype = [(f"f{j}", t.np_dtype if typed and t.kind in ("int", "float")
               else object) for j, (_, t) in enumerate(schema)]
-    rec = np.loadtxt(path, delimiter=sep, dtype=dtype, skiprows=skip,
-                     comments=None, ndmin=1, encoding="utf-8")
+    with warnings.catch_warnings():
+        # numpy reads an integer cell that only parses as a float (1.5,
+        # 1e5, 3000000000 in an INT column) through the float, with a
+        # DeprecationWarning; the cell fails here, as in the line reader
+        warnings.simplefilter("error", DeprecationWarning)
+        try:
+            rec = np.loadtxt(path, delimiter=sep, dtype=dtype, skiprows=skip,
+                             comments=None, ndmin=1, encoding="utf-8")
+        except DeprecationWarning:
+            raise ValueError(f"{path}: an integer column holds a cell that "
+                             f"is not an integer of its type") from None
     rows = int(rec.shape[0])
     if rows == 0:
         return 0

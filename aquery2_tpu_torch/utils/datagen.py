@@ -4,9 +4,10 @@
 (groupby-datagen.R: id1..id6, v1..v3), ``h2o_dim`` the dimension table
 that the h2o join queries qj and qjg join it with (``bench.make_data``'s
 ``dim``), ``h2o_j1`` the db-benchmark's four join tables (J1, x, small,
-medium and big), and ``trades`` the trades benchmark table (the JAX
-package's ``datagen.trades_table``) with numpy, so the JAX package and
-the port can load identical data from one seed.
+medium and big), ``trades`` the trades benchmark table (the JAX
+package's ``datagen.trades_table``) and ``electricity_csv`` the demo's
+CSV batches, with numpy, so the JAX package and the port can load
+identical data from one seed.
 """
 
 from __future__ import annotations
@@ -165,3 +166,16 @@ def trades(n: int, n_symbols: int = 100, seed: int = 7
     price = rng.integers(1, 500, n).astype(np.int32)
     return {"stocksymbol": sym, "time": t, "quantity": qty,
             "price": price}, d
+
+
+def electricity_csv(path: str, n: int = 250, n_features: int = 7,
+                    seed: int = 11) -> None:
+    """A LOAD COMPLEX DATA file of the demo's electricity batches,
+    (x vecdouble, y int64) with ';' between a vector's values: the JAX
+    package's ``datagen.electricity_csv``, byte for byte."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for _ in range(n):
+            y = int(rng.integers(0, 2))
+            x = rng.normal(loc=3.0 * y, scale=1.0, size=n_features)
+            f.write(";".join(f"{v:.5f}" for v in x) + f",{y}\n")

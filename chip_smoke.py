@@ -90,9 +90,9 @@ Phases, in order (any mismatch raises; there is no fallback):
      general pipeline), clipsum (an if inside a for) per id3 and per
      (id4, id6) under WHERE v1 > 2 (the fused UDF tier; each also
      through the general pipeline, in 10 pairs of warm runs against the
-     fused tier); on trades ewma
-     per symbol (100 series of about 1e5 rows: a loop of about 1e5 host
-     driven passes); then io_trades: the trades table written as CSV
+     fused tier); on trades cut to 2.5e6 rows (PHASE8_TRADES) ewma
+     per symbol (100 series of about 2.5e4 rows: a loop of about 2.5e4
+     host driven passes); then io_trades: that table written as CSV
      with a header under a temporary directory, LOAD DATA INFILE into a
      new table (every column equal to the generated arrays, the load's
      seconds and rows per second), ewma on it equal to the run on the
@@ -115,7 +115,31 @@ Phases, in order (any mismatch raises; there is no fallback):
      group sums and counts by seg_cumsum_i64 and seg_scan_multi (q8 the
      first only), and the other general queries' launches are recorded;
      q1-q10, qj and qjg launched exactly what they launched before the
-     fused tiers' float-sum gate existed (MAIN_PATH_LAUNCHES).
+     fused tiers' float-sum gate existed (MAIN_PATH_LAUNCHES);
+ 10. services and surfaces, through connect(device="cuda"), under a
+     temporary directory in build/aquery2_tpu_torch/: stored procedures
+     s_q1 and s_q3 (h2o q1 and q3 over the table stream, each into a
+     table), s_big (the stream holds half of G1_1e7_1e1_0_0's rows) and
+     s_q7; the conditional triggers t1 (s_q1) and t3 (s_q3 when s_big)
+     fire on the worker thread while x streams into stream in 10 batches
+     of about 1e6 rows (INSERT … SELECT … WHERE id4 = b; the tenth by LOAD
+     DATA INFILE of its rows as CSV, the native route), each batch's
+     statement wall and the time until its actions were done printed,
+     s1 (and s3, once half the rows are in) against numpy after each,
+     and each batch's launches exactly q1's (and q3's) per-run counts of
+     phase 4 (onehot_segment_sums 1, seg_cumsum_i64 3); the interval
+     trigger t7 (s_q7, every 200 ms) fires at least 3 times, stops once
+     dropped, s7 against numpy, seg_scan_multi once a firing; SQLite
+     (attach ":memory:", backend_append of s1 and 1e6 rows, a GROUP BY
+     there back into a device table, equal to the port's); LOAD MODULE of
+     sdk/example_module.cpp (mydiv, mulvec over 1e6 rows) against numpy;
+     the demo (aquery2_tpu_torch.demo) on the card, accuracy above 0.8;
+     `python -m aquery2_tpu_torch` on a #!aquery script (a procedure,
+     stats, engine status, the same GROUP BY after `engine cpu` and
+     `engine cuda`: equal); an AqServer and a client running q1 over 1e6
+     rows; no trigger logged an error and close() left no trigger
+     thread alive. Phase 8's io_h2o_na takes the native route; the
+     loadtxt route is timed on the same file beside it.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -125,6 +149,7 @@ from __future__ import annotations
 
 import collections
 import json
+import os
 import re
 import subprocess
 import sys
@@ -146,6 +171,7 @@ from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import ragged
 from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.filter import compact_indices
+from aquery2_tpu_torch.storage import csvio
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, h2o_j1, trades
@@ -419,6 +445,10 @@ FRAME_F64_TOL = 1e-12
 # correctly rounded operations; 1e-12 leaves room for one more rounding
 TRADES_RTOL = 1e-12
 REPEATS = 20            # runs of each scan per flag case (phase 3)
+# phase 8's trades table (u_ewma, io_trades): a quarter of 1e7 rows, about
+# 2.5e4 a series, so that ewma's host-driven loop (one pass a row of the
+# longest series) keeps the whole script near 500 s
+PHASE8_TRADES = ROWS // 4
 SLEEP_CYCLES = 2_000_000    # about 1 ms of the card's clock: longer than
                             # the host takes to enqueue one kernel call
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -2388,14 +2418,14 @@ def run_io(dev, arrays, d, ewma_res, tmp: Path) -> dict[str, int]:
 
 def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
     """Phase 8: AGGREGATION FUNCTION bodies the rewrite declines through
-    connect(device="cuda").execute, on x = G1_1e7_1e1_0_0 and trades (1e7
-    rows, 100 symbols), each against a numpy oracle that runs the body's
-    loop one position at a time over all groups at once, with its median
-    of 3 warm runs, its host syncs (read: udf_syncs; measured), its route
-    (session.stats.udf_paths, never interpreted) and its launches; then
-    io_trades (CSV LOAD, INTO OUTFILE)."""
+    connect(device="cuda").execute, on x = G1_1e7_1e1_0_0 and trades
+    (PHASE8_TRADES rows, 100 symbols), each against a numpy oracle that
+    runs the body's loop one position at a time over all groups at once,
+    with its median of 3 warm runs, its host syncs (read: udf_syncs;
+    measured), its route (session.stats.udf_paths, never interpreted) and
+    its launches; then io_trades (CSV LOAD, INTO OUTFILE)."""
     launches = {}
-    trade_arrays, d = trades(ROWS, 100, 7)
+    trade_arrays, d = trades(PHASE8_TRADES, 100, 7)
     tables = {"h2o": data, "trades": trade_arrays}
     ewma_res = None
     for name, queries in (("h2o", ("u_cov2", "u_clip", "u_clip_where")),
@@ -2436,7 +2466,8 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
     with tempfile.TemporaryDirectory() as tmp:
         launches["io_trades"] = run_io(dev, trade_arrays, d, ewma_res,
                                        Path(tmp))
-        walls["io_h2o_na"] = run_io_nulls(dev, Path(tmp))
+        walls["io_h2o_na"], walls["io_h2o_na loadtxt"] = run_io_nulls(
+            dev, Path(tmp))
     return launches
 
 
@@ -2513,11 +2544,13 @@ def write_nulls_csv(path: Path, data) -> None:
             f.write("".join(",".join(r) + "\n" for r in zip(*cols)))
 
 
-def run_io_nulls(dev, tmp: Path) -> float:
+def run_io_nulls(dev, tmp: Path) -> tuple[float, float]:
     """io_h2o_na: G1_1e7_1e1_5_0 written as CSV with its NULLs as empty
-    cells and LOADed (np.loadtxt reading the numeric columns as strings):
-    every column's values and NULLs equal the generated ones. Returns
-    the load's seconds."""
+    cells and LOADed on the native route (the C++ scanner; the schema is
+    all INT and REAL): every column's values and NULLs equal the
+    generated ones. Then csvio's loadtxt route (np.loadtxt reading the
+    numeric columns as strings) on the same file into another table,
+    equal to the first. Returns both loads' ms."""
     data = h2o_g1(ROWS, K_GROUPS, SEED, nas=5)
     n = len(data["v3"])
     path = tmp / "g1_na.csv"
@@ -2526,13 +2559,16 @@ def run_io_nulls(dev, tmp: Path) -> float:
     wrote = time.perf_counter() - t0
     db = connect(device=dev, base_dir=str(tmp))
     db.execute(H2O_NA_CSV)
+    tbl = db.catalog.get("x_csv")
+    route = csvio.route(tbl)
+    if route != "native":
+        raise AssertionError(f"io_h2o_na: the {route} route, want native")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     db.execute('LOAD DATA INFILE "g1_na.csv" INTO TABLE x_csv '
                'FIELDS TERMINATED BY ","')
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    tbl = db.catalog.get("x_csv")
     if tbl.nrows != n:
         raise AssertionError(f"io_h2o_na: {tbl.nrows} rows loaded of {n}")
     nulls = 0
@@ -2547,12 +2583,386 @@ def run_io_nulls(dev, tmp: Path) -> float:
         np.testing.assert_array_equal(col.to_numpy()[~null], want[~null],
                                       err_msg=f"io_h2o_na {nm}")
         nulls += int(null.sum())
+    # the loadtxt route on the same file, called directly (it reads the
+    # numeric columns as strings, since cells are empty)
+    db.execute(H2O_NA_CSV.replace("x_csv", "x_txt"))
+    txt = db.catalog.get("x_txt")
+    t0 = time.perf_counter()
+    csvio._load_numpy(txt, str(path), ",")
+    torch.cuda.synchronize()
+    txt_s = time.perf_counter() - t0
+    for nm in data:
+        a, b = tbl.columns[nm], txt.columns[nm]
+        same_valid = (a.valid is None and b.valid is None) or (
+            a.valid is not None and b.valid is not None
+            and torch.equal(a.valid, b.valid))
+        if not (same_valid and torch.equal(a.data, b.data)):
+            raise AssertionError(f"io_h2o_na {nm}: native and loadtxt differ")
     print(f"# io_h2o_na: wrote {n} rows ({path.stat().st_size} bytes, "
-          f"{nulls} empty cells) in {wrote:.2f} s; LOAD DATA INFILE "
-          f"{load_s:.3f} s, {n / load_s:.0f} rows/s; every column's values "
-          f"and NULLs equal the generated arrays", flush=True)
+          f"{nulls} empty cells) in {wrote:.2f} s; LOAD DATA INFILE on the "
+          f"{route} route {load_s:.3f} s, {n / load_s:.0f} rows/s; every "
+          f"column's values and NULLs equal the generated arrays; the "
+          f"loadtxt route on the same file {txt_s:.3f} s, "
+          f"{n / txt_s:.0f} rows/s, the same table", flush=True)
     path.unlink()
-    return load_s * 1e3
+    return load_s * 1e3, txt_s * 1e3
+
+
+# phase 10: services and surfaces. The stream has G1_1e7_1e1_0_0's schema;
+# its triggers run h2o q1 and q3 (when the stream holds half the rows), an
+# interval trigger q7, each into a table of its own
+STREAM = ("CREATE TABLE stream(id1 INT, id2 INT, id3 INT, id4 INT, id5 INT, "
+          "id6 INT, v1 INT, v2 INT, v3 REAL)")
+SERVICE_ROWS = 1_000_000         # the SQLite, module and server tables
+
+
+def stream_procedures(big: int) -> dict[str, str]:
+    def into(table: str, q: str) -> str:
+        return (f"DROP TABLE IF EXISTS {table}; CREATE TABLE {table} AS "
+                + QUERIES[q].replace("FROM source", "FROM stream"))
+    return {"s_q1": into("s1", "q1"), "s_q3": into("s3", "q3"),
+            "s_big": f"SELECT count(*) >= {big} FROM stream",
+            "s_q7": into("s7", "q7")}
+
+
+def stream_oracle(cols: dict[str, np.ndarray], q: str):
+    """q1 or q3 over the rows streamed so far, key-ascending, as oracle
+    gives it: (answer, per-group counts, no NULL keys), by bincount over
+    the keys themselves (id1 in [1, K], id3 in [1, ROWS / K])."""
+    key = KEYS[q][0]
+    k = cols[key]
+    cnt = np.bincount(k)
+    keys = np.flatnonzero(cnt)
+    out = {key: keys.astype(np.int32),
+           "v1": np.bincount(k, weights=cols["v1"].astype(np.float64)
+                             )[keys].astype(np.int64)}
+    if q == "q3":
+        out["v3"] = np.bincount(k, weights=cols["v3"].astype(np.float64)
+                                )[keys] / cnt[keys]
+    return out, cnt[keys], {}
+
+
+def collect_errors(db) -> list[str]:
+    """What db.log_error is given from now on (a trigger action's
+    exception is logged there, not raised)."""
+    errors: list[str] = []
+    log_error = db.log_error
+    db.log_error = lambda msg: (errors.append(msg), log_error(msg))
+    return errors
+
+
+def time_procedures(db) -> list[tuple[str, float, float]]:
+    """Wrap db.run_procedure, which the trigger threads call, so that each
+    run appends (name, start, end), end after a synchronize."""
+    runs: list[tuple[str, float, float]] = []
+    run = db.run_procedure
+
+    def timed(name):
+        t = time.perf_counter()
+        out = run(name)
+        torch.cuda.synchronize()
+        runs.append((name, t, time.perf_counter()))
+        return out
+    db.run_procedure = timed
+    return runs
+
+
+def run_stream(db, data, tmp: Path, runs) -> dict[str, dict[str, int]]:
+    """Ten batches of x into stream, each id4 value one batch (the tenth
+    by LOAD DATA INFILE of its rows as CSV, on the native route), the
+    conditional triggers t1 (s_q1) and t3 (s_q3 when s_big) firing on the
+    worker thread: after each batch drain(), then s1 (and s3 once the
+    stream holds half the rows; before that s3 stays empty) against
+    numpy, and the batch's launches exactly the phase-4 per-run counts
+    of q1 (and q3)."""
+    n_all = len(data["v1"])
+    path = tmp / "batch10.csv"
+    t0 = time.perf_counter()
+    write_nulls_csv(path, {k: v[data["id4"] == 10] for k, v in data.items()})
+    print(f"# stream: batch 10 written as CSV ({path.stat().st_size} bytes) "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    per_run = {q: {k: v // 4 for k, v in MAIN_PATH_LAUNCHES[q].items()}
+               for q in ("q1", "q3")}
+    launches = {}
+    seen = np.zeros(n_all, bool)
+    for b in range(1, 11):
+        if b < 10:
+            sql = f"INSERT INTO stream SELECT * FROM x WHERE id4 = {b}"
+        else:
+            if csvio.route(db.catalog.get("stream")) != "native":
+                raise AssertionError("stream: LOAD would not take the "
+                                     "native route")
+            sql = f'LOAD DATA INFILE "{path.name}" INTO TABLE stream'
+        reset_launches()
+        runs.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        db.execute(sql)
+        torch.cuda.synchronize()
+        ins = time.perf_counter() - t0
+        if not db.triggers.drain(120):
+            raise AssertionError(f"stream batch {b}: triggers not done")
+        per = {k: v for k, v in K.LAUNCHES.items() if v}
+        seen |= data["id4"] == b
+        n = int(seen.sum())
+        big = n >= n_all // 2
+        names = sorted(nm for nm, _, _ in runs)
+        want_names = sorted(["s_q1", "s_big"] + (["s_q3"] if big else []))
+        if names != want_names:
+            raise AssertionError(f"stream batch {b}: ran {names}, want "
+                                 f"{want_names}")
+        want = collections.Counter(per_run["q1"])
+        if big:
+            want.update(per_run["q3"])
+        if per != dict(want):
+            raise AssertionError(f"stream batch {b}: launched {per}, want "
+                                 f"{dict(want)}")
+        if db.catalog.get("stream").nrows != n:
+            raise AssertionError(f"stream batch {b}: "
+                                 f"{db.catalog.get('stream').nrows} rows")
+        sub = {k: data[k][seen] for k in ("id1", "id3", "v1", "v3")}
+        check_result("q1", Result(db.catalog.get("s1")),
+                     *stream_oracle(sub, "q1"))
+        if big:
+            check_result("q3", Result(db.catalog.get("s3")),
+                         *stream_oracle(sub, "q3"))
+        elif db.catalog.get("s3").nrows:
+            raise AssertionError(f"stream batch {b}: s3 filled early")
+        launches[f"stream@b{b}"] = per
+        acts = ", ".join(f"{nm} {(e - s) * 1e3:.3f} ms" for nm, s, e in runs)
+        print(f"# stream batch {b} ({'INSERT … SELECT' if b < 10 else 'LOAD DATA INFILE, native'}): "
+              f"{n} rows; the statement {ins * 1e3:.3f} ms, its triggers "
+              f"done {(max(e for _, _, e in runs) - t0) * 1e3:.3f} ms after "
+              f"it began ({acts}); launches {per}; s1"
+              f"{' and s3' if big else ''} match numpy", flush=True)
+    path.unlink()
+    return launches
+
+
+def run_interval(db, data, runs) -> dict[str, int]:
+    """CREATE TRIGGER t7 ACTION s_q7 INTERVAL 200 while nothing is
+    inserted: it fires at least 3 times (at most 10 s), stops firing once
+    dropped, s7 equals numpy's q7 over the whole stream, and each firing
+    launched q7's seg_scan_multi."""
+    reset_launches()
+    runs.clear()
+    db.execute("CREATE TRIGGER t7 ACTION s_q7 INTERVAL 200")
+    t0 = time.perf_counter()
+    while len(runs) < 3 and time.perf_counter() - t0 < 10:
+        time.sleep(0.02)
+    db.execute("DROP TRIGGER t7")
+    time.sleep(0.5)                     # a firing under way ends
+    fired = len(runs)
+    time.sleep(0.6)
+    if fired < 3 or len(runs) != fired:
+        raise AssertionError(f"interval: {fired} firings, then "
+                             f"{len(runs)} after DROP TRIGGER")
+    per = {k: v for k, v in K.LAUNCHES.items() if v}
+    want = {k: v // 4 * fired for k, v in MAIN_PATH_LAUNCHES["q7"].items()}
+    if per != want:
+        raise AssertionError(f"interval: launched {per}, want {want}")
+    check_result("q7", Result(db.catalog.get("s7")), *oracle(data, "q7"))
+    gaps = np.diff([s for _, s, _ in runs]) * 1e3
+    print(f"# interval trigger t7 (s_q7, 200 ms): {fired} firings, "
+          f"{', '.join(f'{(e - s) * 1e3:.3f}' for _, s, e in runs)} ms each, "
+          f"{', '.join(f'{g:.1f}' for g in gaps)} ms apart; none after DROP "
+          f"TRIGGER; s7 matches numpy; launches {per}", flush=True)
+    return per
+
+
+def run_sqlite(db, data) -> None:
+    """attach a :memory: SQLite, write s1 and SERVICE_ROWS rows of x's id1,
+    id3, v1 into it, run a GROUP BY id1 there back into a device table:
+    equal to the port's own answer."""
+    walls = {}
+    t0 = time.perf_counter()
+    db.attach("lite", ":memory:")
+    db.backend_append("lite", "s1")
+    walls["append s1"] = time.perf_counter() - t0
+    db.catalog.create(Table.from_numpy("x1m", {
+        k: data[k][:SERVICE_ROWS] for k in ("id1", "id3", "v1")},
+        device=db.device))
+    t0 = time.perf_counter()
+    db.backend_append("lite", "x1m")
+    walls[f"append {SERVICE_ROWS} rows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = db.backend_exec("lite", "SELECT id1, sum(v1) AS v1 FROM x1m "
+                          "GROUP BY id1 ORDER BY id1", into="lite_q1")
+    walls["GROUP BY id1 there, back"] = time.perf_counter() - t0
+    if got.columns["v1"].device != db.device:
+        raise AssertionError("sqlite: the answer is not on the card")
+    mine = db.execute("SELECT id1, sum(v1) AS v1 FROM x1m GROUP BY id1")
+    if Result(got).rows() != mine.rows():
+        raise AssertionError("sqlite: GROUP BY id1 differs from the port's")
+    back = db.backend_exec("lite", "SELECT id1, v1 FROM s1 ORDER BY id1")
+    if Result(back).rows() != Result(db.catalog.get("s1")).rows():
+        raise AssertionError("sqlite: s1 did not come back as it went")
+    db.detach("lite")
+    print("# sqlite: " + "; ".join(f"{k} {v * 1e3:.1f} ms"
+                                   for k, v in walls.items())
+          + f"; {got.nrows} groups equal the port's", flush=True)
+
+
+def run_modules(dev, tmp: Path, rng) -> None:
+    """LOAD MODULE of the port's example_module.cpp, compiled with g++:
+    mydiv(2, 3) and mulvec(2, x) over a SERVICE_ROWS-row REAL column
+    against numpy; then the demo (aquery2_tpu_torch.demo.main) on the
+    card: the forest's accuracy after each batch, the last above 0.8."""
+    from aquery2_tpu_torch import demo
+
+    sdk = Path(K.__file__).resolve().parents[1] / "sdk"
+    so = tmp / "example_module.so"
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O2", "-fPIC", "-shared", "-I", str(sdk), "-o",
+                    str(so), str(sdk / "example_module.cpp")], check=True,
+                   timeout=120)
+    built = time.perf_counter() - t0
+    db = connect(device=dev, base_dir=str(tmp))
+    errors = collect_errors(db)
+    db.execute(f'LOAD MODULE FROM "{so}" FUNCTIONS (mydiv(a:int, b:int) '
+               f'-> double, mulvec(a:int, b:vecfloat) -> vecfloat)')
+    if db.execute("SELECT mydiv(2, 3)").scalar() != 2 / 3:
+        raise AssertionError("mydiv(2, 3)")
+    x = rng.uniform(-100, 100, SERVICE_ROWS).astype(np.float32)
+    db.catalog.create(Table.from_numpy("v", {"x": x}, device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = db.execute("SELECT mulvec(2, x) AS y FROM v")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    y = r.table.columns["y"]
+    if y.device != db.device:
+        raise AssertionError("mulvec's answer is not on the card")
+    np.testing.assert_array_equal(y.to_numpy(), np.float32(2) * x,
+                                  err_msg="mulvec")
+    db.close()
+    if errors:
+        raise AssertionError(f"modules: {errors}")
+    print(f"# LOAD MODULE: example_module.so built in {built:.2f} s; "
+          f"mydiv(2, 3) = 2/3; mulvec(2, x) over {SERVICE_ROWS} rows "
+          f"{ms:.3f} ms (to the host and back), equal to numpy", flush=True)
+    t0 = time.perf_counter()
+    demo.main([], base_dir=str(tmp / "demo"))
+    print(f"# demo on the card: {time.perf_counter() - t0:.2f} s", flush=True)
+
+
+REPL_SCRIPT = """#!aquery
+CREATE TABLE t(a INT, b INT)
+INSERT INTO t VALUES (1, 2), (1, 3), (2, 5), (3, 7)
+exec
+procedure p record
+INSERT INTO t VALUES (3, 1)
+exec
+procedure p stop
+procedure p run
+stats
+engine status
+engine cpu
+echo ==cpu==
+SELECT a, sum(b) AS s, count(*) AS n FROM t GROUP BY a
+exec
+engine cuda
+echo ==cuda==
+SELECT a, sum(b) AS s, count(*) AS n FROM t GROUP BY a
+exec
+echo ==end==
+"""
+
+
+def run_surfaces(dev, data, tmp: Path) -> None:
+    """`python -m aquery2_tpu_torch` on a #!aquery script (a procedure
+    recorded and run, stats, engine status, the same GROUP BY after
+    `engine cpu` and after `engine cuda`: equal answers); then an
+    AqServer on a connect() session and a client running h2o q1 over
+    SERVICE_ROWS rows."""
+    from aquery2_tpu_torch.repl.server import AqClient, AqServer
+
+    root = Path(K.__file__).resolve().parents[2]
+    (tmp / "s.a").write_text(REPL_SCRIPT)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "aquery2_tpu_torch", "s.a"],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(tmp), env={**os.environ,
+                                            "PYTHONPATH": str(root)})
+    wall = time.perf_counter() - t0
+    text = out.stdout
+    if out.returncode or "==end==" not in text:
+        raise AssertionError(f"the REPL failed ({out.returncode}):\n"
+                             f"{text[-2000:]}\n{out.stderr[-2000:]}")
+    cpu = text.split("==cpu==")[1].split("engine:")[0]
+    cuda = text.split("==cuda==")[1].split("==end==")[0]
+    for want in ("Queries executed", "engine: torch device = cuda",
+                 "engine: switched to cpu", "engine: switched to cuda"):
+        if want not in text:
+            raise AssertionError(f"the REPL printed no {want!r}:\n{text}")
+    if cpu != cuda or "3 | 9 | 3" not in cpu:
+        raise AssertionError(f"the REPL's answers differ:\n{cpu}\n{cuda}")
+    print(f"# python -m aquery2_tpu_torch s.a: {wall:.2f} s (a new process "
+          f"on the card); the GROUP BY on cpu and on cuda equal", flush=True)
+
+    db = connect(device=dev)
+    errors = collect_errors(db)
+    db.catalog.create(Table.from_numpy(
+        "source", {k: v[:SERVICE_ROWS] for k, v in data.items()}, device=dev))
+    srv = AqServer(port=0, session=db)
+    th = srv.start_background()
+    client = AqClient(port=srv.port)
+    t0 = time.perf_counter()
+    got = client.execute(QUERIES["q1"])
+    ms = (time.perf_counter() - t0) * 1e3
+    client.close()
+    srv.shutdown()
+    th.join(10)
+    db.close()
+    want, _, _ = stream_oracle({k: data[k][:SERVICE_ROWS]
+                                for k in ("id1", "v1")}, "q1")
+    if got["columns"] != ["id1", "v1"] or got["rows"] != [
+            (str(k), str(v)) for k, v in zip(want["id1"], want["v1"])]:
+        raise AssertionError(f"server q1: {got}")
+    if errors or th.is_alive():
+        raise AssertionError(f"server: errors {errors}, alive {th.is_alive()}")
+    print(f"# server: h2o q1 over {SERVICE_ROWS} rows from a client "
+          f"{ms:.3f} ms, equal to numpy", flush=True)
+
+
+def run_slice13(dev, data) -> dict[str, dict[str, int]]:
+    """Phase 10: services and surfaces on the card. Returns the stream's
+    and the interval trigger's launches."""
+    t_start = time.perf_counter()
+    launches = {}
+    rng = np.random.default_rng(SEED)
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmpdir:
+        tmp = Path(tmpdir)
+        db = connect(device=dev, base_dir=str(tmp))
+        errors = collect_errors(db)
+        load(db, "x", data, dev)
+        db.execute(STREAM)
+        for name, sql in stream_procedures(len(data["v1"]) // 2).items():
+            db.procedures.start_recording(name)
+            db.execute(sql)
+            db.procedures.stop_recording()
+        db.execute("CREATE TRIGGER t1 ON stream ACTION s_q1")
+        db.execute("CREATE TRIGGER t3 ON stream ACTION s_q3 WHEN s_big")
+        runs = time_procedures(db)
+        launches.update(run_stream(db, data, tmp, runs))
+        launches["interval_q7"] = run_interval(db, data, runs)
+        run_sqlite(db, data)
+        threads = db.triggers.threads()
+        db.close()
+        if any(th.is_alive() for th in threads) or len(threads) != 2:
+            raise AssertionError(f"close() left {threads}")
+        if errors:
+            raise AssertionError(f"the triggers logged {errors}")
+        print(f"# close(): the ticker and the worker stopped; no error "
+              f"logged", flush=True)
+        run_modules(dev, tmp, rng)
+        run_surfaces(dev, data, tmp)
+    for name in ("onehot_segment_sums", "seg_cumsum_i64", "seg_scan_multi"):
+        if not sum(per.get(name, 0) for per in launches.values()):
+            raise AssertionError(f"phase 10 launched no {name}")
+    print(f"# phase 10 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return launches
 
 
 def ptxas_line(r: dict) -> str:
@@ -2669,9 +3079,6 @@ def main() -> int:
     for q, per in MAIN_PATH_LAUNCHES.items():
         if launches[q] != per:
             raise AssertionError(f"{q} launched {launches[q]}, want {per}")
-    for r in rows:
-        r["launches"] = sum(per.get(r["name"], 0)
-                            for per in launches.values())
     for name, calls in sorted(scans.items()):
         print(f"# phase 4 called {name} {calls} times; ptxas: "
               f"{ptxas_line(ptxas[name])}", flush=True)
@@ -2683,6 +3090,16 @@ def main() -> int:
     phase("9. each query launched its path's kernels (q1-q10, qj and qjg "
           "exactly as before the float-sum gate), best_profit "
           "fused_running_stats")
+
+    slice13 = run_slice13(dev, data)
+    launches.update(slice13)
+    phase("10. services and surfaces: the stream's triggers (s1, s3), the "
+          "interval trigger (s7), SQLite, LOAD MODULE, the demo, the REPL "
+          "and the server match numpy; onehot_segment_sums, seg_cumsum_i64 "
+          "and seg_scan_multi launched from the trigger threads")
+    for r in rows:
+        r["launches"] = sum(per.get(r["name"], 0)
+                            for per in launches.values())
 
     print(json.dumps({"kernels": rows}))
     print(card)

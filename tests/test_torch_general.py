@@ -543,12 +543,13 @@ def test_float_literals_keep_float64():
 
 
 def test_statements_that_stay_out_raise(tmp_path):
-    """LOAD, INTO OUTFILE and an AGGREGATION FUNCTION the rewrite declines
-    now answer, as the JAX package does; LOAD MODULE and CREATE TRIGGER
-    still raise, naming their items."""
+    """LOAD, INTO OUTFILE, an AGGREGATION FUNCTION the rewrite declines,
+    LOAD MODULE and CREATE/DROP TRIGGER all answer now, as the JAX package
+    does (none raises any more)."""
     ts = aquery2_tpu_torch.connect(device="cpu", base_dir=str(tmp_path))
     js = aquery2_tpu.connect(base_dir=str(tmp_path))
     (tmp_path / "x.csv").write_text("a\n3\n1\n4\n1\n5\n")
+    (tmp_path / "m.py").write_text("def f(a):\n    return a * 2 + 1\n")
     for db in (ts, js):
         db.execute("CREATE TABLE t(a INT)")
         # a loop over half the group does not rewrite into aggregates
@@ -563,12 +564,16 @@ def test_statements_that_stay_out_raise(tmp_path):
         (tmp_path / "o_j.csv").read_text() == "3\n1\n4\n1\n5\n"
     assert ts.execute("SELECT half(a) AS h FROM t").rows() == \
         js.execute("SELECT half(a) AS h FROM t").rows() == [(8.0,)]
-    for sql, item in (('LOAD MODULE FROM "m.so" FUNCTIONS (f(a:int) -> int)',
-                       "item 8c"),
-                      ("CREATE TRIGGER tr ON t ACTION p WHEN q", "item 8b"),
-                      ("DROP TRIGGER tr", "item 8b")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.execute(sql)
+    got = []
+    for db in (ts, js):
+        db.execute('LOAD MODULE FROM "m.py" FUNCTIONS (f(a:int) -> int)')
+        db.execute("CREATE TRIGGER tr ON t ACTION p WHEN q")
+        names = sorted(db.triggers.triggers)
+        db.execute("DROP TRIGGER tr")
+        got.append((db.execute("SELECT f(a) FROM t").rows(), names,
+                    sorted(db.triggers.triggers)))
+        db.close()
+    assert got[0] == got[1] == ([(7,), (3,), (9,), (3,), (11,)], ["tr"], [])
 
 
 # --- the reference's scripts --------------------------------------------------

@@ -142,10 +142,12 @@ def test_load_matches_jax(tmp_path, header, empty_number, complex_load):
 
 
 def test_loadtxt_route_taken(tmp_path, monkeypatch):
-    """A plain file takes np.loadtxt, with or without an empty numeric
-    cell; LOAD COMPLEX DATA always the line reader."""
+    """A plain file into an all-numeric table takes the C++ scanner, with
+    or without an empty cell; into a table with a VARCHAR column,
+    np.loadtxt, with or without an empty numeric cell; LOAD COMPLEX DATA
+    always the line reader."""
     routes = []
-    for name in ("_load_numpy", "_load_python"):
+    for name in ("_load_native", "_load_numpy", "_load_python"):
         orig = getattr(csvio, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
@@ -155,16 +157,24 @@ def test_loadtxt_route_taken(tmp_path, monkeypatch):
         monkeypatch.setattr(csvio, name, spy)
     (tmp_path / "a.csv").write_text("1,2\n3,4\n")
     (tmp_path / "b.csv").write_text("1,2\n,4\n")
+    (tmp_path / "c.csv").write_text("1,x\n3,y\n")
+    (tmp_path / "d.csv").write_text("1,x\n,y\n")
     db = aquery2_tpu_torch.connect(device="cpu", base_dir=str(tmp_path))
     db.execute("CREATE TABLE t(a INT, b INT)")
     db.execute('LOAD DATA INFILE "a.csv" INTO TABLE t')
-    assert routes == [("_load_numpy", 2)]
+    assert routes == [("_load_native", 2)]
     db.execute('LOAD DATA INFILE "b.csv" INTO TABLE t')
-    assert routes[1:] == [("_load_numpy", 2)]
+    assert routes[1:] == [("_load_native", 2)]
     db.execute('LOAD COMPLEX DATA INFILE "a.csv" INTO TABLE t')
     assert routes[2:] == [("_load_python", 2)]
     assert db.execute("SELECT a, b FROM t").rows() == [
         (1, 2), (3, 4), (1, 2), (None, 4), (1, 2), (3, 4)]
+    db.execute("CREATE TABLE s(a INT, b VARCHAR(4))")
+    db.execute('LOAD DATA INFILE "c.csv" INTO TABLE s')
+    db.execute('LOAD DATA INFILE "d.csv" INTO TABLE s')
+    assert routes[3:] == [("_load_numpy", 2), ("_load_numpy", 2)]
+    assert db.execute("SELECT a, b FROM s").rows() == [
+        (1, "x"), (3, "y"), (1, "x"), (None, "y")]
 
 
 @pytest.mark.parametrize("text,sep,empty", [

@@ -36,7 +36,19 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.runtime.stats, "
             "aquery2_tpu_torch.storage.csvio, "
             "aquery2_tpu_torch.ops.window, "
-            "aquery2_tpu_torch.ops.hashing; "
+            "aquery2_tpu_torch.ops.hashing, "
+            "aquery2_tpu_torch.runtime.procedures, "
+            "aquery2_tpu_torch.runtime.triggers, "
+            "aquery2_tpu_torch.native, "
+            "aquery2_tpu_torch.storage.datasource, "
+            "aquery2_tpu_torch.storage.external, "
+            "aquery2_tpu_torch.sdk.modules, "
+            "aquery2_tpu_torch.models.decision_tree, "
+            "aquery2_tpu_torch.models.random_forest, "
+            "aquery2_tpu_torch.models.irf, "
+            "aquery2_tpu_torch.repl.prompt, "
+            "aquery2_tpu_torch.repl.server, "
+            "aquery2_tpu_torch.demo; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'aquery2_tpu')); "
@@ -57,7 +69,13 @@ def test_sources_name_no_jax():
         "udf_rewrite.py", "udf_device.py")} | {PKG / "ops" / nm for nm in (
             "agg.py", "filter.py", "ragged.py", "hashing.py", "window.py")} \
         | {PKG / "runtime" / "stats.py", PKG / "storage" / "csvio.py"} \
-        <= set(paths)
+        | {PKG / nm for nm in (
+            "runtime/procedures.py", "runtime/triggers.py",
+            "native/__init__.py", "storage/datasource.py",
+            "storage/external.py", "sdk/modules.py",
+            "models/decision_tree.py", "models/random_forest.py",
+            "models/irf.py", "repl/prompt.py", "repl/server.py",
+            "__main__.py", "demo.py")} <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
@@ -642,3 +660,88 @@ def test_function_bodies_and_csv_match_numpy_on_card(tmp_path):
     qty = np.bincount(sym, weights=a["quantity"]).astype(np.int64)
     assert {str(s): int(q) for s, q in back} == {
         d.strings()[i]: int(qty[i]) for i in np.unique(sym)}
+
+
+@pytest.mark.gpu
+def test_services_match_numpy_on_card(tmp_path):
+    """Procedures and a conditional and an interval trigger running h2o q1
+    and q7 on the card from the trigger threads (onehot_segment_sums,
+    seg_scan_multi), a LOAD DATA INFILE on the native scanner, and LOAD
+    MODULE of a Python module, each against numpy; no trigger logs an
+    error and close() leaves no trigger thread alive."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import time
+
+    from aquery2_tpu_torch.storage import csvio
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import h2o_g1
+
+    data = h2o_g1(200_000, 10, 11)
+    db = aquery2_tpu_torch.connect(base_dir=str(tmp_path))
+    errors = []
+    db.log_error = errors.append
+    db.catalog.create(Table.from_numpy("x", data, device="cuda"))
+    db.execute("CREATE TABLE stream(id1 INT, id2 INT, id3 INT, id4 INT, "
+               "id5 INT, id6 INT, v1 INT, v2 INT, v3 REAL)")
+    ps = db.procedures
+    ps.start_recording("s_q1")
+    db.execute("DROP TABLE IF EXISTS s1; CREATE TABLE s1 AS SELECT id1, "
+               "sum(v1) AS v1 FROM stream GROUP BY id1")
+    ps.stop_recording()
+    ps.start_recording("s_q7")
+    db.execute("DROP TABLE IF EXISTS s7; CREATE TABLE s7 AS SELECT id3, "
+               "max(v1) - min(v2) AS r FROM stream GROUP BY id3")
+    ps.stop_recording()
+    db.execute("CREATE TRIGGER t1 ON stream ACTION s_q1")
+    K.LAUNCHES.update(dict.fromkeys(K.LAUNCHES, 0))
+    seen = np.zeros(len(data["v1"]), bool)
+    for b in (1, 2):
+        db.execute(f"INSERT INTO stream SELECT * FROM x WHERE id4 = {b}")
+        assert db.triggers.drain(60)
+        seen |= data["id4"] == b
+        got = db.execute("SELECT id1, v1 FROM s1 ORDER BY id1").rows()
+        want = np.bincount(data["id1"][seen], data["v1"][seen],
+                           minlength=11).astype(np.int64)
+        assert got == [(k, int(want[k])) for k in np.unique(
+            data["id1"][seen])]
+    assert K.LAUNCHES["onehot_segment_sums"] == 2
+    (tmp_path / "b.csv").write_text("id1,id2,id3,id4,id5,id6,v1,v2,v3\n" +
+                                    "".join(f"{i % 10 + 1},1,1,3,1,1,{i},"
+                                            f"1,0.5\n" for i in range(100)))
+    assert csvio.route(db.catalog.get("stream")) == "native"
+    db.execute('LOAD DATA INFILE "b.csv" INTO TABLE stream')
+    assert db.triggers.drain(60)
+    extra = np.bincount(np.arange(100) % 10 + 1, np.arange(100),
+                        minlength=11)
+    want = (np.bincount(data["id1"][seen], data["v1"][seen], minlength=11)
+            + extra).astype(np.int64)
+    assert db.execute("SELECT id1, v1 FROM s1 ORDER BY id1").rows() == \
+        [(k, int(want[k])) for k in range(1, 11)]
+    db.execute("DROP TRIGGER t1")
+    K.LAUNCHES["seg_scan_multi"] = 0
+    db.execute("CREATE TRIGGER t7 ACTION s_q7 INTERVAL 100")
+    deadline = time.monotonic() + 10
+    while K.LAUNCHES["seg_scan_multi"] < 2 and time.monotonic() < deadline:
+        time.sleep(0.05)
+    db.execute("DROP TRIGGER t7")
+    time.sleep(0.3)
+    assert K.LAUNCHES["seg_scan_multi"] >= 2
+    t = db.catalog.get("stream")
+    id3 = t.columns["id3"].to_numpy()
+    v1, v2 = t.columns["v1"].to_numpy(), t.columns["v2"].to_numpy()
+    keys = np.unique(id3)
+    mx = np.full(keys.max() + 1, np.iinfo(np.int64).min)
+    mn = np.full(keys.max() + 1, np.iinfo(np.int64).max)
+    np.maximum.at(mx, id3, v1)
+    np.minimum.at(mn, id3, v2)
+    assert db.execute("SELECT id3, r FROM s7 ORDER BY id3").rows() == \
+        [(int(k), int(mx[k] - mn[k])) for k in keys]
+    (tmp_path / "m.py").write_text("def twice(x):\n    return x * 2\n")
+    db.execute('LOAD MODULE FROM "m.py" FUNCTIONS (twice(x:vecint) -> vecint)')
+    r = db.execute("SELECT twice(v1) AS w FROM stream")
+    assert r.table["w"].device.type == "cuda"
+    np.testing.assert_array_equal(r.table["w"].to_numpy(), v1 * 2)
+    threads = db.triggers.threads()
+    db.close()
+    assert errors == [] and not any(th.is_alive() for th in threads)
