@@ -10,4 +10,8 @@
   fused_ordered.py  the ordered group-by (ASSUMING, running aggregates)
   fused_star.py     the star join into the fused group-by (qjg)
   fused_join.py     count(*) over an equi-join (qj)
+  dist_query.py     on a mesh: grouped and ungrouped aggregates
+  dist_join_query.py  on a mesh: the exchanged equi-join, then a dist tier
+  dist_scan.py      on a mesh: top-k and ordered scans
+  dist_setop.py     on a mesh: EXCEPT, INTERSECT and DISTINCT of rows
 """

@@ -324,9 +324,9 @@ class EvalContext:
     # -- subqueries (uncorrelated) -----------------------------------------
 
     def _run_subquery(self, e: A.Subquery) -> Table:
-        from aquery2_tpu_torch.engine.executor import Executor
-
-        return Executor(self.session).run_select(e.select)
+        # the session's executor: on a mesh it holds the statement's
+        # gathered tables
+        return self.session.executor.run_select(e.select)
 
     def _scalar_subquery(self, e: A.Subquery) -> Value:
         t = self._run_subquery(e)

@@ -44,6 +44,20 @@ route, as a CSV file without a header. Paths resolve under the session's
 ``base_dir``. LOAD MODULE registers a module's functions (sdk/modules.py);
 CREATE/DROP TRIGGER go to the session's trigger host
 (runtime/triggers.py), and every LOAD and INSERT then notifies it.
+
+On a mesh session (parallel/mesh.py) each SELECT is counted as the JAX
+package counts it (``run_select``): the distributed tiers come first at
+the JAX package's places (engine/dist_query.py for one grouped or
+ungrouped table, the star join's and the count join's mesh branches,
+engine/dist_join_query.py for other two-table equi-joins,
+engine/dist_scan.py for ungrouped scans, engine/dist_setop.py for EXCEPT,
+INTERSECT and DISTINCT of materialized rows), and whatever they decline
+runs the single-device tiers over tables gathered back whole
+(``_cat``: the columns the statement names, all-gathered once per
+statement). A statement that changes a table (LOAD, INSERT, DELETE,
+UPDATE, CREATE TABLE AS) places it again. The median, ordered
+(ASSUMING) group-bys and OVER windows on a mesh are ROADMAP item 9b and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,7 +69,8 @@ import torch
 
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.engine import (fused_groupby, fused_join,
+from aquery2_tpu_torch.engine import (dist_join_query, dist_query, dist_scan,
+                                      dist_setop, fused_groupby, fused_join,
                                       fused_ordered, fused_scan, fused_star)
 from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
@@ -83,13 +98,38 @@ class ExecError(Exception):
 class Executor:
     def __init__(self, session) -> None:
         self.session = session
+        self._view = None               # a mesh statement's gathered tables
+
+    def _cat(self):
+        """The catalog as single-device code reads it: on a mesh session
+        the statement's view, whose tables are gathered whole."""
+        return self._view if self._view is not None else self.session.catalog
+
+    def _store(self, tbl: Table) -> None:
+        """A table this statement changed: back into the catalog and, on
+        a mesh session, placed over the ranks again."""
+        if self.session.mesh is not None:
+            self.session.catalog.create(tbl, replace=True)
+            self._view.forget(tbl.name)
+            self.session.place_table(tbl)
 
     # ------------------------------------------------------------------ #
     # statements
     # ------------------------------------------------------------------ #
 
     def execute(self, stmt: A.Statement) -> Result | None:
-        catalog = self.session.catalog
+        mesh = self.session.mesh
+        if mesh is None or self._view is not None:
+            return self._execute(stmt)
+        mesh.log.reset()                # last_query_comm: this statement
+        self._view = _GatheredCatalog(self.session, _statement_columns(stmt))
+        try:
+            return self._execute(stmt)
+        finally:
+            self._view = None
+
+    def _execute(self, stmt: A.Statement) -> Result | None:
+        catalog = self._cat()
         if isinstance(stmt, A.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, A.DropTable):
@@ -120,11 +160,12 @@ class Executor:
             self.session.udfs[stmt.name.lower()] = Udf(stmt)
             return None
         if isinstance(stmt, A.Load):
-            tbl = self.session.catalog.get(stmt.table)
+            tbl = catalog.get(stmt.table)
             csvio.load_csv_into(tbl, self.session.resolve_path(stmt.path),
                                 field_sep=stmt.field_sep,
                                 element_sep=stmt.element_sep,
                                 complex_cells=stmt.complex)
+            self._store(tbl)
             self.session.notify_insert(tbl.name)
             return None
         if isinstance(stmt, A.LoadModule):
@@ -141,11 +182,12 @@ class Executor:
         raise ExecError(f"cannot execute {type(stmt).__name__}")
 
     def _create_table(self, stmt: A.CreateTable) -> None:
-        catalog = self.session.catalog
+        catalog = self._cat()
         if stmt.as_select is not None:
             tbl = self.run_select(stmt.as_select)
             tbl.name = stmt.name
             catalog.create(tbl, replace=True)
+            self._store(tbl)
             return None
         dev = self.session.device
         cols = []
@@ -158,9 +200,10 @@ class Executor:
         return None
 
     def _insert(self, stmt: A.Insert) -> None:
-        tbl = self.session.catalog.get(stmt.table)
+        tbl = self._cat().get(stmt.table)
         if stmt.select is not None:
             tbl.append_table(self.run_select(stmt.select))
+            self._store(tbl)
             self.session.notify_insert(tbl.name)
             return None
         rows = []
@@ -184,6 +227,7 @@ class Executor:
             perm = [order.index(nm) for nm in names]
             rows = [[r[i] for i in perm] for r in rows]
         tbl.append_rows(rows)
+        self._store(tbl)
         self.session.notify_insert(tbl.name)
         return None
 
@@ -198,7 +242,7 @@ class Executor:
                        < ctx.ws.n)
 
     def _delete(self, stmt: A.Delete) -> None:
-        tbl = self.session.catalog.get(stmt.table)
+        tbl = self._cat().get(stmt.table)
         n = tbl.nrows
         if stmt.where is None:
             keep = torch.zeros(0, dtype=torch.int64, device=self.session.device)
@@ -208,12 +252,13 @@ class Executor:
             keep, _m = filter_ops.compact_indices(~gone[:n])
         out = _take_table(tbl, keep)
         tbl.columns = out.columns
+        self._store(tbl)
         return None
 
     def _update(self, stmt: A.Update) -> None:
         """UPDATE t SET c = expr [, ...] [WHERE cond]: a masked overwrite of
         the device columns. Every right-hand side reads the old row."""
-        tbl = self.session.catalog.get(stmt.table)
+        tbl = self._cat().get(stmt.table)
         ws = WorkingSet.from_table(tbl, self.session.device)
         ctx = EvalContext(ws, self.session)
         if stmt.where is not None:
@@ -251,6 +296,7 @@ class Executor:
                                            nrows=tbl.nrows,
                                            dictionary=col.dictionary,
                                            valid=valid)
+        self._store(tbl)
         return None
 
     def _empty_ws(self) -> WorkingSet:
@@ -263,24 +309,43 @@ class Executor:
     # ------------------------------------------------------------------ #
 
     def run_select(self, sel: A.Select) -> Table:
-        table = self._select(sel)
+        session = self.session
+        if session.mesh is None:
+            table = self._select(sel)
+        else:
+            # whether a distributed tier ran this SELECT (nested SELECTs
+            # count on their own), as the JAX package accounts it
+            prev = (session._dist_hit, session._dist_reason)
+            session._dist_hit, session._dist_reason = False, None
+            try:
+                table = self._select(sel)
+            finally:
+                if session._dist_hit:
+                    session.stats.dist_spmd += 1
+                else:
+                    session._record_mesh_fallback(
+                        session._dist_reason or "query class not distributed")
+                session._dist_hit, session._dist_reason = prev
         if sel.into_table:
             table.name = sel.into_table
-            self.session.catalog.create(table, replace=True)
+            self._cat().create(table, replace=True)
         if sel.into_outfile:
             Result(table).to_csv(self.session.resolve_path(sel.into_outfile),
                                  sep=sel.outfile_sep, header=False)
         return table
 
     def _select(self, sel: A.Select) -> Table:
-        catalog = self.session.catalog
-        if self.session.udfs:
+        session = self.session
+        mesh = session.mesh
+        placed = session.catalog            # placed tables: the dist tiers
+        catalog = self._cat()
+        if session.udfs:
             # accumulation-loop AGGREGATION FUNCTIONs become aggregate
             # expressions first, so that every tier below runs them
-            sel2 = udf_rewrite.rewrite_select(self.session, sel)
+            sel2 = udf_rewrite.rewrite_select(session, sel)
             if sel2 is not None:
                 sel = sel2
-        sel2 = _distinct_to_groupby(sel, catalog)
+        sel2 = _distinct_to_groupby(sel, placed)
         if sel2 is not None:
             sel = sel2
         if sel.unions:
@@ -290,6 +355,14 @@ class Executor:
         srcs = sel.sources
         one_table = (len(srcs) == 1 and isinstance(srcs[0], A.TableSource)
                      and srcs[0].name in catalog)
+        if sel.group_by and one_table and mesh is not None:
+            table = placed.get(srcs[0].name)
+            t = dist_query.run(session, sel, table)
+            if t is not None:
+                return t
+            if _ordered_shape(sel, table):
+                raise dist_query.not_ported("an ordered (ASSUMING) group-by",
+                                            "dist_ordered")
         if sel.group_by and one_table:
             table = catalog.get(srcs[0].name)
             t = fused_groupby.run(sel, table)
@@ -301,12 +374,32 @@ class Executor:
                 return t
         if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):
             t = None
-            if not sel.assumptions:
+            if not sel.assumptions and mesh is None:
                 t = fused_star.try_run(catalog, sel)
                 if t is None and not sel.group_by:
                     t = fused_join.try_run(catalog, sel)
+            elif not sel.assumptions:
+                # the mesh branches take the shapes the single-device
+                # tiers take; a star join they decline runs gathered
+                fits, t = fused_star.try_run_mesh(session, sel)
+                if t is None and fits and sel.group_by:
+                    t = fused_star.try_run(catalog, sel)
+                if t is None and not sel.group_by:
+                    t = fused_join.try_run_mesh(session, sel)
+                if t is None:
+                    t = dist_join_query.try_run(session, sel)
             return t if t is not None else self._general(sel)
         if not sel.group_by and not sel.assumptions:
+            if mesh is not None and one_table:
+                table = placed.get(srcs[0].name)
+                if _window_shape(sel, table):
+                    raise dist_query.not_ported("an OVER window",
+                                                "dist_window")
+                t = dist_query.run_ungrouped(session, sel, table)
+                if t is None:
+                    t = dist_scan.try_run(session, sel, table)
+                if t is not None:
+                    return t
             t = fused_scan.try_run(catalog, sel)
             if t is not None:
                 return t
@@ -350,7 +443,7 @@ class Executor:
         for kind, sub in sel.unions:
             table = self._combine(table, kind, self.run_select(sub))
         if sel.distinct:
-            table = _distinct(table)
+            table = self._distinct_any(table)
         if sel.order_by:
             table = self._apply_order(ctx, sel, table)
         if sel.limit is not None:
@@ -377,11 +470,16 @@ class Executor:
         main = dataclasses.replace(sel, unions=[], order_by=[], limit=None,
                                    distinct=False, into_table=None,
                                    into_outfile=None)
+        stats = self.session.stats
+        sp0, fb0 = stats.dist_spmd, stats.dist_fallback
         table = self.run_select(main)
         for kind, sub in sel.unions:
             table = self._combine(table, kind, self.run_select(sub))
+        if (self.session.mesh is not None and stats.dist_fallback == fb0
+                and stats.dist_spmd > sp0):
+            self.session.note_spmd()    # every arm ran over the mesh
         if sel.distinct:
-            table = _distinct(table)
+            table = self._distinct_any(table)
         if sel.order_by and table.nrows:
             names = table.column_names()
             keys = []
@@ -412,8 +510,22 @@ class Executor:
         INTERSECT [ALL] compare row tuples (_set_op)."""
         if kind in ("all", "distinct"):
             table.append_table(other)
-            return table if kind == "all" else _distinct(table)
+            return table if kind == "all" else self._distinct_any(table)
+        if self.session.mesh is not None:
+            t = dist_setop.try_setop(self.session, table, other, kind)
+            if t is not None:
+                return t
         return _set_op(table, other, kind)
+
+    def _distinct_any(self, table: Table) -> Table:
+        """DISTINCT of a materialized table: on a mesh session the tuple
+        shuffle of engine/dist_setop.py, else (or where it declines)
+        _distinct."""
+        if self.session.mesh is not None:
+            t = dist_setop.try_distinct(self.session, table)
+            if t is not None:
+                return t
+        return _distinct(table)
 
     # -- sources -----------------------------------------------------------
 
@@ -432,7 +544,7 @@ class Executor:
         def build(src) -> WorkingSet:
             if isinstance(src, A.TableSource):
                 return WorkingSet.from_table(
-                    self.session.catalog.get(src.name), dev, src.alias)
+                    self._cat().get(src.name), dev, src.alias)
             if isinstance(src, A.SubquerySource):
                 sub = self.run_select(src.select)
                 if src.alias:
@@ -819,8 +931,7 @@ def _common_columns(left: WorkingSet, right: WorkingSet) -> list[str]:
 
 def _distinct(table: Table) -> Table:
     """The distinct rows of a materialized table, key-ascending (string
-    columns by code), as the JAX package's _distinct orders them
-    (_distinct_any's other branch, the mesh's dedupe, is item 9):
+    columns by code), as the JAX package's _distinct orders them:
     engine/groupby over every column, a NULL coded as a sentinel past the
     column's values so that NULLs are one value."""
     n = table.nrows
@@ -1043,3 +1154,114 @@ def _limit_table(table: Table, k: int) -> Table:
         return table
     dev = next(iter(table.columns.values())).device
     return _take_table(table, torch.arange(n, device=dev))
+
+
+# --------------------------------------------------------------------- #
+# mesh sessions
+# --------------------------------------------------------------------- #
+
+class _All(Exception):
+    pass
+
+
+def _statement_columns(stmt) -> set[str] | None:
+    """Lower-cased names of every column a SELECT (or CREATE TABLE AS)
+    names, subqueries included; None (every column) where it needs them
+    all: a star, a NATURAL join, any other statement."""
+    if isinstance(stmt, A.CreateTable) and stmt.as_select is not None:
+        stmt = stmt.as_select
+    if not isinstance(stmt, A.Select):
+        return None
+    names: set[str] = set()
+
+    def walk(x):
+        if isinstance(x, A.Star) or (isinstance(x, A.JoinSource)
+                                     and x.kind == "natural"):
+            raise _All
+        if isinstance(x, A.ColumnRef):
+            names.add(x.name.lower())
+        elif isinstance(x, A.JoinSource):
+            names.update(u.lower() for u in x.using or ())
+        if dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+        elif isinstance(x, (list, tuple)):
+            for y in x:
+                walk(y)
+
+    try:
+        walk(stmt)
+    except _All:
+        return None
+    return names
+
+
+class _GatheredCatalog:
+    """One mesh statement's catalog for single-device code: a placed
+    table comes back gathered whole (the columns the statement names),
+    once per statement; any other table as it is."""
+
+    def __init__(self, session, names: set[str] | None) -> None:
+        self.session = session
+        self.catalog = session.catalog
+        self.wanted = names
+        self.cache: dict[str, Table] = {}
+
+    def get(self, name: str) -> Table:
+        key = name.lower()
+        if key not in self.cache:
+            self.cache[key] = self.session.readable(self.catalog.get(name),
+                                                    self.wanted)
+        return self.cache[key]
+
+    def forget(self, name: str) -> None:
+        self.cache.pop(name.lower(), None)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.catalog
+
+    def create(self, table: Table, replace: bool = False) -> Table:
+        self.forget(table.name)
+        return self.catalog.create(table, replace=replace)
+
+    def drop(self, name: str, if_exists: bool = False) -> None:
+        self.forget(name)
+        self.catalog.drop(name, if_exists=if_exists)
+
+    def names(self) -> list[str]:
+        return self.catalog.names()
+
+
+def _ordered_shape(sel: A.Select, table: Table) -> bool:
+    """Whether the JAX package's mesh session would run this grouped
+    query by its ordered tier (engine/dist_ordered.run_ordered)."""
+    try:
+        fused_ordered.plan(sel, table)
+    except fused_groupby.Unsupported:
+        return False
+    return True
+
+
+def _window_shape(sel: A.Select, table: Table) -> bool:
+    """Whether the JAX package's mesh session would run this ungrouped
+    query by its window tier (engine/dist_window.try_run): an OVER
+    projection over one table, beside plain row projections."""
+    if not any(isinstance(p.expr, A.WindowExpr) for p in sel.projections):
+        return False
+    if sel.unions or sel.distinct or sel.having is not None:
+        return False
+    cols = table.columns
+    for p in sel.projections:
+        e = p.expr
+        if isinstance(e, A.WindowExpr):
+            continue
+        if isinstance(e, A.Star):
+            return False
+        if isinstance(e, A.ColumnRef) and e.name in cols \
+                and not cols[e.name].is_vector:
+            continue
+        try:
+            fused_groupby._check_row_expr(e, cols)
+        except fused_groupby.Unsupported:
+            return False
+    return True

@@ -44,6 +44,7 @@ next tier.
 from __future__ import annotations
 
 import operator
+import zlib
 
 import torch
 
@@ -547,7 +548,7 @@ _LIMB_LIMIT = 2.0 ** 62     # |Σ limbs| below 2^63, with a factor-2 margin
 
 
 def float_sums_fit(scatters, cols, n: int, rows, valid,
-                   null_fn=None) -> bool:
+                   null_fn=None, reduce=None) -> bool:
     """Whether _build_lanes sums every float argument right: no NaN or
     ±inf (a limb split turns them into garbage, and the packed tier's
     float64 running totals carry one into every later group), and for a
@@ -560,7 +561,10 @@ def float_sums_fit(scatters, cols, n: int, rows, valid,
 
     A stored column's bound is its cached float_summary() (or stats(),
     an integer corr partner); the computed arguments (rows(e) over the
-    rows of valid that are not NULL) share one host sync."""
+    rows of valid that are not NULL) share one host sync. reduce, where
+    given, combines their [args, 2] (not-finite flag, largest |value|)
+    over the ranks of a mesh first (an all_reduce max), so that every
+    rank decides alike."""
     need: list[tuple[str, list]] = []
     for kind, args in scatters.values():
         if kind in _SUM_KINDS:
@@ -606,9 +610,13 @@ def float_sums_fit(scatters, cols, n: int, rows, valid,
                     else torch.ones_like(vm)
                 mag = torch.where(vm & fin, v.to(torch.float64).abs(), 0)
                 pending[k] = torch.stack([
-                    (vm & ~fin).any().to(torch.float64), mag.max()])
+                    (vm & ~fin).any().to(torch.float64),
+                    mag.max() if mag.numel() else mag.new_zeros(())])
     if pending:                     # the computed arguments' one sync
-        got = torch.stack(list(pending.values())).tolist()
+        got = torch.stack(list(pending.values()))
+        if reduce is not None:
+            got = reduce(got)
+        got = got.tolist()
         for k, (bad, mx) in zip(pending, got):
             info[k][2] = (not bad, mx)
 
@@ -862,6 +870,14 @@ def run(sel: A.Select, table: Table) -> Table | None:
                   or [None] * len(keys))
         dense, counts, keyvals = _run_sort(env, env_null, valid, scatters,
                                            keys, bounds)
+    return finish_groups(p, cols, dense, counts, keyvals)
+
+
+def finish_groups(p, cols, dense, counts, keyvals) -> Table:
+    """The output Table from the per-group lanes (``dense``, tag → [g]),
+    the group sizes and each key's [g] values, groups in key order: the
+    projections, then HAVING, ORDER BY and LIMIT (_finish)."""
+    keys = p["keys"]
     results = []
     for kindp, expr, _alias in p["projections"]:
         if kindp == "key":
@@ -1026,7 +1042,9 @@ def derive_name(e: A.Expr) -> str:
         return legal_name(str(e.value))
     if isinstance(e, A.UnaryOp):
         return legal_name(f"{e.op}_{derive_name(e.operand)}")
-    return f"col_{base62uuid(4)}"
+    # named after the expression's text, so that every rank of a mesh
+    # (and every run) names it alike
+    return f"col_{zlib.crc32(repr(e).encode()):08x}"
 
 
 def output_names(projections) -> list[str]:

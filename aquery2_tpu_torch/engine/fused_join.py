@@ -40,14 +40,15 @@ from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils import base62uuid
 
 
-def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
-    """The one-row result of a count join, or None where the shape does
-    not fit."""
+def _shape(get, has, sel: A.Select):
+    """The count join's (probe table, probe key, build table, build key)
+    over the tables ``get(name)`` gives, the smaller side building, or
+    None where the shape does not fit."""
     if (sel.group_by or sel.assumptions or sel.order_by or sel.having
             or sel.distinct or sel.unions or sel.limit is not None):
         return None
     if len(sel.sources) != 2 or not all(
-            isinstance(s, A.TableSource) and s.name in catalog
+            isinstance(s, A.TableSource) and has(s.name)
             for s in sel.sources):
         return None
     for p in sel.projections:
@@ -59,7 +60,7 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
             and isinstance(w.left, A.ColumnRef)
             and isinstance(w.right, A.ColumnRef)):
         return None
-    tables = [catalog.get(s.name) for s in sel.sources]
+    tables = [get(s.name) for s in sel.sources]
     if any(t.has_nulls() for t in tables):
         return None
 
@@ -81,8 +82,17 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
     if lcol.sqltype.is_string or rcol.sqltype.is_string:
         return None
     if lt.nrows < rt.nrows:
-        lcol, rcol = rcol, lcol     # the smaller side builds
+        return rt, rcol, lt, lcol       # the smaller side builds
+    return lt, lcol, rt, rcol
 
+
+def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
+    """The one-row result of a count join, or None where the shape does
+    not fit."""
+    shape = _shape(catalog.get, catalog.__contains__, sel)
+    if shape is None:
+        return None
+    _lt, lcol, _rt, rcol = shape
     total = None
     if integer_key(lcol) and integer_key(rcol):
         mn, mx = rcol.stats()
@@ -91,6 +101,52 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
     if total is None:
         total = count_sorted(lcol, rcol)
     return _result(sel, int(total), lcol.device)
+
+
+# the mesh's histogram route ships [domain] int32 counts per rank; above
+# this domain the hash exchange of the keys moves fewer bytes (the JAX
+# package's bound)
+MESH_HIST_MAX_DOMAIN = 1 << 22
+
+
+def try_run_mesh(session, sel: A.Select) -> Table | None:
+    """The count join on a mesh session, over each rank's blocks: for an
+    integer build domain of at most MESH_HIST_MAX_DOMAIN keys, each rank
+    counts its build rows per key, one all_reduce adds the histograms,
+    each rank reads its probe rows' counts and one all_reduce adds them;
+    any other keys go through the hash exchange of both sides
+    (parallel/dist_join.dist_join_counts)."""
+    from aquery2_tpu_torch.parallel import comm
+    from aquery2_tpu_torch.parallel.dist_join import dist_join_counts
+    from aquery2_tpu_torch.parallel.mesh import local_view
+
+    mesh, catalog = session.mesh, session.catalog
+    shape = _shape(lambda nm: local_view(mesh, catalog.get(nm)),
+                   catalog.__contains__, sel)
+    if shape is None:
+        return None
+    lt, lcol, rt, rcol = shape
+    session.note_spmd()
+    if integer_key(lcol) and integer_key(rcol):
+        mn, mx = rcol.stats()
+        domain = mx - mn + 1
+        if domain <= MESH_HIST_MAX_DOMAIN:
+            dev = rcol.device
+            code = torch.where(rt.valid, rcol.data.to(torch.int64) - mn,
+                               domain)
+            hist = torch.zeros(domain + 1, dtype=torch.int32, device=dev)
+            hist.index_add_(0, code, torch.ones(code.shape[0],
+                                                dtype=torch.int32,
+                                                device=dev))
+            hist = comm.all_reduce(mesh, hist[:domain], "sum")
+            hist = torch.cat([hist, hist.new_zeros(1)])
+            cnt = hist.index_select(0, domain_codes(lcol.data, lcol.nrows,
+                                                    mn, mx))
+            cnt = torch.where(lt.valid, cnt, 0).sum(dtype=torch.int64)
+            total = int(comm.all_reduce(mesh, cnt.reshape(1), "sum")[0])
+            return _result(sel, total, lcol.device)
+    total = dist_join_counts(mesh, lcol.data, lt.valid, rcol.data, rt.valid)
+    return _result(sel, total, lcol.device)
 
 
 def count_histogram(pcol: Column, bcol: Column, mn: int, mx: int

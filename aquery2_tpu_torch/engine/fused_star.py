@@ -114,10 +114,32 @@ def probe(pos: torch.Tensor, pkey: Column, mn: int,
     return match, [d.index_select(0, safe) for d in dim_cols]
 
 
-def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
-    """The result Table of a grouped star-join SELECT, or None where the
-    shape does not fit."""
-    if sel.assumptions or sel.distinct or sel.unions or not sel.group_by:
+def _contains_agg(e) -> bool:
+    if isinstance(e, A.Call):
+        if e.func in fused_groupby._SIMPLE_AGGS or e.func == "count":
+            return True
+        return any(_contains_agg(a) for a in e.args
+                   if not isinstance(a, A.Star))
+    if isinstance(e, A.BinOp):
+        return _contains_agg(e.left) or _contains_agg(e.right)
+    if isinstance(e, A.UnaryOp):
+        return _contains_agg(e.operand)
+    return False
+
+
+def _plan(get, has, sel: A.Select, ungrouped: bool = False):
+    """The star shape of ``sel`` over the tables ``get(name)`` gives
+    (``has(name)``: whether one exists), or None: (tables, build side,
+    build key name, probe key name, key min, key max, the referenced dim
+    columns {name: name in the rewrite}, the rewritten SELECT over the
+    synthetic table) and the two tables' names. ungrouped: also take a SELECT whose every
+    projection is an aggregate (the mesh's ungrouped join aggregate)."""
+    if sel.assumptions or sel.distinct or sel.unions:
+        return None
+    if not sel.group_by and not (
+            ungrouped and sel.projections and all(
+                not isinstance(p.expr, A.Star) and _contains_agg(p.expr)
+                for p in sel.projections)):
         return None
 
     # the explicit two-table JOIN forms into the comma + WHERE form
@@ -128,16 +150,16 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
         if not (isinstance(js.left, A.TableSource)
                 and isinstance(js.right, A.TableSource)
                 and js.kind in ("inner", "natural")
-                and js.left.name in catalog and js.right.name in catalog):
+                and has(js.left.name) and has(js.right.name)):
             return None
         la = js.left.alias or js.left.name
         ra = js.right.alias or js.right.name
         if js.on is not None:
             extra = _split_conjuncts(js.on)
         else:
-            rnames = {c.lower() for c in catalog.get(js.right.name).columns}
+            rnames = {c.lower() for c in get(js.right.name).columns}
             names = (list(js.using) if js.using else
-                     [nm for nm in catalog.get(js.left.name).columns
+                     [nm for nm in get(js.left.name).columns
                       if nm.lower() in rnames])
             if len(names) != 1:
                 return None          # a multi-column join
@@ -145,11 +167,11 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
                              right=A.ColumnRef(names[0], ra))]
         sources = [js.left, js.right]
     if (len(sources) != 2
-            or not all(isinstance(s, A.TableSource) and s.name in catalog
+            or not all(isinstance(s, A.TableSource) and has(s.name)
                        for s in sources)
             or (sel.where is None and not extra)):
         return None
-    tables = [catalog.get(s.name) for s in sources]
+    tables = [get(s.name) for s in sources]
     if any(t.has_nulls() for t in tables):
         return None
     aliases = [(s.alias or s.name).lower() for s in sources]
@@ -246,7 +268,24 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
                  for o in sel.order_by]
     if unresolvable:
         return None
+    new_sel = replace(
+        sel, sources=[A.TableSource(name=_TMP)],
+        where=_and_all(new_resid + [A.ColumnRef(name=MATCH)]),
+        group_by=new_group, projections=new_projs, having=new_having,
+        order_by=new_order)
+    return (tables, build, bname, pname, mn, mx, dim_refs, new_sel,
+            [s.name for s in sources])
 
+
+def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
+    """The result Table of a grouped star-join SELECT, or None where the
+    shape does not fit."""
+    plan = _plan(catalog.get, catalog.__contains__, sel)
+    if plan is None:
+        return None
+    tables, build, bname, pname, mn, mx, dim_refs, new_sel, _nm = plan
+    bt, pt = tables[build], tables[1 - build]
+    bkey, pkey = bt.columns[bname], pt.columns[pname]
     pos, unique = build_positions(bkey, mn, mx)
     if not bool(unique):            # the duplicate check's host sync
         return None                 # duplicate build keys: not a star join
@@ -275,10 +314,59 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
         col._stats = pkey.stats()
         tmp.add_column(col)
     tmp.add_column(Column(MATCH, T.BoolT, match, nrows=n))
-
-    new_sel = replace(
-        sel, sources=[A.TableSource(name=_TMP)],
-        where=_and_all(new_resid + [A.ColumnRef(name=MATCH)]),
-        group_by=new_group, projections=new_projs, having=new_having,
-        order_by=new_order)
     return fused_groupby.run(new_sel, tmp)
+
+
+def try_run_mesh(session, sel: A.Select):
+    """The star join on a mesh session, as the JAX package runs it: the
+    build table gathered whole (its key, then the columns the rewrite
+    reads; it is the smaller side), the position table built on every
+    rank, and each
+    rank probing its block of the probe table, whose rows stay where they
+    are; the rewritten SELECT then runs on engine/dist_query.py over the
+    synthetic table's blocks (grouped, or ungrouped: every projection an
+    aggregate). (fits, result): fits is False where the shape is not a
+    star join; result is None where the distributed tier declined."""
+    from aquery2_tpu_torch.engine import dist_query
+    from aquery2_tpu_torch.parallel.mesh import (LocalView, block_column,
+                                                 local_view)
+
+    mesh, catalog = session.mesh, session.catalog
+    views: dict[str, Table] = {}
+
+    def get(name: str) -> Table:
+        key = name.lower()
+        if key not in views:
+            views[key] = local_view(mesh, catalog.get(name))
+        return views[key]
+
+    plan = _plan(get, catalog.__contains__, sel, ungrouped=True)
+    if plan is None:
+        return False, None
+    tables, build, bname, pname, mn, mx, dim_refs, new_sel, names = plan
+    bt, local = tables[build], tables[1 - build]
+    dim_cols = [nm for nm in dim_refs if nm != bname.lower()]
+    placed = catalog.get(names[build])
+    # the build key first: duplicate keys decline before the payloads move
+    pos, unique = build_positions(
+        session.readable(placed, {bname.lower()}).columns[bname], mn, mx)
+    if not bool(unique):
+        return False, None          # duplicate build keys: not a star join
+    pkey = local.columns[pname]
+    dims = session.readable(placed, set(dim_cols)) if dim_cols else None
+    match, gathered = probe(pos, pkey, mn,
+                            [dims.columns[nm].data for nm in dim_cols])
+    cols = list(local.columns.values())
+    for nm, arr in zip(dim_cols, gathered):
+        src = bt.columns[nm]
+        cols.append(block_column(dim_refs[nm], src.sqltype, arr, None,
+                                 src.dictionary, src))
+    km = dim_refs.get(bname.lower())
+    if km is not None:
+        cols.append(block_column(km, bt.columns[bname].sqltype, pkey.data,
+                                 None, pkey.dictionary, pkey))
+    cols.append(block_column(MATCH, T.BoolT, match, None, None, pkey))
+    tmp = LocalView(_TMP, cols, local.n, local.valid, local.gidx)
+    if new_sel.group_by:
+        return True, dist_query.run(session, new_sel, tmp)
+    return True, dist_query.run_ungrouped(session, new_sel, tmp)

@@ -48,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.storage.table import nullable
 
 # reducers over group vectors → SQL aggregate of the elementwise arg
 _REDUCER_AGGS = {"sum", "avg", "mean", "count", "min", "max",
@@ -350,7 +351,7 @@ def _args_rewritable(call: A.Call, tables) -> bool:
         if len(hits) != 1:
             return False
         c = hits[0]
-        if c.is_vector or c.sqltype.is_string or c.valid is not None:
+        if c.is_vector or c.sqltype.is_string or nullable(c):
             return False
     return True
 

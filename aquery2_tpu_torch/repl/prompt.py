@@ -218,7 +218,11 @@ class Repl:
 def move_catalog(session: Session, device: torch.device) -> int:
     """Move every catalog table's tensors to ``device`` and make it the
     session's device; the tables moved. Raises, moving nothing, if the
-    device is not available."""
+    device is not available or the session is a mesh's (its ranks' blocks
+    stay where the ranks placed them)."""
+    if session.mesh is not None:
+        raise RuntimeError("a mesh session's tables stay on its ranks' "
+                           "devices")
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available")

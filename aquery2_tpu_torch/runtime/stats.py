@@ -23,8 +23,13 @@ UDF routes (``note_udf``), with the JAX package's names:
   scalar_device  a scalar FUNCTION inlined into the evaluator;
   scalar_host    a scalar FUNCTION run by the host interpreter.
 ``enabled`` (the REPL's ``stats on|off``) stops and restarts the
-counting. The mesh counters of the JAX package (``dist_*``) wait for
-ROADMAP item 9.
+counting.
+
+Mesh sessions (parallel/mesh.py) count each SELECT, as the JAX package
+does: ``dist_spmd`` when a distributed tier ran it over the ranks' blocks,
+``dist_fallback`` when it ran the single-device engine over gathered
+tables, with the first reason a tier gave for declining in
+``dist_fallback_reasons``.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ class QueryStats:
     queries: int = 0
     history: list = field(default_factory=list)   # (text[:120], seconds)
     udf_paths: dict = field(default_factory=dict)
+    dist_spmd: int = 0
+    dist_fallback: int = 0
+    dist_fallback_reasons: dict = field(default_factory=dict)
 
     def note_udf(self, path: str) -> None:
         if self.enabled:
@@ -70,6 +78,8 @@ class QueryStats:
         self.queries = 0
         self.history.clear()
         self.udf_paths.clear()
+        self.dist_spmd = self.dist_fallback = 0
+        self.dist_fallback_reasons.clear()
 
     def format(self) -> str:
         lines = [
@@ -80,6 +90,11 @@ class QueryStats:
         if self.udf_paths:
             lines.append("UDF paths:        " + ", ".join(
                 f"{k}={v}" for k, v in sorted(self.udf_paths.items())))
+        if self.dist_spmd or self.dist_fallback:
+            lines.append(f"Distributed SPMD: {self.dist_spmd} queries")
+            lines.append(f"Mesh fallbacks:   {self.dist_fallback} queries")
+            for reason, cnt in sorted(self.dist_fallback_reasons.items()):
+                lines.append(f"  {cnt:6d}  {reason}")
         if self.history:
             lines.append("Recent:")
             for text, dt in self.history[-10:]:

@@ -15,7 +15,15 @@ recorded while one records), triggers (``triggers``, whose threads
 relative file paths resolve against (``base_dir``: LOAD DATA INFILE,
 INTO OUTFILE, LOAD MODULE, the procedures' .aqp files) and statement
 execution. Every tensor the session makes lives on ``session.device``.
-The mesh (ROADMAP item 9) is not here.
+
+A mesh session (``connect(mesh=N, ...)`` on every rank of a process group
+of N, parallel/mesh.py) row-shards each table it places over the ranks
+(``place_table``; LOAD, INSERT, DELETE, UPDATE and CREATE TABLE AS place
+their table again), runs the queries its distributed tiers take over the
+ranks' blocks (``note_spmd``), and any other statement over tables
+gathered back whole (``note_dist_bail``, counted as a fallback in
+``stats``). Every rank issues the same statements and gets the whole
+result.
 """
 
 from __future__ import annotations
@@ -38,8 +46,14 @@ from aquery2_tpu_torch.utils import CaseInsensitiveDict
 
 class Session:
     def __init__(self, device: torch.device | str,
-                 base_dir: str | None = None) -> None:
+                 base_dir: str | None = None, mesh=None) -> None:
         self.device = torch.device(device)
+        self.mesh = mesh                    # parallel.mesh.Mesh or None
+        # per-SELECT distributed-path accounting (engine/executor.py sets
+        # these around each SELECT; the dist tiers report through them)
+        self._dist_hit = False
+        self._dist_reason: str | None = None
+        self._warned_fallbacks: set[str] = set()
         self.catalog = Catalog()
         self.udfs: CaseInsensitiveDict = CaseInsensitiveDict()  # FUNCTIONs
         self.module_functions: CaseInsensitiveDict = CaseInsensitiveDict()
@@ -50,6 +64,46 @@ class Session:
         self.base_dir = base_dir or os.getcwd()
         self.log_level = "info"             # "info" | "error" | "silent"
         self.executor = Executor(self)
+
+    # -- the mesh ----------------------------------------------------------
+
+    def note_spmd(self) -> None:
+        """A distributed tier runs the current SELECT over the ranks."""
+        self._dist_hit = True
+
+    def note_dist_bail(self, reason: str) -> None:
+        """A distributed tier declined the current SELECT; the first
+        reason is the one counted if no other tier takes it."""
+        if self._dist_reason is None:
+            self._dist_reason = reason
+
+    def _record_mesh_fallback(self, reason: str) -> None:
+        self.stats.dist_fallback += 1
+        self.stats.dist_fallback_reasons[reason] = \
+            self.stats.dist_fallback_reasons.get(reason, 0) + 1
+        if reason not in self._warned_fallbacks:
+            self._warned_fallbacks.add(reason)
+            self.log(f"mesh session: query ran on gathered tables "
+                     f"({reason}); further occurrences counted in `stats`.")
+
+    def place_table(self, tbl) -> None:
+        """Row-shard a table's scalar columns over the mesh, each rank
+        keeping its block (parallel/mesh.place_table); a no-op without a
+        mesh. Every rank places the same table."""
+        if self.mesh is not None:
+            from aquery2_tpu_torch.parallel.mesh import place_table
+
+            place_table(self.mesh, tbl)
+
+    def readable(self, tbl, names: set[str] | None = None):
+        """A table as single-device code reads it: a placed table's
+        columns (those of ``names``, lower case, where given) gathered
+        whole on every rank; any other table as it is."""
+        if self.mesh is None:
+            return tbl
+        from aquery2_tpu_torch.parallel.mesh import gather_table
+
+        return gather_table(self.mesh, tbl, names)
 
     def resolve_path(self, path: str) -> str:
         """A path of a statement: absolute, or under ``base_dir``."""
@@ -133,8 +187,8 @@ class Session:
                        target: str | None = None) -> None:
         """Write a table of the catalog into an attached backend (CREATE
         TABLE IF NOT EXISTS, then its rows)."""
-        self._source(alias).append_table(self.catalog.get(table_name),
-                                         target or table_name)
+        self._source(alias).append_table(
+            self.readable(self.catalog.get(table_name)), target or table_name)
 
     # -- stored procedures and triggers ------------------------------------
 
@@ -164,15 +218,38 @@ class Session:
 
 
 def connect(device: torch.device | str = "cuda",
-            base_dir: str | None = None) -> Session:
+            base_dir: str | None = None, mesh: int | None = None,
+            coordinator: str | None = None,
+            num_processes: int | None = None,
+            process_id: int | None = None,
+            backend: str | None = None) -> Session:
     """A session whose tables live on ``device`` and whose relative file
     paths resolve under ``base_dir`` (default: the working directory).
     The default device is the CUDA card; without one this raises (nothing
-    moves to the CPU unasked): pass device="cpu" to run on the CPU."""
+    moves to the CPU unasked): pass device="cpu" to run on the CPU.
+
+    mesh: the number of ranks (a power of two) to row-shard tables over;
+    None or 1 is the single-device session. Every rank calls connect with
+    the same mesh. The process group is joined here from
+    ``coordinator`` ("host:port"), ``num_processes`` and ``process_id``
+    (or AQ_COORDINATOR / AQ_NUM_PROCESSES / AQ_PROCESS_ID, or torchrun's
+    env://) with ``backend`` ("nccl" or "gloo"; by default nccl on a CUDA
+    device, gloo on the CPU), or found where it exists; without one, or
+    of another size, this raises (parallel/multihost.py)."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("connect(device='cuda'): no CUDA device is "
                            "available; pass device='cpu' to run on the CPU")
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
-    return Session(device, base_dir=base_dir)
+    m = None
+    if mesh is not None and mesh > 1:
+        from aquery2_tpu_torch.parallel import multihost
+        from aquery2_tpu_torch.parallel.mesh import make_mesh
+
+        if mesh & (mesh - 1):
+            raise ValueError("mesh size must be a power of two")
+        multihost.initialize(coordinator, num_processes, process_id,
+                             backend=backend, device=device)
+        m = make_mesh(mesh, device)
+    return Session(device, base_dir=base_dir, mesh=m)

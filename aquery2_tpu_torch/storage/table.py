@@ -438,7 +438,7 @@ class Table:
         mask."""
         cols = (self.columns.values() if names is None
                 else [self.columns[n] for n in names if n in self.columns])
-        return any(c.valid is not None for c in cols)
+        return any(nullable(c) for c in cols)
 
     def __getitem__(self, name: str) -> Column:
         return self.columns[name]
@@ -473,6 +473,13 @@ class Table:
         cols = ", ".join(f"{c.name}:{c.sqltype.name}"
                          for c in self.columns.values())
         return f"Table({self.name}: [{cols}] x {self.nrows})"
+
+
+def nullable(c) -> bool:
+    """Whether a column has a validity mask (a column placed on a mesh
+    says so without its mask, parallel/mesh.py)."""
+    flag = getattr(c, "nullable", None)
+    return flag if flag is not None else c.valid is not None
 
 
 def _append_host_values(col: Column | VectorColumn,

@@ -139,7 +139,27 @@ Phases, in order (any mismatch raises; there is no fallback):
      `engine cuda`: equal); an AqServer and a client running q1 over 1e6
      rows; no trigger logged an error and close() left no trigger
      thread alive. Phase 8's io_h2o_na takes the native route; the
-     loadtxt route is timed on the same file beside it.
+     loadtxt route is timed on the same file beside it;
+ 11. the mesh (aquery2_tpu_torch.parallel): phase 4's G1_1e7_1e1_0_0 and
+     dim table and phase 6's J1_1e7_NA_0_0 (its numeric columns) written
+     as .npy files under build/, which each rank maps; four ranks
+     spawned (parallel/launch.py) after the parent built the kernels:
+     on one card all four on cuda:0 over gloo (whose
+     collectives the comm layer stages through host memory), one rank a
+     card over NCCL where the machine shows four; each rank's backend,
+     world and device printed. Each rank places every table (its
+     quarter: 3,145,728 rows of 12,582,912) and runs, through its mesh
+     session, q1-q5, q7, q9, q10, qj, qjg, an ungrouped aggregate, a
+     top-100 ORDER BY and a LIMIT-less ordered scan, a CASE without ELSE
+     (the gathered fallback), two J1 questions (x JOIN small / medium
+     USING …) as CREATE TABLE AS, EXCEPT, INTERSECT ALL and a UNION's
+     DISTINCT: rank 0 checks each answer against the phase-4/6 numpy
+     oracle, every rank's answer and route (dist_spmd / dist_fallback
+     and the reason) must agree, and each rank must launch each query's
+     kernels (MESH_KERNEL); a warm run's wall on rank 0 (host clock, a
+     synchronize and a barrier) and its collectives (last_query_comm)
+     are printed. Four ranks sharing one card measure correctness and
+     traffic, not scaling.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -1876,16 +1896,12 @@ def time_join_parts(db) -> None:
           4 * (n1 + n2) + 4 * n1, host_gaps=True)
 
 
-def run_slice10(dev, walls) -> dict[str, dict[str, int]]:
+def run_slice10(dev, walls, tables) -> dict[str, dict[str, int]]:
     """Phase 6: db-benchmark's J1 questions, a grouped outer join, five
-    set operations and two DISTINCT aggregates on J1_1e7_NA_0_0, then q1,
-    q3, q5 and q10 over G1_1e7_1e1_0_0 with non-finite v3 values; each
-    against numpy, with its median of 3 warm runs, its host syncs (read
-    and measured) and its launches."""
-    t0 = time.perf_counter()
-    tables = h2o_j1(ROWS, SEED)
-    print(f"# generated J1_1e7_NA_0_0 in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    set operations and two DISTINCT aggregates on tables
+    (J1_1e7_NA_0_0), then q1, q3, q5 and q10 over G1_1e7_1e1_0_0 with
+    non-finite v3 values; each against numpy, with its median of 3 warm
+    runs, its host syncs (read and measured) and its launches."""
     db = connect(device=dev)
     for name, (arrays, dicts) in tables.items():
         load(db, name, arrays, dev, types={c: T.StrT for c in dicts},
@@ -1910,7 +1926,7 @@ def run_slice10(dev, walls) -> dict[str, dict[str, int]]:
     for q, sql in SET_QUERIES.items():
         print(f"# {q}: syncs read {SYNCS[q]} measured "
               f"{count_syncs(db, sql)}", flush=True)
-    del db, tables
+    del db
 
     data = nonfinite_data()
     db = connect(device=dev)
@@ -2965,6 +2981,250 @@ def run_slice13(dev, data) -> dict[str, dict[str, int]]:
     return launches
 
 
+# phase 11: the mesh. Four ranks (one process each) of one process group
+# run the distributed tiers over row-sharded tables: on one card the
+# ranks share cuda:0 over gloo (its collectives staged through host
+# memory); where the machine shows at least four cards, one rank a card
+# over NCCL. Every rank reads the same tables (written once by the parent)
+# and keeps its quarter of each (place_table).
+MESH_RANKS = 4
+MESH_H2O = ("q1", "q2", "q3", "q4", "q5", "q7", "q9", "q10", "qj", "qjg")
+MESH_OTHER = {
+    "m_ungrouped": ("SELECT count(*) AS n, sum(v1) AS s, avg(v3) AS a, "
+                    "min(v2) AS lo, max(v2) AS hi FROM source"),
+    "m_topk": "SELECT id6, v3 FROM source ORDER BY v3 DESC, id6 LIMIT 100",
+    "m_scan": ("SELECT id1, id2, v1 FROM source WHERE v3 > 99.99 "
+               "ORDER BY v1, id2"),
+    "m_fallback": ("SELECT id1, CASE WHEN v1 > 3 THEN 1 END AS hi "
+                   "FROM source ORDER BY id1, v1 LIMIT 10"),
+}
+MESH_J1 = {          # two J1 questions as CREATE TABLE AS, and set queries
+    "m_j1_q1": ("CREATE TABLE ans1 AS SELECT x.id1, x.v1, small.v2 FROM x "
+                "JOIN small USING (id1)"),
+    "m_j1_q2": ("CREATE TABLE ans2 AS SELECT x.id2, x.v1, medium.v2 FROM x "
+                "JOIN medium USING (id2)"),
+    "m_except": SET_QUERIES["set_except"],
+    "m_intersect_all": SET_QUERIES["set_intersect_all"],
+    "m_union": SET_QUERIES["set_union"],
+}
+MESH_FALLBACK = {"m_fallback": "unsupported scan shape: CASE without ELSE "
+                               "(NULL branch)"}
+MESH_SPMD = {"m_except": 3, "m_intersect_all": 3,   # each arm, and the set
+             "m_union": 3}                          # operation's SELECT
+MESH_KERNEL = {**{q: MAIN_KERNEL[q] for q in MESH_H2O},
+               "q7": ["seg_scan_multi", "seg_cumsum_i64"],
+               "m_ungrouped": ["onehot_segment_sums"], "m_topk": [],
+               "m_scan": [], "m_fallback": [], "m_j1_q1": [], "m_j1_q2": [],
+               "m_except": ["seg_cumsum_i64", "seg_scan_multi"],
+               "m_intersect_all": ["seg_cumsum_i64", "seg_scan_multi"],
+               "m_union": ["seg_cumsum_i64", "seg_scan_multi"]}
+
+
+def mesh_oracle(q: str, data, dim, tables):
+    """The check of mesh query q's answer on rank 0: a function of the
+    Result (of the table made, gathered, for the CREATE TABLE AS
+    ones)."""
+    if q in MESH_H2O:
+        if q in ("qj", "qjg"):
+            return lambda res: check_result(q, res,
+                                            *join_oracle(data, dim, q))
+        return lambda res: check_result(q, res, *oracle(data, q))
+    if q in ("m_except", "m_intersect_all", "m_union"):
+        sq = "set_" + q[2:]
+        return lambda res: check_set(tables, sq, res)
+    if q in ("m_j1_q1", "m_j1_q2"):
+        want = j1_oracle(tables, q[2:])
+
+        def check(ans):
+            rows, s1, s2 = want
+            got = [float(ans.columns[nm].data[:ans.nrows]
+                         .to(torch.float64).sum()) for nm in ("v1", "v2")]
+            if ans.nrows != rows or any(
+                    abs(g - w) > FLOAT_RTOL * abs(w)
+                    for g, w in zip(got, (s1, s2))):
+                raise AssertionError(f"{q}: {ans.nrows} rows, sums {got} vs "
+                                     f"numpy {rows}, {s1}, {s2}")
+        return check
+    v1, v2, v3 = (data[c] for c in ("v1", "v2", "v3"))
+    if q == "m_ungrouped":
+        want = [ROWS, int(v1.astype(np.int64).sum()),
+                float(v3.astype(np.float64).mean()), int(v2.min()),
+                int(v2.max())]
+
+        def check(res):
+            got = list(res.rows()[0])
+            if got[:2] + got[3:] != want[:2] + want[3:] or \
+                    abs(got[2] - want[2]) > FLOAT_RTOL * want[2]:
+                raise AssertionError(f"{q}: {got} vs numpy {want}")
+        return check
+    if q == "m_topk":
+        order = np.lexsort((data["id6"], -v3))[:100]
+        want = list(zip(data["id6"][order].tolist(),
+                        v3[order].astype(np.float64).tolist()))
+    elif q == "m_scan":
+        keep = np.flatnonzero(v3 > np.float32(99.99))
+        order = keep[np.lexsort((keep, data["id2"][keep], v1[keep]))]
+        want = list(zip(data["id1"][order].tolist(),
+                        data["id2"][order].tolist(), v1[order].tolist()))
+    else:                                           # m_fallback
+        order = np.lexsort((v1, data["id1"]))[:10]
+        want = [(int(a), 1 if b > 3 else None)
+                for a, b in zip(data["id1"][order], v1[order])]
+
+    def check(res):
+        got = res.rows()
+        if got != want:
+            raise AssertionError(f"{q}: {got[:3]}… vs numpy {want[:3]}…")
+    return check
+
+
+def save_mesh_tables(path: Path, data, dim, j1) -> None:
+    """The phase's tables as .npy files under path, every column but the
+    string ones (no phase-11 query reads those; a J1 string column's
+    dictionary holds up to 1e7 strings): data and dim (phase 4's) and j1
+    (phase 6's J1_1e7_NA_0_0). Every rank maps the same bytes."""
+    tables = {"source": data, "dim": dim,
+              **{name: {c: a for c, a in arrays.items() if c not in dicts}
+                 for name, (arrays, dicts) in j1.items()}}
+    for name, arrays in tables.items():
+        for col, arr in arrays.items():
+            np.save(path / f"{name}.{col}.npy", arr)
+    (path / "layout.json").write_text(json.dumps(
+        {name: list(arrays) for name, arrays in tables.items()}))
+
+
+def load_mesh_tables(path: Path) -> dict[str, dict[str, np.ndarray]]:
+    """save_mesh_tables' tables, mapped: {name: {column: array}}."""
+    layout = json.loads((path / "layout.json").read_text())
+    return {name: {c: np.load(path / f"{name}.{c}.npy", mmap_mode="r")
+                   for c in cols} for name, cols in layout.items()}
+
+
+def _mesh_rank(rank: int, world: int, backend: str, path: str,
+               kind: str = "cuda"):
+    """One rank of phase 11: its device (of ``kind``), the tables (read
+    from path) placed, every query run twice (the first checked against
+    numpy, each query's answer by one rank in turn: every rank holds it
+    whole; the second timed), its launches, route and traffic. Returns
+    every rank's record (rank 0's)."""
+    import torch.distributed as dist
+
+    from aquery2_tpu_torch.parallel import comm
+
+    dev = torch.device(kind, rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    K.build()                       # loads what the parent built
+    db = connect(device=dev, mesh=world)
+    db.log_level = "error"
+    t0 = time.perf_counter()
+    every_table = load_mesh_tables(Path(path))
+    data, dim = every_table["source"], every_table["dim"]
+    tables = {nm: (arrays, {}) for nm, arrays in every_table.items()}
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for name, arrays in every_table.items():
+        tbl = Table.from_numpy(name, arrays, device=dev)
+        db.catalog.create(tbl)
+        db.place_table(tbl)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    queries = {**{q: QUERIES[q] for q in MESH_H2O}, **MESH_OTHER, **MESH_J1}
+    out = {"rank": rank, "device": str(dev), "backend": db.mesh.backend,
+           "world": db.mesh.world, "gen_s": gen_s, "place_s": place_s,
+           "queries": {}}
+    for i, (q, sql) in enumerate(queries.items()):
+        st = db.stats
+        sp0, fb0 = st.dist_spmd, st.dist_fallback
+        reasons0 = dict(st.dist_fallback_reasons)
+        reset_launches()
+        res = db.execute(sql)
+        launches = {k: v for k, v in K.LAUNCHES.items() if v}
+        route = (st.dist_spmd - sp0, st.dist_fallback - fb0, sorted(
+            k for k, v in st.dist_fallback_reasons.items()
+            if v != reasons0.get(k, 0)))
+        answer = (db.readable(db.catalog.get(f"ans{q[-1]}"))
+                  if sql.startswith("CREATE") else res.table)
+        if i % world == rank:
+            mesh_oracle(q, data, dim, tables)(
+                answer if sql.startswith("CREATE") else res)
+        digest = tuple(int(c.data[:answer.nrows].to(torch.float64).sum())
+                       if not c.is_vector else 0
+                       for c in answer.columns.values()) + (answer.nrows,)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t1 = time.perf_counter()
+        db.execute(sql)
+        torch.cuda.synchronize()
+        dist.barrier()
+        wall = (time.perf_counter() - t1) * 1e3
+        out["queries"][q] = {"launches": launches, "route": route,
+                             "digest": digest, "wall_ms": wall,
+                             "comm": comm.last_query_comm(db)}
+    every = [None] * world
+    dist.all_gather_object(every, out)
+    return every
+
+
+def run_mesh(data, dim, j1) -> dict[str, dict[str, int]]:
+    """Phase 11: the mesh session's queries on MESH_RANKS ranks over data
+    and dim (G1_1e7_1e1_0_0 and its dim table) and j1 (J1_1e7_NA_0_0);
+    each answer against numpy and equal on every rank, each route and
+    each rank's kernels asserted. Returns the launches of every rank's
+    query, for the kernel report."""
+    from aquery2_tpu_torch.parallel import launch
+
+    t_start = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card
+    backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
+    K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
+        save_mesh_tables(Path(tmp), data, dim, j1)
+        print(f"# wrote G1_1e7_1e1_0_0, its dim table and J1_1e7_NA_0_0's "
+              f"numeric columns in {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        ranks = launch.run(_mesh_rank, MESH_RANKS, backend, tmp,
+                           backend=backend, timeout_s=600)
+    for r in ranks:
+        print(f"# mesh rank {r['rank']} of {r['world']}: backend "
+              f"{r['backend']}, device {r['device']}, read the tables in "
+              f"{r['gen_s']:.1f} s, placed its blocks in "
+              f"{r['place_s']:.1f} s", flush=True)
+    launches = {}
+    for q in ranks[0]["queries"]:
+        recs = [r["queries"][q] for r in ranks]
+        if len({rec["digest"] for rec in recs}) != 1:
+            raise AssertionError(f"{q}: the ranks' answers differ")
+        route = recs[0]["route"]
+        if any(rec["route"] != route for rec in recs):
+            raise AssertionError(f"{q}: the ranks' routes differ")
+        want = ((0, 1, [MESH_FALLBACK[q]]) if q in MESH_FALLBACK
+                else (MESH_SPMD.get(q, 1), 0, []))
+        if tuple(route) != want:
+            raise AssertionError(f"{q}: route {route}, want {want}")
+        for r, rec in zip(ranks, recs):
+            for name in MESH_KERNEL[q]:
+                if rec["launches"].get(name, 0) <= 0:
+                    raise AssertionError(f"{q}: rank {r['rank']} launched "
+                                         f"no {name}: {rec['launches']}")
+            launches[f"{q}@mesh{r['rank']}"] = rec["launches"]
+        c = recs[0]["comm"]
+        kinds = {k: v for k, v in c.items() if k != "wire_bytes_per_chip"}
+        print(f"# {q}@mesh: {'SPMD' if route[0] else 'gathered'}, rank 0 "
+              f"{recs[0]['wall_ms']:.3f} ms (warm run, synchronize and "
+              f"barrier), comm {kinds}, wire {c['wire_bytes_per_chip']} B "
+              f"a rank, launches per rank "
+              f"{[rec['launches'] for rec in recs]}", flush=True)
+    for name in ("onehot_segment_sums", "seg_cumsum_i64", "seg_scan_multi"):
+        for r in ranks:
+            if not sum(rec["launches"].get(name, 0)
+                       for rec in r["queries"].values()):
+                raise AssertionError(f"mesh rank {r['rank']} launched no "
+                                     f"{name}")
+    print(f"# phase 11 took {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    return launches
+
+
 def ptxas_line(r: dict) -> str:
     return (f"{r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
@@ -3055,7 +3315,11 @@ def main() -> int:
     launches.update(general)
     phase(f"5. general engine: {len(general)} queries match numpy")
 
-    slice10 = run_slice10(dev, walls)
+    t0 = time.perf_counter()
+    j1 = h2o_j1(ROWS, SEED)         # phase 6's, and phase 11's
+    print(f"# generated J1_1e7_NA_0_0 in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    slice10 = run_slice10(dev, walls, j1)
     launches.update(slice10)
     phase(f"6. joins, set operations, DISTINCT aggregates, non-finite "
           f"sums: {len(slice10)} queries match numpy")
@@ -3097,6 +3361,14 @@ def main() -> int:
           "interval trigger (s7), SQLite, LOAD MODULE, the demo, the REPL "
           "and the server match numpy; onehot_segment_sums, seg_cumsum_i64 "
           "and seg_scan_multi launched from the trigger threads")
+    mesh = run_mesh(data, dim, j1)
+    launches.update(mesh)
+    phase("11. the mesh: q1-q5, q7, q9, q10, qj, qjg, two J1 questions, an "
+          "ungrouped aggregate, a top-k and an ordered scan, EXCEPT, "
+          "INTERSECT ALL and a UNION's DISTINCT match numpy on every rank "
+          "over the distributed tiers, the CASE without ELSE over gathered "
+          "tables; onehot_segment_sums, seg_cumsum_i64 and seg_scan_multi "
+          "launched on every rank")
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())

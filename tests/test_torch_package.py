@@ -48,7 +48,19 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.models.irf, "
             "aquery2_tpu_torch.repl.prompt, "
             "aquery2_tpu_torch.repl.server, "
-            "aquery2_tpu_torch.demo; "
+            "aquery2_tpu_torch.demo, "
+            "aquery2_tpu_torch.parallel.mesh, "
+            "aquery2_tpu_torch.parallel.comm, "
+            "aquery2_tpu_torch.parallel.multihost, "
+            "aquery2_tpu_torch.parallel.launch, "
+            "aquery2_tpu_torch.parallel.dist_groupby, "
+            "aquery2_tpu_torch.parallel.dist_join, "
+            "aquery2_tpu_torch.parallel.dist_scan, "
+            "aquery2_tpu_torch.parallel.step, "
+            "aquery2_tpu_torch.engine.dist_query, "
+            "aquery2_tpu_torch.engine.dist_join_query, "
+            "aquery2_tpu_torch.engine.dist_scan, "
+            "aquery2_tpu_torch.engine.dist_setop; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'aquery2_tpu')); "
@@ -75,7 +87,12 @@ def test_sources_name_no_jax():
             "storage/external.py", "sdk/modules.py",
             "models/decision_tree.py", "models/random_forest.py",
             "models/irf.py", "repl/prompt.py", "repl/server.py",
-            "__main__.py", "demo.py")} <= set(paths)
+            "__main__.py", "demo.py")} \
+        | {PKG / "parallel" / nm for nm in (
+            "__init__.py", "mesh.py", "comm.py", "multihost.py", "launch.py",
+            "dist_groupby.py", "dist_join.py", "dist_scan.py", "step.py")} \
+        | {PKG / "engine" / f"dist_{nm}.py" for nm in (
+            "query", "join_query", "scan", "setop")} <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
