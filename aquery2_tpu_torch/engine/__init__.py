@@ -14,4 +14,8 @@
   dist_join_query.py  on a mesh: the exchanged equi-join, then a dist tier
   dist_scan.py      on a mesh: top-k and ordered scans
   dist_setop.py     on a mesh: EXCEPT, INTERSECT and DISTINCT of rows
+  dist_ordered.py   on a mesh: the median and the ordered group-by, each
+                    group's rows moved to one rank
+  dist_window.py    on a mesh: OVER windows, each partition's rows moved
+                    to one rank
 """

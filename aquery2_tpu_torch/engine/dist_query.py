@@ -31,14 +31,16 @@ merge packs fixed-capacity buckets, retries with doubled caps and falls
 back to the replicated merge when a bucket still overflows; here the
 exchange is sized by a first trade of counts and never overflows.
 
-The median does not decompose into partials: its branch is ROADMAP item
-9b (the JAX package's engine/dist_ordered.py) and raises here.
+The median does not decompose into partials: its queries go to
+engine/dist_ordered.run_median, which moves each group's rows to one
+rank.
 """
 
 from __future__ import annotations
 
 import torch
 
+from aquery2_tpu_torch.engine import dist_ordered
 from aquery2_tpu_torch.engine import fused_groupby as fg
 from aquery2_tpu_torch.ops import reduce as R
 from aquery2_tpu_torch.ops.sort import lexsort
@@ -47,18 +49,6 @@ from aquery2_tpu_torch.parallel.dist_join import destinations
 from aquery2_tpu_torch.parallel.mesh import block_column, local_view
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.storage.table import Table
-
-ITEM_9B = ("ROADMAP item 9b: {what} on a mesh session is not ported yet "
-           "(the JAX package's engine/{module}.py)")
-
-
-def not_ported(what: str, module: str) -> NotImplementedError:
-    return NotImplementedError(ITEM_9B.format(what=what, module=module))
-
-
-def _all_max(mesh):
-    return lambda t: comm.all_reduce(mesh, t, "max")
-
 
 def _sentinel_null_keys(p, local):
     """fused_groupby.sentinel_code_null_keys on the ranks' blocks: each
@@ -153,7 +143,9 @@ def run(session, sel: A.Select, table: Table) -> Table | None:
         session.note_dist_bail(f"unsupported shape: {e}")
         return None
     if p["has_median"]:
-        raise not_ported("median", "dist_ordered")
+        # the median does not decompose into partials: each group's rows
+        # go to one rank, where the sort tier's median is exact
+        return dist_ordered.run_median(session, sel, table, p)
     local = local_view(mesh, table)
     n = local.n
     if n == 0:
@@ -172,7 +164,7 @@ def run(session, sel: A.Select, table: Table) -> Table | None:
                                           local)
     if not fg.float_sums_fit(scatters, cols, n,
                              lambda e: fg._row_eval(e, env), valid, null_fn,
-                             reduce=_all_max(mesh)):
+                             reduce=dist_ordered.all_max(mesh)):
         session.note_dist_bail("float sums outside the exact lanes")
         return None
     session.note_spmd()
@@ -393,7 +385,7 @@ def run_ungrouped(session, sel: A.Select, table: Table) -> Table | None:
                                            local)
     if not fg.float_sums_fit(scatters, cols, local.n,
                              lambda e: fg._row_eval(e, env), valid, null_fn,
-                             reduce=_all_max(mesh)):
+                             reduce=dist_ordered.all_max(mesh)):
         session.note_dist_bail("float sums outside the exact lanes")
         return None
     session.note_spmd()

@@ -49,15 +49,14 @@ On a mesh session (parallel/mesh.py) each SELECT is counted as the JAX
 package counts it (``run_select``): the distributed tiers come first at
 the JAX package's places (engine/dist_query.py for one grouped or
 ungrouped table, the star join's and the count join's mesh branches,
-engine/dist_join_query.py for other two-table equi-joins,
-engine/dist_scan.py for ungrouped scans, engine/dist_setop.py for EXCEPT,
-INTERSECT and DISTINCT of materialized rows), and whatever they decline
-runs the single-device tiers over tables gathered back whole
-(``_cat``: the columns the statement names, all-gathered once per
-statement). A statement that changes a table (LOAD, INSERT, DELETE,
-UPDATE, CREATE TABLE AS) places it again. The median, ordered
-(ASSUMING) group-bys and OVER windows on a mesh are ROADMAP item 9b and
-raise NotImplementedError.
+engine/dist_ordered.py for the median and the ordered (ASSUMING) group-bys,
+engine/dist_window.py for OVER windows, engine/dist_join_query.py for
+other two-table equi-joins, engine/dist_scan.py for ungrouped scans,
+engine/dist_setop.py for EXCEPT, INTERSECT and DISTINCT of materialized
+rows), and whatever they decline runs the single-device tiers over
+tables gathered back whole (``_cat``: the columns the statement names,
+all-gathered once per statement). A statement that changes a table
+(LOAD, INSERT, DELETE, UPDATE, CREATE TABLE AS) places it again.
 """
 
 from __future__ import annotations
@@ -69,8 +68,9 @@ import torch
 
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
-from aquery2_tpu_torch.engine import (dist_join_query, dist_query, dist_scan,
-                                      dist_setop, fused_groupby, fused_join,
+from aquery2_tpu_torch.engine import (dist_join_query, dist_ordered,
+                                      dist_query, dist_scan, dist_setop,
+                                      dist_window, fused_groupby, fused_join,
                                       fused_ordered, fused_scan, fused_star)
 from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
@@ -358,11 +358,10 @@ class Executor:
         if sel.group_by and one_table and mesh is not None:
             table = placed.get(srcs[0].name)
             t = dist_query.run(session, sel, table)
+            if t is None:
+                t = dist_ordered.run_ordered(session, sel, table)
             if t is not None:
                 return t
-            if _ordered_shape(sel, table):
-                raise dist_query.not_ported("an ordered (ASSUMING) group-by",
-                                            "dist_ordered")
         if sel.group_by and one_table:
             table = catalog.get(srcs[0].name)
             t = fused_groupby.run(sel, table)
@@ -392,10 +391,12 @@ class Executor:
         if not sel.group_by and not sel.assumptions:
             if mesh is not None and one_table:
                 table = placed.get(srcs[0].name)
-                if _window_shape(sel, table):
-                    raise dist_query.not_ported("an OVER window",
-                                                "dist_window")
-                t = dist_query.run_ungrouped(session, sel, table)
+                t = None
+                if any(isinstance(p.expr, A.WindowExpr)
+                       for p in sel.projections):
+                    t = dist_window.try_run(session, sel, table)
+                if t is None:
+                    t = dist_query.run_ungrouped(session, sel, table)
                 if t is None:
                     t = dist_scan.try_run(session, sel, table)
                 if t is not None:
@@ -1230,38 +1231,3 @@ class _GatheredCatalog:
 
     def names(self) -> list[str]:
         return self.catalog.names()
-
-
-def _ordered_shape(sel: A.Select, table: Table) -> bool:
-    """Whether the JAX package's mesh session would run this grouped
-    query by its ordered tier (engine/dist_ordered.run_ordered)."""
-    try:
-        fused_ordered.plan(sel, table)
-    except fused_groupby.Unsupported:
-        return False
-    return True
-
-
-def _window_shape(sel: A.Select, table: Table) -> bool:
-    """Whether the JAX package's mesh session would run this ungrouped
-    query by its window tier (engine/dist_window.try_run): an OVER
-    projection over one table, beside plain row projections."""
-    if not any(isinstance(p.expr, A.WindowExpr) for p in sel.projections):
-        return False
-    if sel.unions or sel.distinct or sel.having is not None:
-        return False
-    cols = table.columns
-    for p in sel.projections:
-        e = p.expr
-        if isinstance(e, A.WindowExpr):
-            continue
-        if isinstance(e, A.Star):
-            return False
-        if isinstance(e, A.ColumnRef) and e.name in cols \
-                and not cols[e.name].is_vector:
-            continue
-        try:
-            fused_groupby._check_row_expr(e, cols)
-        except fused_groupby.Unsupported:
-            return False
-    return True

@@ -965,9 +965,7 @@ def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
     """Packed tier: keys pack into int32 words of 30-bit fields, sorted by
     sorted_groups (two words and the validity bit fit one int64 sort). The
     aggregate-argument columns are gathered by the sort permutation and
-    reduced over the sorted runs. A median argument is the sort's order
-    key, so each group's run is value-ascending and its median is read at
-    the middle of the run."""
+    reduced over the sorted runs (reduce_sorted_runs)."""
     fields, nwords = _plan_words(key_ranges)
     dev = valid.device
     words = [torch.zeros(valid.shape, dtype=torch.int32, device=dev)
@@ -977,28 +975,9 @@ def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
         # in place: ORs each key's field into its word without a temporary
         words[wi] |= ((env[k.name.lower()].to(torch.int64) - key_mins[ki])
                       .to(torch.int32) << shift)
-    med_fps = [fp for fp, (kind, _a) in scatters.items() if kind == "median"]
-    med = []
-    if med_fps:             # plan() allows one distinct median argument
-        mv = _as_rows(_row_eval(scatters[med_fps[0]][1][0], env), valid)
-        med = [(mv, True)]
-    perm, valid_s, sk, starts, last = sorted_groups(
-        valid, [(w, True, (0, (1 << _WORD_BITS) - 1)) for w in words], med)
-
-    add, mins, maxs, f64s = _sorted_lanes(env, env_null, perm, valid_s,
-                                          scatters)
-    dense, ends = R.sorted_group_reduce(
-        starts, last, add, mins, maxs, f64s,
-        extract={f"__key{i}": x for i, x in enumerate(sk[:nwords])},
-        counts_from_ends="__counts__")
-    counts = dense["__counts__"]
-    if med_fps:
-        sv = sk[nwords]
-        first = ends - (counts - 1)
-        dense[med_fps[0] + ":median"] = (
-            sv[first + (counts - 1) // 2].to(torch.float64)
-            + sv[first + counts // 2].to(torch.float64)) * 0.5
-    gwords = [dense.pop(f"__key{i}") for i in range(nwords)]
+    dense, counts, gwords = reduce_sorted_runs(
+        env, env_null, valid, scatters,
+        [(w, True, (0, (1 << _WORD_BITS) - 1)) for w in words])
     keyvals = []
     for ki in range(len(keys)):
         wi, shift, b = fields[ki]
@@ -1008,23 +987,44 @@ def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
 
 
 def _run_sort(env, env_null, valid, scatters, keys, bounds):
-    """Multikey tier (the JAX package's _run_sort): sorted_groups over the
-    key values, the argument columns gathered by the permutation and
-    reduced over the runs; each group's keys are read at its last row.
-    bounds: each key's (min, max) from column stats, or None (computed or
-    float keys)."""
+    """Multikey tier (the JAX package's _run_sort): reduce_sorted_runs over
+    the key values; each group's keys are read at its last row. bounds:
+    each key's (min, max) from column stats, or None (computed or float
+    keys)."""
     kv = [_as_rows(_row_eval(k, env), valid) for k in keys]
-    perm, valid_s, sk, starts, last = sorted_groups(
-        valid, [(v, True) if b is None else (v, True, b)
-                for v, b in zip(kv, bounds)])
+    return reduce_sorted_runs(env, env_null, valid, scatters,
+                              [(v, True) if b is None else (v, True, b)
+                               for v, b in zip(kv, bounds)])
+
+
+def reduce_sorted_runs(env, env_null, valid, scatters, entries):
+    """The sort tiers' reduction: sorted_groups over the key entries
+    (lexsort entries), the aggregate-argument columns gathered by the
+    permutation and reduced over the runs. A median argument is the
+    sort's order key, so each group's run is value-ascending and its
+    median is read at the middle of the run. (per-group lanes, group
+    sizes, each entry's [g] values at the group ends)."""
+    med_fps = [fp for fp, (kind, _a) in scatters.items() if kind == "median"]
+    med = []
+    if med_fps:             # plan() allows one distinct median argument
+        mv = _as_rows(_row_eval(scatters[med_fps[0]][1][0], env), valid)
+        med = [(mv, True)]
+    perm, valid_s, sk, starts, last = sorted_groups(valid, entries, med)
     add, mins, maxs, f64s = _sorted_lanes(env, env_null, perm, valid_s,
                                           scatters)
-    dense, _ends = R.sorted_group_reduce(
+    nk = len(entries)
+    dense, ends = R.sorted_group_reduce(
         starts, last, add, mins, maxs, f64s,
-        extract={f"__key{i}": x for i, x in enumerate(sk)},
+        extract={f"__key{i}": x for i, x in enumerate(sk[:nk])},
         counts_from_ends="__counts__")
-    keyvals = [dense.pop(f"__key{i}") for i in range(len(keys))]
-    return dense, dense["__counts__"], keyvals
+    counts = dense["__counts__"]
+    if med_fps:
+        sv = sk[nk]
+        first = ends - (counts - 1)
+        dense[med_fps[0] + ":median"] = (
+            sv[first + (counts - 1) // 2].to(torch.float64)
+            + sv[first + counts // 2].to(torch.float64)) * 0.5
+    return dense, counts, [dense.pop(f"__key{i}") for i in range(nk)]
 
 
 def derive_name(e: A.Expr) -> str:

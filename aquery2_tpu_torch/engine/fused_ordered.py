@@ -36,7 +36,9 @@ JAX package flags only valid rows, and there reads the first invalid row).
 A shape the plan does not cover, an empty table and nullable columns
 return None, for the general engine (engine/executor.py), as in the JAX
 package; so do ungrouped ordered queries and ordered ones with HAVING,
-ORDER BY or LIMIT.
+ORDER BY or LIMIT. Steps 2-6 are ``ordered_groups``, which each rank of
+a mesh also runs over its complete groups (engine/dist_ordered.py), with
+the NULL masks of nullable aggregate arguments.
 """
 
 from __future__ import annotations
@@ -287,7 +289,19 @@ def run(sel: A.Select, table: Table) -> Table | None:
     if p["where"] is not None:
         valid = valid & fg._truth(fg._as_rows(fg._row_eval(p["where"], env),
                                               valid))
+    got = ordered_groups(p, cols, n, env, valid)
+    return None if got is None else to_table(p, cols, *got)
 
+
+def ordered_groups(p, cols, n: int, env, valid, env_null=None, reduce=None):
+    """The plan's groups over the rows of ``valid``: (each key's [g]
+    values, each projection's result), or None where the float sums do
+    not fit the exact lanes (fg.float_sums_fit; ``reduce`` combines its
+    computed bounds over a mesh's ranks). A key or aggregate projection
+    gives its [g] values, a row projection (values, [g] kept counts): the
+    values of each group's kept rows, group after group, in ASSUMING
+    order. env_null (name → [rows] NULL mask) makes the aggregates skip
+    the NULL rows of those columns."""
     key_names = [k.name.lower() for k in p["keys"]]
     sort_cols = key_names + [an for an, _ in p["assume"]]
     sort_keys = []
@@ -296,54 +310,66 @@ def run(sel: A.Select, table: Table) -> Table | None:
         sort_keys.append((env[nm], asc) if b is None else (env[nm], asc, b))
     perm, valid_s, sk, flags, last = fg.sorted_groups(
         valid, sort_keys[:len(key_names)], sort_keys[len(key_names):])
-    env_sorted = {nm: env[nm][perm] for nm in col_order
-                  if nm not in sort_cols}
+    env_sorted = {nm: env[nm][perm] for nm in env if nm not in sort_cols}
     for nm, x in zip(sort_cols, sk):
         env_sorted.setdefault(nm, x)
+    null_fn = (fg.make_null_fn({nm: m[perm] for nm, m in env_null.items()})
+               if env_null else None)
     pos = pos_from_flags(flags)
 
     def eval_sorted(e):
         return _ordered_row_eval(e, env_sorted, pos, flags)
 
     scatters = fg._needed_scatters(p["aggs"])
-    if not fg.float_sums_fit(scatters, cols, n, eval_sorted, valid_s):
+    if not fg.float_sums_fit(scatters, cols, n, eval_sorted, valid_s,
+                             null_fn, reduce):
         return None
     add, mins, maxs, f64s = fg._build_lanes({}, valid_s, scatters,
-                                            eval_fn=eval_sorted)
+                                            eval_fn=eval_sorted,
+                                            null_fn=null_fn)
     outs, _ends = R.sorted_group_reduce(
         flags, last, add, mins, maxs, f64s,
         extract={f"__key{i}": x for i, x in enumerate(sk[:len(key_names)])},
         counts_from_ends="__counts__")
     counts = outs["__counts__"]
-    g = int(counts.shape[0])
-    zero = counts.new_zeros(1)
-    offsets = torch.cat([zero, torch.cumsum(counts, 0)])
-
-    out = Table(f"result_{base62uuid(4)}")
-    for (kindp, expr, _alias), name in zip(p["projections"],
-                                          fg.output_names(p["projections"])):
+    keyvals = [outs[f"__key{i}"].to(cols[kn].data.dtype)
+               for i, kn in enumerate(key_names)]
+    results = []
+    for kindp, expr, _alias in p["projections"]:
         if kindp == "key":
-            src = cols[expr.name]
-            kv = outs[f"__key{key_names.index(expr.name.lower())}"]
-            out.add_column(Column(name, src.sqltype, kv.to(src.data.dtype),
-                                  nrows=g, dictionary=src.dictionary))
+            results.append(keyvals[key_names.index(expr.name.lower())])
         elif kindp == "agg":
-            arr = fg._as_rows(fg._post_agg_eval(expr, outs, counts), counts)
-            out.add_column(Column(name, fg.sql_type(arr), arr, nrows=g))
+            results.append(fg._as_rows(fg._post_agg_eval(expr, outs, counts),
+                                       counts))
         elif _is_window_call(expr) and expr.func == "subvec":
             base = fg._as_rows(eval_sorted(expr.args[0]), pos)
             a, b = int(expr.args[1].value), int(expr.args[2].value)
-            kept = torch.cat([zero, torch.cumsum(
-                torch.clamp(counts, max=b) - torch.clamp(counts, max=a), 0)])
-            vals = base[valid_s & (pos >= a) & (pos < b)]
-            out.add_column(VectorColumn(name, T.VectorT(fg.sql_type(vals)),
-                                        vals, kept, nrows=g,
-                                        total=int(vals.shape[0])))
+            results.append((base[valid_s & (pos >= a) & (pos < b)],
+                            torch.clamp(counts, max=b)
+                            - torch.clamp(counts, max=a)))
         else:
             vals = fg._as_rows(eval_sorted(expr), pos)
-            total = int(offsets[-1])
-            out.add_column(VectorColumn(name, T.VectorT(fg.sql_type(vals)),
-                                        vals[:total], offsets, nrows=g,
-                                        total=total))
-    return out
+            results.append((vals[:int(counts.sum())], counts))
+    return keyvals, results
 
+
+def to_table(p, cols, keyvals, results) -> Table:
+    """The output Table of ordered_groups' results: key and aggregate
+    projections as columns, row projections as VectorColumns."""
+    g = int(keyvals[0].shape[0])
+    out = Table(f"result_{base62uuid(4)}")
+    for (kindp, expr, _alias), name, res in zip(
+            p["projections"], fg.output_names(p["projections"]), results):
+        if kindp == "key":
+            src = cols[expr.name]
+            out.add_column(Column(name, src.sqltype, res, nrows=g,
+                                  dictionary=src.dictionary))
+        elif kindp == "agg":
+            out.add_column(Column(name, fg.sql_type(res), res, nrows=g))
+        else:
+            vals, kept = res
+            offsets = torch.cat([kept.new_zeros(1), torch.cumsum(kept, 0)])
+            out.add_column(VectorColumn(name, T.VectorT(fg.sql_type(vals)),
+                                        vals, offsets, nrows=g,
+                                        total=int(vals.shape[0])))
+    return out

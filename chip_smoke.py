@@ -140,26 +140,32 @@ Phases, in order (any mismatch raises; there is no fallback):
      rows; no trigger logged an error and close() left no trigger
      thread alive. Phase 8's io_h2o_na takes the native route; the
      loadtxt route is timed on the same file beside it;
- 11. the mesh (aquery2_tpu_torch.parallel): phase 4's G1_1e7_1e1_0_0 and
-     dim table and phase 6's J1_1e7_NA_0_0 (its numeric columns) written
-     as .npy files under build/, which each rank maps; four ranks
-     spawned (parallel/launch.py) after the parent built the kernels:
-     on one card all four on cuda:0 over gloo (whose
-     collectives the comm layer stages through host memory), one rank a
-     card over NCCL where the machine shows four; each rank's backend,
-     world and device printed. Each rank places every table (its
-     quarter: 3,145,728 rows of 12,582,912) and runs, through its mesh
-     session, q1-q5, q7, q9, q10, qj, qjg, an ungrouped aggregate, a
-     top-100 ORDER BY and a LIMIT-less ordered scan, a CASE without ELSE
-     (the gathered fallback), two J1 questions (x JOIN small / medium
-     USING …) as CREATE TABLE AS, EXCEPT, INTERSECT ALL and a UNION's
-     DISTINCT: rank 0 checks each answer against the phase-4/6 numpy
-     oracle, every rank's answer and route (dist_spmd / dist_fallback
-     and the reason) must agree, and each rank must launch each query's
-     kernels (MESH_KERNEL); a warm run's wall on rank 0 (host clock, a
-     synchronize and a barrier) and its collectives (last_query_comm)
-     are printed. Four ranks sharing one card measure correctness and
-     traffic, not scaling.
+ 11. the mesh (aquery2_tpu_torch.parallel): phase 4's G1_1e7_1e1_0_0,
+     dim table and trades (1e7 rows, 100 symbols, seed 7: the int32
+     codes, the 100-string dictionary beside them) and phase 6's
+     J1_1e7_NA_0_0 (its numeric columns) written as .npy files under
+     build/, which each rank maps; four ranks spawned
+     (parallel/launch.py) after the parent built the kernels: on one
+     card all four on cuda:0 over gloo (whose collectives the comm layer
+     stages through host memory), one rank a card over NCCL where the
+     machine shows four; each rank's backend, world and device printed.
+     Each rank places every table (its quarter: 3,145,728 rows of
+     12,582,912) and runs, through its mesh session, q1-q10 (q6's median
+     and q8's ASSUMING subvec with each group's rows moved to one rank,
+     engine/dist_ordered.py), qj, qjg, phase 7's w_partition and w_peers
+     over source (each partition's rows moved to one rank,
+     engine/dist_window.py), phase 4's avgs and max_stddevs on trades,
+     an ungrouped aggregate, a top-100 ORDER BY and a LIMIT-less
+     ordered scan, a CASE without ELSE (the gathered fallback), two J1
+     questions (x JOIN small / medium USING …) as CREATE TABLE AS,
+     EXCEPT, INTERSECT ALL and a UNION's DISTINCT: rank 0 checks each
+     answer against the phase-4/6/7 numpy oracle, every rank's answer
+     and route (dist_spmd / dist_fallback and the reason) must agree,
+     and each rank must launch each query's kernels (MESH_KERNEL); a
+     warm run's wall on rank 0 (host clock, a synchronize and a
+     barrier) and its collectives (last_query_comm) are printed. Four
+     ranks sharing one card measure correctness and traffic, not
+     scaling.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -193,7 +199,7 @@ from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.filter import compact_indices
 from aquery2_tpu_torch.storage import csvio
 from aquery2_tpu_torch.storage.result import Result
-from aquery2_tpu_torch.storage.table import Column, Table
+from aquery2_tpu_torch.storage.table import Column, StringDict, Table
 from aquery2_tpu_torch.utils.datagen import h2o_dim, h2o_g1, h2o_j1, trades
 
 ROWS = 10_000_000
@@ -1395,24 +1401,29 @@ def run_trades(dev) -> dict[str, dict[str, int]]:
     load(db, "trades", arrays, dev, types={"stocksymbol": T.StrT},
          dictionaries={"stocksymbol": d})
 
-    def check(q, res):
-        syms, cnt, want = trades_oracle(arrays, q)
-        cols = res.table.columns
-        np.testing.assert_array_equal(cols["stocksymbol"].to_numpy(), syms,
-                                      err_msg=f"{q} symbols")
-        if q == "avgs":
-            np.testing.assert_array_equal(cols["a"].offsets_numpy(),
-                                          np.r_[0, np.cumsum(cnt)])
-            got = cols["a"].to_numpy()
-        else:
-            got = cols["m"].to_numpy()
-        if got.dtype != np.float64 or got.shape != want.shape:
-            raise AssertionError(f"{q}: {got.dtype} {got.shape}")
-        err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
-                                                           1e-300)))
-        if not err <= TRADES_RTOL:
-            raise AssertionError(f"{q}: max relative error {err}")
-    return run_queries(db, TRADES, check)
+    return run_queries(db, TRADES,
+                       lambda q, res: check_trades(arrays, q, res))
+
+
+def check_trades(arrays, q: str, res) -> None:
+    """A trades query against trades_oracle: the symbols and offsets
+    exactly, the values to TRADES_RTOL."""
+    syms, cnt, want = trades_oracle(arrays, q)
+    cols = res.table.columns
+    np.testing.assert_array_equal(cols["stocksymbol"].to_numpy(), syms,
+                                  err_msg=f"{q} symbols")
+    if q == "avgs":
+        np.testing.assert_array_equal(cols["a"].offsets_numpy(),
+                                      np.r_[0, np.cumsum(cnt)])
+        got = cols["a"].to_numpy()
+    else:
+        got = cols["m"].to_numpy()
+    if got.dtype != np.float64 or got.shape != want.shape:
+        raise AssertionError(f"{q}: {got.dtype} {got.shape}")
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want),
+                                                       1e-300)))
+    if not err <= TRADES_RTOL:
+        raise AssertionError(f"{q}: max relative error {err}")
 
 
 def run_nas(dev) -> dict[str, dict[str, int]]:
@@ -2988,7 +2999,10 @@ def run_slice13(dev, data) -> dict[str, dict[str, int]]:
 # over NCCL. Every rank reads the same tables (written once by the parent)
 # and keeps its quarter of each (place_table).
 MESH_RANKS = 4
-MESH_H2O = ("q1", "q2", "q3", "q4", "q5", "q7", "q9", "q10", "qj", "qjg")
+MESH_H2O = ("q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10",
+            "qj", "qjg")
+MESH_TRADES = ("avgs", "max_stddevs")     # phase 4's, on trades
+MESH_WINDOWS = ("w_partition", "w_peers")    # phase 7's, on source
 MESH_OTHER = {
     "m_ungrouped": ("SELECT count(*) AS n, sum(v1) AS s, avg(v3) AS a, "
                     "min(v2) AS lo, max(v2) AS hi FROM source"),
@@ -3011,8 +3025,10 @@ MESH_FALLBACK = {"m_fallback": "unsupported scan shape: CASE without ELSE "
                                "(NULL branch)"}
 MESH_SPMD = {"m_except": 3, "m_intersect_all": 3,   # each arm, and the set
              "m_union": 3}                          # operation's SELECT
-MESH_KERNEL = {**{q: MAIN_KERNEL[q] for q in MESH_H2O},
+MESH_KERNEL = {**{q: MAIN_KERNEL[q] for q in MESH_H2O + MESH_TRADES},
                "q7": ["seg_scan_multi", "seg_cumsum_i64"],
+               **{"m_" + q: ["seg_cumsum_i64", "seg_scan_multi"]
+                  for q in MESH_WINDOWS},
                "m_ungrouped": ["onehot_segment_sums"], "m_topk": [],
                "m_scan": [], "m_fallback": [], "m_j1_q1": [], "m_j1_q2": [],
                "m_except": ["seg_cumsum_i64", "seg_scan_multi"],
@@ -3028,7 +3044,13 @@ def mesh_oracle(q: str, data, dim, tables):
         if q in ("qj", "qjg"):
             return lambda res: check_result(q, res,
                                             *join_oracle(data, dim, q))
+        if q == "q8":
+            return lambda res: check_q8(res, data)
         return lambda res: check_result(q, res, *oracle(data, q))
+    if q in MESH_TRADES:
+        return lambda res: check_trades(tables["trades"][0], q, res)
+    if q[2:] in MESH_WINDOWS:
+        return lambda res: check_window({"h2o": data}, q[2:], res)
     if q in ("m_except", "m_intersect_all", "m_union"):
         sq = "set_" + q[2:]
         return lambda res: check_set(tables, sq, res)
@@ -3078,26 +3100,34 @@ def mesh_oracle(q: str, data, dim, tables):
     return check
 
 
-def save_mesh_tables(path: Path, data, dim, j1) -> None:
-    """The phase's tables as .npy files under path, every column but the
-    string ones (no phase-11 query reads those; a J1 string column's
-    dictionary holds up to 1e7 strings): data and dim (phase 4's) and j1
-    (phase 6's J1_1e7_NA_0_0). Every rank maps the same bytes."""
-    tables = {"source": data, "dim": dim,
+def save_mesh_tables(path: Path, data, dim, j1, trade) -> None:
+    """The phase's tables as .npy files under path: data and dim (phase
+    4's), j1 (phase 6's J1_1e7_NA_0_0) but its string columns (no
+    phase-11 query reads those; a J1 string column's dictionary holds up
+    to 1e7 strings), and trade (phase 4's trades: its symbols' int32
+    codes, and their 100-string dictionary in layout.json). Every rank
+    maps the same bytes."""
+    arrays_t, d = trade
+    tables = {"source": data, "dim": dim, "trades": arrays_t,
               **{name: {c: a for c, a in arrays.items() if c not in dicts}
                  for name, (arrays, dicts) in j1.items()}}
     for name, arrays in tables.items():
         for col, arr in arrays.items():
             np.save(path / f"{name}.{col}.npy", arr)
     (path / "layout.json").write_text(json.dumps(
-        {name: list(arrays) for name, arrays in tables.items()}))
+        {"columns": {name: list(arrays) for name, arrays in tables.items()},
+         "strings": {"trades": {"stocksymbol": d.strings()}}}))
 
 
-def load_mesh_tables(path: Path) -> dict[str, dict[str, np.ndarray]]:
-    """save_mesh_tables' tables, mapped: {name: {column: array}}."""
+def load_mesh_tables(path: Path):
+    """save_mesh_tables' tables, mapped: ({name: {column: array}},
+    {name: {string column: its StringDict}})."""
     layout = json.loads((path / "layout.json").read_text())
-    return {name: {c: np.load(path / f"{name}.{c}.npy", mmap_mode="r")
-                   for c in cols} for name, cols in layout.items()}
+    return ({name: {c: np.load(path / f"{name}.{c}.npy", mmap_mode="r")
+                    for c in cols}
+             for name, cols in layout["columns"].items()},
+            {name: {c: StringDict(strs) for c, strs in cols.items()}
+             for name, cols in layout["strings"].items()})
 
 
 def _mesh_rank(rank: int, world: int, backend: str, path: str,
@@ -3117,18 +3147,26 @@ def _mesh_rank(rank: int, world: int, backend: str, path: str,
     db = connect(device=dev, mesh=world)
     db.log_level = "error"
     t0 = time.perf_counter()
-    every_table = load_mesh_tables(Path(path))
+    every_table, strings = load_mesh_tables(Path(path))
     data, dim = every_table["source"], every_table["dim"]
-    tables = {nm: (arrays, {}) for nm, arrays in every_table.items()}
+    tables = {nm: (arrays, strings.get(nm, {}))
+              for nm, arrays in every_table.items()}
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    for name, arrays in every_table.items():
-        tbl = Table.from_numpy(name, arrays, device=dev)
+    for name, (arrays, dicts) in tables.items():
+        tbl = Table.from_numpy(name, arrays, device=dev,
+                               types={c: T.StrT for c in dicts},
+                               dictionaries=dicts)
         db.catalog.create(tbl)
         db.place_table(tbl)
     torch.cuda.synchronize()
     place_s = time.perf_counter() - t0
-    queries = {**{q: QUERIES[q] for q in MESH_H2O}, **MESH_OTHER, **MESH_J1}
+    queries = {**{q: QUERIES[q] for q in MESH_H2O},
+               **{q: TRADES[q] for q in MESH_TRADES},
+               **{"m_" + q: WINDOW_QUERIES[q].replace(" FROM x",
+                                                       " FROM source")
+                  for q in MESH_WINDOWS},
+               **MESH_OTHER, **MESH_J1}
     out = {"rank": rank, "device": str(dev), "backend": db.mesh.backend,
            "world": db.mesh.world, "gen_s": gen_s, "place_s": place_s,
            "queries": {}}
@@ -3147,8 +3185,9 @@ def _mesh_rank(rank: int, world: int, backend: str, path: str,
         if i % world == rank:
             mesh_oracle(q, data, dim, tables)(
                 answer if sql.startswith("CREATE") else res)
-        digest = tuple(int(c.data[:answer.nrows].to(torch.float64).sum())
-                       if not c.is_vector else 0
+        digest = tuple(int((c.values[:c.total_values()] if c.is_vector
+                            else c.data[:answer.nrows])
+                           .to(torch.float64).sum())
                        for c in answer.columns.values()) + (answer.nrows,)
         torch.cuda.synchronize()
         dist.barrier()
@@ -3167,10 +3206,11 @@ def _mesh_rank(rank: int, world: int, backend: str, path: str,
 
 def run_mesh(data, dim, j1) -> dict[str, dict[str, int]]:
     """Phase 11: the mesh session's queries on MESH_RANKS ranks over data
-    and dim (G1_1e7_1e1_0_0 and its dim table) and j1 (J1_1e7_NA_0_0);
-    each answer against numpy and equal on every rank, each route and
-    each rank's kernels asserted. Returns the launches of every rank's
-    query, for the kernel report."""
+    and dim (G1_1e7_1e1_0_0 and its dim table), j1 (J1_1e7_NA_0_0) and
+    phase 4's trades (generated again, seed 7); each answer against numpy
+    and equal on every rank, each route and each rank's kernels
+    asserted. Returns the launches of every rank's query, for the kernel
+    report."""
     from aquery2_tpu_torch.parallel import launch
 
     t_start = time.perf_counter()
@@ -3178,10 +3218,10 @@ def run_mesh(data, dim, j1) -> dict[str, dict[str, int]]:
     backend = "nccl" if torch.cuda.device_count() >= MESH_RANKS else "gloo"
     K.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=K.BUILD_DIR) as tmp:
-        save_mesh_tables(Path(tmp), data, dim, j1)
-        print(f"# wrote G1_1e7_1e1_0_0, its dim table and J1_1e7_NA_0_0's "
-              f"numeric columns in {time.perf_counter() - t_start:.1f} s",
-              flush=True)
+        save_mesh_tables(Path(tmp), data, dim, j1, trades(ROWS, 100, 7))
+        print(f"# wrote G1_1e7_1e1_0_0, its dim table, J1_1e7_NA_0_0's "
+              f"numeric columns and trades in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
         ranks = launch.run(_mesh_rank, MESH_RANKS, backend, tmp,
                            backend=backend, timeout_s=600)
     for r in ranks:
@@ -3363,12 +3403,12 @@ def main() -> int:
           "and seg_scan_multi launched from the trigger threads")
     mesh = run_mesh(data, dim, j1)
     launches.update(mesh)
-    phase("11. the mesh: q1-q5, q7, q9, q10, qj, qjg, two J1 questions, an "
-          "ungrouped aggregate, a top-k and an ordered scan, EXCEPT, "
-          "INTERSECT ALL and a UNION's DISTINCT match numpy on every rank "
-          "over the distributed tiers, the CASE without ELSE over gathered "
-          "tables; onehot_segment_sums, seg_cumsum_i64 and seg_scan_multi "
-          "launched on every rank")
+    phase("11. the mesh: q1-q10, qj, qjg, w_partition, w_peers, avgs, "
+          "max_stddevs, two J1 questions, an ungrouped aggregate, a top-k "
+          "and an ordered scan, EXCEPT, INTERSECT ALL and a UNION's "
+          "DISTINCT match numpy on every rank over the distributed tiers, "
+          "the CASE without ELSE over gathered tables; onehot_segment_sums, "
+          "seg_cumsum_i64 and seg_scan_multi launched on every rank")
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())

@@ -1,7 +1,8 @@
 """The port's mesh session on grouped and ungrouped SQL: the queries of
 tests/test_dist_sql.py (the single-table part), tests/test_dist_nulls_
-strings.py and tests/test_multihost.py (but those of ROADMAP item 9b: the
-median, ASSUMING and OVER), in one 4-rank gloo world, against the JAX
+strings.py and tests/test_multihost.py (its median, ASSUMING and OVER
+statements are in test_torch_dist_ordered.py and test_torch_dist_window.py),
+in one 4-rank gloo world, against the JAX
 package's connect(mesh=4) session: the same rows (integers exactly,
 floats within rtol 1e-12) and the same dist_spmd / dist_fallback counts
 and reasons. NULL group keys, a known reference fault (ROADMAP queue 3),

@@ -2,8 +2,9 @@
 worlds on the CPU: the comm layer's counts and bytes against figures
 worked out by hand, the distribution primitives of tests/test_parallel.py
 against numpy, DML and fallback statements against the single-device
-port, the raises of connect() and of ROADMAP item 9b's entry points, and
-a rank that raises ending its world with that error.
+port, a median, an ordered group-by and an OVER window against the JAX
+package's mesh session, the raises of connect(), and a rank that raises
+ending its world with that error.
 """
 
 import time
@@ -50,7 +51,10 @@ COMM_QUERIES = {
     "shuffle_join": "SELECT count(*) FROM fact f, dim d WHERE f.k = d.k",
 }
 
-NOT_PORTED = {
+# the median, an ordered group-by and an OVER window: each group's or
+# partition's rows moved to one rank (engine/dist_ordered.py,
+# dist_window.py)
+SHUFFLED = {
     "median": "SELECT k, median(v) FROM t GROUP BY k",
     "ordered": "SELECT k, sums(v) FROM t ASSUMING ASC v GROUP BY k",
     "window": "SELECT k, v, sum(v) OVER (PARTITION BY k ORDER BY v) "
@@ -77,6 +81,7 @@ def _mesh_world(rank, world):
     """Every check that needs the world, run once; rank 0 returns what
     every rank saw."""
     import torch.distributed as dist
+    import torch_dist_world
 
     from aquery2_tpu_torch.parallel import (comm, dist_groupby, dist_join,
                                             dist_scan, step)
@@ -85,15 +90,11 @@ def _mesh_world(rank, world):
     db = aq.connect(device="cpu", mesh=world)
     db.log_level = "error"
     _load(db)
-    out: dict = {"comm": {}, "raises": {}, "dml": [], "placed": {}}
+    out: dict = {"comm": {}, "shuffled": {}, "dml": [], "placed": {}}
     for tag, q in COMM_QUERIES.items():
         out["comm"][tag] = (db.execute(q).rows(), comm.last_query_comm(db))
-    for tag, q in NOT_PORTED.items():
-        try:
-            db.execute(q)
-            out["raises"][tag] = None
-        except NotImplementedError as e:
-            out["raises"][tag] = str(e)
+    for tag, q in SHUFFLED.items():
+        out["shuffled"][tag] = torch_dist_world._record(db, q)
     for q in DML:
         r = db.execute(q)
         out["dml"].append(None if r is None else r.rows())
@@ -221,10 +222,34 @@ def test_comm_shuffle_join_by_hand(world):
     assert rows == [(want,)]
 
 
-@pytest.mark.parametrize("tag", sorted(NOT_PORTED))
-def test_item_9b_entry_points_raise(world, tag):
-    msg = world["raises"][tag]
-    assert msg is not None and "ROADMAP item 9b" in msg, (tag, msg)
+def _load_sql(db):
+    """t of _load through SQL, which both packages take."""
+    d = _data()
+    db.execute("CREATE TABLE t(k INT, v INT)")
+    db.catalog.get("t").append_rows(
+        [(int(a), int(b)) for a, b in zip(d["k"], d["v"])])
+    db.place_table(db.catalog.get("t"))
+
+
+@pytest.fixture(scope="module")
+def shuffled_reference():
+    import torch_dist_world
+
+    return dict(zip(SHUFFLED, torch_dist_world.reference(
+        _load_sql, list(SHUFFLED.values()))))
+
+
+@pytest.mark.parametrize("tag", sorted(SHUFFLED))
+def test_median_ordered_window_match_jax_mesh(world, shuffled_reference,
+                                              tag):
+    """Each runs on the mesh (SPMD) and equals the JAX package's mesh
+    session: rows, names and route."""
+    import torch_dist_world
+
+    got = world["shuffled"][tag]
+    torch_dist_world.assert_same(got, shuffled_reference[tag], SHUFFLED[tag],
+                                 rtol=1e-9)
+    assert (got["spmd"], got["fallback"]) == (1, 0), got
 
 
 def test_dml_and_fallbacks_match_single_device(world):
@@ -333,14 +358,37 @@ got = db.execute("SELECT k, sum(v), count(*) FROM t GROUP BY k").rows()
 want = [(int(a), int(v[k == a].sum()), int((k == a).sum()))
         for a in np.unique(k)]
 assert got == want, (got, want)
-assert (db.stats.dist_spmd, db.stats.dist_fallback) == (1, 0)
+# tests/test_multihost.py's median, subvec (h2o q8's top-2 under ASSUMING
+# DESC), OVER (the default RANGE frame's peers) and running sums
+got = db.execute("SELECT k, median(v) FROM t GROUP BY k ORDER BY k").rows()
+assert got == [(int(a), float(np.median(v[k == a]))) for a in np.unique(k)]
+got = db.execute("SELECT k, subvec(v, 0, 2) AS top2 FROM t "
+                 "ASSUMING DESC v GROUP BY k").rows()
+assert got == [(int(a), np.sort(v[k == a])[::-1][:2].tolist())
+               for a in np.unique(k)], got
+got = db.execute("SELECT k, v, sum(v) OVER (PARTITION BY k ORDER BY v) "
+                 "AS rs FROM t").rows()
+assert got == [(int(a), int(b), int(v[(k == a) & (v <= b)].sum()))
+               for a, b in zip(k, v)]
+ts = rng.permutation(1600)
+tr = db.catalog.create(Table.from_numpy("tr", {"k": k, "ts": ts, "v": v},
+                                        device="cpu"))
+db.place_table(tr)
+got = db.execute("SELECT k, sums(v) AS s FROM tr ASSUMING ASC ts "
+                 "GROUP BY k").rows()
+assert got == [(int(a), np.cumsum(v[k == a][np.argsort(
+    ts[k == a], kind="stable")]).tolist()) for a in np.unique(k)], got
+assert (db.stats.dist_spmd, db.stats.dist_fallback) == (5, 0), \
+    db.stats.dist_fallback_reasons
 print("MULTIHOST_OK", os.environ["AQ_PROCESS_ID"], flush=True)
 """
 
 
 def test_two_processes_join_from_the_environment(tmp_path):
     """tests/test_multihost.py's launch: two processes given only
-    AQ_COORDINATOR, AQ_NUM_PROCESSES and AQ_PROCESS_ID run one mesh."""
+    AQ_COORDINATOR, AQ_NUM_PROCESSES and AQ_PROCESS_ID run one mesh: its
+    grouped sum, median, subvec, OVER and ASSUMING running sums against
+    numpy, every statement SPMD."""
     import os
     import socket
     import subprocess

@@ -60,7 +60,9 @@ def test_import_pulls_in_no_jax():
             "aquery2_tpu_torch.engine.dist_query, "
             "aquery2_tpu_torch.engine.dist_join_query, "
             "aquery2_tpu_torch.engine.dist_scan, "
-            "aquery2_tpu_torch.engine.dist_setop; "
+            "aquery2_tpu_torch.engine.dist_setop, "
+            "aquery2_tpu_torch.engine.dist_ordered, "
+            "aquery2_tpu_torch.engine.dist_window; "
             "new = set(sys.modules) - before; "
             "bad = sorted(m for m in new if m.split('.')[0] in "
             "('jax', 'jaxlib', 'aquery2_tpu')); "
@@ -92,7 +94,8 @@ def test_sources_name_no_jax():
             "__init__.py", "mesh.py", "comm.py", "multihost.py", "launch.py",
             "dist_groupby.py", "dist_join.py", "dist_scan.py", "step.py")} \
         | {PKG / "engine" / f"dist_{nm}.py" for nm in (
-            "query", "join_query", "scan", "setop")} <= set(paths)
+            "query", "join_query", "scan", "setop", "ordered",
+            "window")} <= set(paths)
     for path in paths:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
