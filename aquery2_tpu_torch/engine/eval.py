@@ -338,22 +338,38 @@ class EvalContext:
         return Value("scalar", col.to_python()[0], st)
 
     def _in_subquery(self, e: A.BinOp) -> Value:
+        """x IN (SELECT …) in SQL's three-valued logic: true where x
+        matches a value, NULL where x is NULL or, where it matches
+        nothing, the subquery holds a NULL; else false. NOT x IN (…)
+        then keeps no row that is NULL."""
         lv = self.to_row(self.eval(e.left))
         t = self._run_subquery(e.right)
         if len(t.columns) != 1:
             raise EvalError("IN subquery must produce one column")
         col = next(iter(t.columns.values()))
+        dev = self.ws.device
         if lv.sqltype.is_string or col.sqltype.is_string:
             if lv.dictionary is None or not col.sqltype.is_string:
                 raise EvalError("IN subquery: incompatible string operands")
             # the subquery's strings in the probe's codes; unknown strings
             # (-1) match nothing
-            vals = torch.tensor([lv.dictionary.lookup(s)
-                                 for s in col.to_python()],
-                                dtype=torch.int32, device=self.ws.device)
+            strs = col.to_python()
+            vals = torch.tensor([lv.dictionary.lookup(s) for s in strs
+                                 if s is not None],
+                                dtype=torch.int32, device=dev)
+            sub_null = torch.tensor(None in strs, device=dev)
         else:
             vals = col.data[:col.nrows]
-        return Value("row", torch.isin(lv.data, vals), T.BoolT)
+            if col.valid is None:
+                sub_null = torch.tensor(False, device=dev)
+            else:
+                ok = col.valid[:col.nrows]
+                vals, sub_null = vals[ok], ~ok.all()
+        hit = torch.isin(lv.data, vals)
+        nulls = ~hit & sub_null
+        if lv.nulls is not None:
+            hit, nulls = hit & ~lv.nulls, nulls | lv.nulls
+        return Value("row", hit, T.BoolT, nulls=nulls)
 
     # -- binary / unary ----------------------------------------------------
 

@@ -75,8 +75,9 @@ from aquery2_tpu_torch.engine import (dist_join_query, dist_ordered,
 from aquery2_tpu_torch.engine import join as join_mod
 from aquery2_tpu_torch.engine import groupby as gb
 from aquery2_tpu_torch.engine import grouped_agg, udf_device, udf_rewrite
-from aquery2_tpu_torch.engine.eval import (EvalContext, Value, WorkingSet,
-                                           _host_scalar, _translate_codes)
+from aquery2_tpu_torch.engine.eval import (AGG_NAMES, EvalContext, Value,
+                                           WorkingSet, _host_scalar,
+                                           _translate_codes)
 from aquery2_tpu_torch.engine.udf import Udf
 from aquery2_tpu_torch.ops import filter as filter_ops
 from aquery2_tpu_torch.ops import ragged
@@ -339,6 +340,7 @@ class Executor:
         mesh = session.mesh
         placed = session.catalog            # placed tables: the dist tiers
         catalog = self._cat()
+        sel = _resolve_positions(sel, session.udfs)
         if session.udfs:
             # accumulation-loop AGGREGATION FUNCTIONs become aggregate
             # expressions first, so that every tier below runs them
@@ -831,6 +833,80 @@ class Executor:
 # --------------------------------------------------------------------- #
 # helpers
 # --------------------------------------------------------------------- #
+
+def _position(e: A.Expr) -> int | None:
+    """n where e is a bare integer literal (a positional ORDER BY or
+    GROUP BY item), else None: ``1 + 0`` stays a constant expression."""
+    if isinstance(e, A.Literal) and not e.is_string and type(e.value) is int:
+        return e.value
+    return None
+
+
+def _has_aggregate(e, udfs) -> bool:
+    """Whether expression e calls an aggregate or an AGGREGATION
+    FUNCTION outside a subquery."""
+    if isinstance(e, A.Subquery):
+        return False
+    if isinstance(e, A.Call):
+        name = e.func.lower()
+        if name in AGG_NAMES or (name in udfs
+                                 and udfs[name].is_aggregation):
+            return True
+    if dataclasses.is_dataclass(e):
+        return any(_has_aggregate(getattr(e, f.name), udfs)
+                   for f in dataclasses.fields(e))
+    if isinstance(e, (list, tuple)):
+        return any(_has_aggregate(x, udfs) for x in e)
+    return False
+
+
+def _resolve_positions(sel: A.Select, udfs) -> A.Select:
+    """sel with each positional item resolved (SQL-92, and MonetDB, which
+    runs the reference's SQL part): ``ORDER BY n`` sorts by the n-th
+    output column, i.e. by the n-th projection's expression, which every
+    tier matches to its output column; ``GROUP BY n`` groups by the n-th
+    projection's expression. Raises ExecError where n is out of range, a
+    ``*`` comes at or before n, or GROUP BY's n-th item is an aggregate
+    or itself an integer literal. An ORDER BY item that resolves to a
+    literal sorts by a constant and is dropped, so that a resolved
+    statement run again (a set operation's main branch) resolves to
+    itself."""
+    if not any(_position(e) is not None for e in sel.group_by) and \
+            not any(_position(o.expr) is not None for o in sel.order_by):
+        return sel
+
+    def item(n: int, clause: str) -> A.Expr:
+        if not 1 <= n <= len(sel.projections):
+            raise ExecError(f"{clause} {n} is out of range: the select "
+                            f"list has {len(sel.projections)} item(s)")
+        if any(isinstance(p.expr, A.Star) for p in sel.projections[:n]):
+            raise ExecError(f"{clause} {n}: the select list has a * at "
+                            f"or before item {n}")
+        return sel.projections[n - 1].expr
+
+    group_by = []
+    for e in sel.group_by:
+        n = _position(e)
+        if n is not None:
+            e = item(n, "GROUP BY")
+            if _has_aggregate(e, udfs):
+                raise ExecError(f"GROUP BY {n}: select item {n} is an "
+                                f"aggregate")
+            if _position(e) is not None:
+                raise ExecError(f"GROUP BY {n}: select item {n} is an "
+                                f"integer literal")
+        group_by.append(e)
+    order_by = []
+    for o in sel.order_by:
+        n = _position(o.expr)
+        if n is not None:
+            e = item(n, "ORDER BY")
+            if isinstance(e, A.Literal):
+                continue
+            o = A.OrderItem(e, o.ascending)
+        order_by.append(o)
+    return dataclasses.replace(sel, group_by=group_by, order_by=order_by)
+
 
 def _distinct_to_groupby(sel: A.Select, catalog) -> A.Select | None:
     """SELECT DISTINCT e1, …, ek → SELECT e1, …, ek GROUP BY e1, …, ek when

@@ -430,8 +430,15 @@ class Table:
             return c.nrows
         return 0
 
+    @property
+    def ncols(self) -> int:
+        return len(self.columns)
+
     def column_names(self) -> list[str]:
         return list(self.columns)
+
+    def schema(self) -> list[tuple[str, T.SQLType]]:
+        return [(c.name, c.sqltype) for c in self.columns.values()]
 
     def has_nulls(self, names: Iterable[str] | None = None) -> bool:
         """True if any column (of ``names``, where given) has a validity
@@ -468,6 +475,12 @@ class Table:
             raise ValueError("column count mismatch in append")
         for col, src in zip(mine, theirs):
             self.columns[col.name] = _append_column(col, src)
+
+    def head(self, k: int = 10) -> str:
+        """The first k rows as ``Result.format`` prints them."""
+        from aquery2_tpu_torch.storage.result import Result
+
+        return Result(self).format(limit=k)
 
     def __repr__(self) -> str:
         cols = ", ".join(f"{c.name}:{c.sqltype.name}"

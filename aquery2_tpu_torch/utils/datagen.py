@@ -5,9 +5,10 @@
 that the h2o join queries qj and qjg join it with (``bench.make_data``'s
 ``dim``), ``h2o_j1`` the db-benchmark's four join tables (J1, x, small,
 medium and big), ``trades`` the trades benchmark table (the JAX
-package's ``datagen.trades_table``) and ``electricity_csv`` the demo's
-CSV batches, with numpy, so the JAX package and the port can load
-identical data from one seed.
+package's ``datagen.trades_table``), ``stock_csv``, ``base_csv`` and
+``tick_hist_csv`` the CSV files of the reference's best_profit.a, and
+``electricity_csv`` the demo's CSV batches, with numpy, so the JAX
+package and the port can load identical data from one seed.
 """
 
 from __future__ import annotations
@@ -166,6 +167,77 @@ def trades(n: int, n_symbols: int = 100, seed: int = 7
     price = rng.integers(1, 500, n).astype(np.int32)
     return {"stocksymbol": sym, "time": t, "quantity": qty,
             "price": price}, d
+
+
+def stock_csv(path: str, n_days: int = 100, n_symbols: int = 4,
+              seed: int = 3) -> None:
+    """data/stock.csv of the reference's tests/best_profit.a (ID varchar,
+    timestamp int, tradeDate date, price int): the JAX package's
+    ``datagen.stock_csv``, byte for byte."""
+    rng = np.random.default_rng(seed)
+    syms = [chr(ord("S") + i) for i in range(n_symbols)]
+    with open(path, "w") as f:
+        f.write("ID,timestamp,tradeDate,price\n")
+        ts = 0
+        for day in range(n_days):
+            date = f"2003-01-{(day % 28) + 1:02d}"
+            for s in syms:
+                for _ in range(rng.integers(1, 6)):
+                    ts += 1
+                    f.write(f"{s},{ts},{date},{rng.integers(1, 100)}\n")
+
+
+def base_csv(path: str, n_symbols: int = 4, seed: int = 5) -> None:
+    """data/base.csv of tests/best_profit.a (ID varchar, name varchar):
+    each tick ID's name, one of them "x" (the script filters on it); the
+    JAX package's ``datagen.base_csv``, byte for byte."""
+    rng = np.random.default_rng(seed)
+    syms = [chr(ord("S") + i) for i in range(n_symbols)]
+    names = ["x"] + [f"n{i}" for i in range(1, n_symbols)]
+    rng.shuffle(names)
+    names[0] = "x"
+    with open(path, "w") as f:
+        f.write("ID,name\n")
+        for s, nm in zip(syms, names):
+            f.write(f"{s},{nm}\n")
+
+
+def tick_hist_csv(tick_path: str, hist_path: str, n_symbols: int = 6,
+                  n_days: int = 40, seed: int = 9) -> None:
+    """data/tick-price-file.csv and data/hist-price-file.csv of
+    tests/best_profit.a (the reference's tests/datagen_jose/tickgen.cpp
+    and histgen.cpp), '|'-separated: TradedStocks(ID, SeqNo, TradeDate,
+    TimeStamp, Type) and HistoricQuotes(ID, TradeDate, High, Low, Close,
+    Open, volume); the JAX package's ``datagen.tick_hist_csv``, byte for
+    byte."""
+    rng = np.random.default_rng(seed)
+    syms = [f"SYM{i:02d}" for i in range(n_symbols)]
+    with open(tick_path, "w") as f:
+        f.write("ID|SeqNo|TradeDate|TimeStamp|Type\n")
+        seq = 0
+        for day in range(n_days):
+            date = f"2010-{(day // 28) + 1:02d}-{(day % 28) + 1:02d}"
+            for s in syms:
+                for _ in range(int(rng.integers(1, 4))):
+                    seq += 1
+                    hh, mm, ss = (int(rng.integers(9, 17)),
+                                  int(rng.integers(0, 60)),
+                                  int(rng.integers(0, 60)))
+                    ty = "T" if rng.random() < 0.8 else "Q"
+                    f.write(f"{s}|{seq}|{date}|{hh:02d}:{mm:02d}:{ss:02d}"
+                            f"|{ty}\n")
+    with open(hist_path, "w") as f:
+        f.write("ID|TradeDate|HighPrice|LowPrice|ClosePrice|OpenPrice|"
+                "volume\n")
+        for day in range(n_days):
+            date = f"2010-{(day // 28) + 1:02d}-{(day % 28) + 1:02d}"
+            for s in syms:
+                o = float(rng.uniform(10, 100))
+                c = o * float(rng.uniform(0.95, 1.05))
+                hi = max(o, c) * 1.01
+                lo = min(o, c) * 0.99
+                f.write(f"{s}|{date}|{hi:.2f}|{lo:.2f}|{c:.2f}|{o:.2f}"
+                        f"|{int(rng.integers(1000, 100000))}\n")
 
 
 def electricity_csv(path: str, n: int = 250, n_features: int = 7,

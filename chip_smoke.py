@@ -13,9 +13,10 @@ Phases, in order (any mismatch raises; there is no fallback):
      at every lane set it is timed at and every one the main path
      launches, 1 to 4 lanes of 32-bit and of 64-bit words),
      fused_running_stats over its cases REPEATS times (NaNs, a late lone
-     NaN, tile edges, misaligned views), then timings
-     (CUDA events, median of 10, the device's time and the time with the
-     host's gaps) at the main path's shapes beside their bytes, their
+     NaN, tile edges, misaligned views), then timings (CUDA events: each
+     kernel's median of 10, the device's time and the time with the
+     host's gaps; each plain version one run after a warm-up,
+     PHASE3_PLAIN_REPS) at the main path's shapes beside their bytes, their
      bound at the H100's 3.35 TB/s and the share of it reached:
      seg_cumsum_i64 (and an unsegmented torch.cumsum of the same column,
      not the same function), seg_scan_multi at q7's, q8's, 3 x 32-bit,
@@ -84,7 +85,8 @@ Phases, in order (any mismatch raises; there is no fallback):
      numpy oracle that runs the body's loop one position at a time over
      all groups at once, with its median of 3 warm runs, its host syncs
      (read from the code, udf_syncs, and measured), its route in
-     session.stats.udf_paths (never "interpreted") and its launches: on
+     session.stats.udf_paths (never "interpreted") and its launches
+     (u_ewma one run, its synchronizing calls counted in that run): on
      x = G1_1e7_1e1_0_0 covariances2 (tests/test_udf_device.py) per id3,
      1e6 groups (a vector result, if and for, x[i - w], slices; the
      general pipeline), clipsum (an if inside a for) per id3 and per
@@ -165,7 +167,21 @@ Phases, in order (any mismatch raises; there is no fallback):
      warm run's wall on rank 0 (host clock, a synchronize and a
      barrier) and its collectives (last_query_comm) are printed. Four
      ranks sharing one card measure correctness and traffic, not
-     scaling.
+     scaling;
+ 12. the h2o main path at the JAX bench's own size (bench.py's default
+     --rows 1e8, BASELINE.md's G1-1e8 metric): q1-q10, qj and qjg
+     through connect(device="cuda").execute over G1_1e8
+     (datagen.h2o_g1(1e8, 10, 42): every published width, nothing cut)
+     and its dim table (1e6 id3 keys) at the capacity 100,663,296: each
+     query's first run and median of 3 warm runs, its device memory
+     peak, its launches over the 4 runs equal to MAIN_PATH_LAUNCHES, its
+     tiers equal to phase 4's (PlanProbe), its key words, sort passes
+     and float_sums_fit decisions printed (q10: 3 words and 2 sort
+     passes, asserted), its answer against the numpy oracle (column
+     arrays, never rows()) and the oracle's seconds; then
+     onehot_segment_sums, seg_cumsum_i64 and seg_scan_multi at q9's,
+     q3's and q7's inputs against their plain versions (exactly), each
+     timed beside its bound, and the process's peak RSS.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -177,6 +193,7 @@ import collections
 import json
 import os
 import re
+import resource
 import subprocess
 import sys
 import tempfile
@@ -475,6 +492,11 @@ REPEATS = 20            # runs of each scan per flag case (phase 3)
 # 2.5e4 a series, so that ewma's host-driven loop (one pass a row of the
 # longest series) keeps the whole script near 500 s
 PHASE8_TRADES = ROWS // 4
+# depth cuts paying for phase 12 (PERF.md §4): phase 3 times each plain
+# version in one run after its warm-up (it took 10); phase 8 runs u_ewma
+# once, counting its synchronizing calls in that run (it took 3 warm runs
+# and a fifth run for the count)
+PHASE3_PLAIN_REPS = 1
 SLEEP_CYCLES = 2_000_000    # about 1 ms of the card's clock: longer than
                             # the host takes to enqueue one kernel call
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
@@ -562,13 +584,15 @@ def scan_bytes(f, xs) -> int:
 
 
 def time_shape(label: str, kernel, plain, nbytes: int) -> dict:
-    """Kernel and plain times (CUDA events, median of 10) beside the bound
-    of nbytes."""
-    ms, pms = cuda_ms(kernel), cuda_ms(plain)
+    """Kernel times (CUDA events, median of 10) and the plain version's
+    (one run after a warm-up: PHASE3_PLAIN_REPS) beside the bound of
+    nbytes."""
+    ms, pms = cuda_ms(kernel), cuda_ms(plain, reps=PHASE3_PLAIN_REPS)
     host = cuda_ms(kernel, host_gaps=True)
     b = bound_ms(nbytes)
     print(f"# {label}: kernel {ms:.4f} ms ({host:.4f} with the host's "
-          f"gaps), plain {pms:.4f} ms (median of 10, {CAP} rows); {nbytes} "
+          f"gaps; median of 10), plain {pms:.4f} ms (one run; {CAP} rows); "
+          f"{nbytes} "
           f"bytes ({nbytes / CAP:g} B/row), bound {b:.4f} ms at 3.35 TB/s, "
           f"{b / ms:.1%} of bound", flush=True)
     return {"shape": label, "ms": ms, "ms_with_host": host, "plain_ms": pms,
@@ -751,19 +775,11 @@ def capture_onehot(dev, data) -> dict:
     db = connect(device=dev)
     load(db, "source", data, dev)
     load(db, "dim", h2o_dim(ROWS, K_GROUPS, SEED), dev)
-    real, calls, query = K.onehot_segment_sums, {}, [None]
-
-    def spy(code, lanes, dp):
-        calls.setdefault(query[0], (code, tuple(lanes), dp))
-        return real(code, lanes, dp)
-    K.onehot_segment_sums = spy
-    try:
-        for q in ONEHOT_SHAPES:
-            query[0] = q
-            db.execute(QUERIES[q])
-    finally:
-        K.onehot_segment_sums = real
-    torch.cuda.synchronize()
+    calls = {}
+    for q in ONEHOT_SHAPES:
+        code, lanes, dp = capture_first(
+            "onehot_segment_sums", lambda: db.execute(QUERIES[q]))
+        calls[q] = (code, tuple(lanes), dp)
     return calls
 
 
@@ -992,67 +1008,116 @@ def check_running(rng, dev):
     return err, timed
 
 
-def _groups(keycols: dict[str, np.ndarray]):
-    """Key-ascending groups of the rows: (sorted unique key columns,
-    inverse, row order grouped, group starts in that order, counts)."""
-    code = np.zeros(ROWS, np.int64)
+def _groups(keycols: dict[str, np.ndarray], groups: dict | None = None):
+    """Key-ascending groups of the rows: (the sorted unique key columns,
+    each row's group, each group's row count). The keys' mixed-radix code
+    groups by one bincount where its domain is at most 4 codes a row (every
+    G1 key set but q10's), else by np.unique (one sort). ``groups``, where
+    given, keeps each key set's grouping for the other queries of the same
+    table (q3 and q7 share id3's, q5 and q8 id6's)."""
+    if groups is not None and tuple(keycols) in groups:
+        return groups[tuple(keycols)]
+    n = len(next(iter(keycols.values())))
+    code = np.zeros(n, np.int64)
     radix = {}
+    domain = 1
     for k, v in keycols.items():
         lo = int(v.min())
         radix[k] = (lo, int(v.max()) - lo + 1)
-        code = code * radix[k][1] + (v - lo)
-    ucode, inv = np.unique(code, return_inverse=True)
-    order = np.argsort(inv, kind="stable")
-    starts = np.r_[0, np.flatnonzero(np.diff(inv[order])) + 1]
+        domain *= radix[k][1]
+        code *= radix[k][1]
+        code += v
+        code -= lo
+    if domain <= 4 * n:
+        per = np.bincount(code, minlength=domain)
+        ucode = np.flatnonzero(per)
+        inv = (np.cumsum(per > 0) - 1)[code]
+        cnt = per[ucode]
+    else:
+        ucode, inv, cnt = np.unique(code, return_inverse=True,
+                                    return_counts=True)
     keys = {}
     for k in reversed(list(keycols)):
         lo, r = radix[k]
         keys[k] = ucode % r + lo
         ucode = ucode // r
-    return {k: keys[k] for k in keycols}, inv, order, starts, np.bincount(inv)
+    out = {k: keys[k] for k in keycols}, inv, cnt
+    if groups is not None:
+        groups[tuple(keycols)] = out
+    return out
 
 
-def oracle(data: dict[str, np.ndarray], q: str):
+def group_sorted(inv: np.ndarray, v: np.ndarray) -> np.ndarray:
+    """A 32-bit column's values ordered by (group, value): one np.sort of
+    int64 keys that hold the group above the value's 32 order bits (a
+    float's sign flips its other bits, so -0.0 sorts before 0.0; no NaN).
+    Each group's run then starts at the sum of the counts before it."""
+    if v.dtype == np.float32:
+        b = v.view(np.uint32)
+        bits = np.where(b >> 31 == 1, ~b, b | np.uint32(1 << 31))
+    else:
+        bits = v.astype(np.int32).view(np.uint32) ^ np.uint32(1 << 31)
+    key = inv.astype(np.int64) << 32
+    key |= bits
+    key.sort()
+    b = key.astype(np.uint32)                   # the low 32 bits
+    if v.dtype == np.float32:
+        return np.where(b >> 31 == 1, b & np.uint32(0x7FFFFFFF),
+                        ~b).view(np.float32)
+    return (b ^ np.uint32(1 << 31)).view(np.int32).astype(v.dtype)
+
+
+def oracle(data: dict[str, np.ndarray], q: str, groups: dict | None = None):
     """(answer, per-group row counts, {key: NULL mask}): the query computed
     on the host with numpy, key-ascending. On masked columns (the NA
     variant) a NULL key codes as (max + 1), so the NULLs make one group,
-    last, and aggregates skip NULL arguments."""
+    last, and aggregates skip NULL arguments. Sums and counts are
+    bincounts over the groups; min, max and the median read each group's
+    run of group_sorted. ``groups`` as _groups takes it."""
     def col(nm):
         c = data[nm]
-        return np.ma.getdata(c), ~np.ma.getmaskarray(c)
+        if isinstance(c, np.ma.MaskedArray):
+            return np.ma.getdata(c), ~np.ma.getmaskarray(c)
+        return c, None
 
     keycols = {}
     if q == "multikey":
         keycols["k"] = col("id1")[0].astype(np.int64) * 100 + col("id4")[0]
     for k in KEYS.get(q, []):
         v, ok = col(k)
-        v = v.astype(np.int64)
-        keycols[k] = np.where(ok, v, v[ok].max() + 1)
-    keys, inv, order, starts, cnt = _groups(keycols)
+        keycols[k] = v if ok is None else np.where(ok, v, v[ok].max() + 1)
+    keys, inv, cnt = _groups(keycols, groups)
+    starts = np.cumsum(cnt) - cnt
     out, nulls = {}, {}
     for k, kv in keys.items():
         if k == "k":                             # the computed key
             out[k] = kv.astype(np.int32)
             continue
         v, ok = col(k)
-        nulls[k] = kv == int(v[ok].max()) + 1    # the sentinel group
+        # the sentinel group; no NULL key where the column has no mask
+        nulls[k] = (np.zeros(len(kv), bool) if ok is None
+                    else kv == int(v[ok].max()) + 1)
         out[k] = np.where(nulls[k], 0, kv).astype(np.int32)
 
     def isum(nm):
         v, ok = col(nm)
-        return np.bincount(inv, weights=np.where(ok, v, 0).astype(np.float64)
+        return np.bincount(inv, weights=v if ok is None else np.where(ok, v, 0)
                            ).astype(np.int64)
 
     def fsum(nm):
         v, ok = col(nm)
-        return np.bincount(inv, weights=np.where(ok, v, 0).astype(np.float64))
+        return np.bincount(inv, weights=v if ok is None else np.where(ok, v, 0))
 
     def nn(nm):
-        return np.maximum(np.bincount(inv, weights=col(nm)[1]), 1)
+        ok = col(nm)[1]
+        return cnt if ok is None else np.maximum(np.bincount(inv, weights=ok),
+                                                 1)
 
-    def extreme(nm, fn, ident):
+    def extreme(nm, last, ident):
         v, ok = col(nm)
-        return fn.reduceat(np.where(ok, v, ident)[order], starts)
+        sv = group_sorted(inv, v if ok is None
+                          else np.where(ok, v, ident).astype(v.dtype))
+        return sv[starts + cnt - 1] if last else sv[starts]
 
     if q in ("q1", "q2"):
         out["v1"] = isum("v1")
@@ -1065,8 +1130,7 @@ def oracle(data: dict[str, np.ndarray], q: str):
         out["v1"], out["v2"], out["v3"] = isum("v1"), isum("v2"), fsum("v3")
     elif q == "q6":
         v = col("v3")[0]
-        byval = np.lexsort((v, inv))             # group, then value
-        sv = v[byval].astype(np.float64)
+        sv = group_sorted(inv, v).astype(np.float64)
         out["median_v3"] = (sv[starts + (cnt - 1) // 2]
                             + sv[starts + cnt // 2]) * 0.5
         s1 = fsum("v3")
@@ -1074,23 +1138,25 @@ def oracle(data: dict[str, np.ndarray], q: str):
         den = cnt + 1.0                          # var divides by n + 1
         out["sd"] = np.sqrt(np.maximum((s2 - s1 * s1 / den) / den, 0.0))
     elif q == "q7":
-        mx = extreme("v1", np.maximum, np.iinfo(np.int32).min)
-        mn = extreme("v2", np.minimum, np.iinfo(np.int32).max)
+        mx = extreme("v1", True, np.iinfo(np.int32).min)
+        mn = extreme("v2", False, np.iinfo(np.int32).max)
         out["range_v1_v2"] = (mx.astype(np.int64) - mn).astype(np.int32)
     elif q == "q9":
         (x, okx), (y, oky) = col("v1"), col("v2")
-        ok = okx & oky
-        x, y = np.where(ok, x, 0).astype(np.int64), np.where(ok, y, 0)
+        ok = None if okx is None and oky is None else (
+            (True if okx is None else okx) & (True if oky is None else oky))
+        x = (x if ok is None else np.where(ok, x, 0)).astype(np.int64)
+        y = y if ok is None else np.where(ok, y, 0)
         sx, sy, sxy, sx2, sy2 = (
-            np.bincount(inv, weights=a.astype(np.float64))
+            np.bincount(inv, weights=a)
             for a in (x, y, x * y, x * x, y * y))
-        n2 = np.bincount(inv, weights=ok)
+        n2 = cnt if ok is None else np.bincount(inv, weights=ok)
         r = (n2 * sxy - sx * sy) / np.sqrt((n2 * sx2 - sx * sx)
                                            * (n2 * sy2 - sy * sy))
         out["r2"] = r ** 2
     elif q == "multikey":
         out["s"] = isum("v1")
-        out["mx"] = extreme("v3", np.maximum, -np.inf).astype(np.float32)
+        out["mx"] = extreme("v3", True, -np.inf)
     else:
         out["v3"], out["cnt"] = fsum("v3"), cnt.astype(np.int64)
     return out, cnt, nulls
@@ -1134,21 +1200,26 @@ def check_result(q: str, res, want: dict[str, np.ndarray],
             np.testing.assert_array_equal(got, w, err_msg=f"{q}.{nm}")
 
 
-def q8_oracle(data):
+def q8_oracle(data, groups: dict | None = None):
     """q8's answer: the id6 values ascending, each one's row count, and
-    the two largest v3 of each, in descending order, concatenated."""
-    id6, v3 = data["id6"], data["v3"]
-    ids, cnt = np.unique(id6, return_counts=True)
-    order = np.lexsort((-v3, id6))
-    first = np.r_[0, np.cumsum(cnt)[:-1]]
-    pos = np.arange(ROWS) - np.repeat(first, cnt)
-    return ids, cnt, v3[order][pos < 2]
+    the two largest v3 of each, in descending order, concatenated (each
+    group's last two of group_sorted). ``groups`` as _groups takes it."""
+    keys, inv, cnt = _groups({"id6": data["id6"]}, groups)
+    sv = group_sorted(inv, data["v3"])
+    ends = np.cumsum(cnt)
+    kept = np.minimum(cnt, 2)
+    at = np.cumsum(kept) - kept
+    top2 = np.empty(int(kept.sum()), np.float32)
+    top2[at] = sv[ends - 1]
+    two = cnt >= 2
+    top2[at[two] + 1] = sv[ends[two] - 2]
+    return keys["id6"].astype(data["id6"].dtype), cnt, top2
 
 
-def check_q8(res, data) -> None:
+def check_q8(res, data, groups: dict | None = None) -> None:
     """q8: per id6, its two largest v3 in descending order, and the
     VectorColumn's offsets (cumulative min(count, 2))."""
-    ids, cnt, top2 = q8_oracle(data)
+    ids, cnt, top2 = q8_oracle(data, groups)
     cols = res.table.columns
     if res.column_names() != ["id6", "largest2_v3"]:
         raise AssertionError(f"q8: columns {res.column_names()}")
@@ -1160,10 +1231,15 @@ def check_q8(res, data) -> None:
     np.testing.assert_array_equal(v.to_numpy(), top2, err_msg="q8 values")
 
 
-def timed_runs(db, sql: str, reps: int):
+def timed_runs(db, sql: str, reps: int, probe=None):
     """(result of a first run, median ms of ``reps`` warm runs), host
-    clock around execute plus a synchronize."""
-    res = db.execute(sql)              # first run: caches, allocator
+    clock around execute plus a synchronize; the first run inside the
+    PlanProbe ``probe``, where given."""
+    if probe is None:
+        res = db.execute(sql)          # first run: caches, allocator
+    else:
+        with probe:
+            res = db.execute(sql)
     torch.cuda.synchronize()
     runs = []
     for _ in range(reps):
@@ -1175,15 +1251,19 @@ def timed_runs(db, sql: str, reps: int):
 
 
 def run_queries(db, queries: dict[str, str], check, reps: int = 3,
-                tag: str = "", walls: dict[str, float] | None = None
-                ) -> dict[str, dict[str, int]]:
+                tag: str = "", walls: dict[str, float] | None = None,
+                plans: dict | None = None) -> dict[str, dict[str, int]]:
     """Each query: its launches counted from zero over its runs, the
     result checked by check(q, res), the median warm time printed (and
-    kept in walls)."""
+    kept in walls), and where plans is given, its first run's PlanProbe
+    kept there."""
     launches = {}
     for q, sql in queries.items():
         reset_launches()
-        res, ms = timed_runs(db, sql, reps)
+        probe = None
+        if plans is not None:
+            probe = plans[q + tag] = PlanProbe()
+        res, ms = timed_runs(db, sql, reps, probe)
         launches[q + tag] = {k: v for k, v in K.LAUNCHES.items() if v}
         check(q, res)
         if walls is not None:
@@ -1219,21 +1299,23 @@ def join_oracle(data, dim, q: str):
     return {"w": ws, "c": cnt.astype(np.int64), "sv": sv}, cnt, {}
 
 
-def run_slice(dev, data, dim, walls):
+def run_slice(dev, data, dim, walls, plans):
     """The h2o queries and the computed-key query on G1_1e7_1e1_0_0 and
-    its dim table: (the launches, the session)."""
+    its dim table, each first run's plan kept in plans: (the launches,
+    the session)."""
     db = connect(device=dev)
     load(db, "source", data, dev)
     load(db, "dim", dim, dev)
+    groups: dict = {}
 
     def check(q, res):
         if q == "q8":
-            check_q8(res, data)
+            check_q8(res, data, groups)
         elif q in ("qj", "qjg"):
             check_result(q, res, *join_oracle(data, dim, q))
         else:
-            check_result(q, res, *oracle(data, q))
-    return run_queries(db, QUERIES, check, walls=walls), db
+            check_result(q, res, *oracle(data, q, groups))
+    return run_queries(db, QUERIES, check, walls=walls, plans=plans), db
 
 
 def tagged_sort_count(pcol: Column, bcol: Column) -> torch.Tensor:
@@ -1431,8 +1513,10 @@ def run_nas(dev) -> dict[str, dict[str, int]]:
     data = h2o_g1(ROWS, K_GROUPS, SEED, nas=5)
     db = connect(device=dev)
     load(db, "source", data, dev)
+    groups: dict = {}
     return run_queries(db, {q: QUERIES[q] for q in NAS_QUERIES},
-                       lambda q, res: check_result(q, res, *oracle(data, q)),
+                       lambda q, res: check_result(
+                           q, res, *oracle(data, q, groups)),
                        tag="@5pct_NA")
 
 
@@ -1561,7 +1645,7 @@ def na_general_oracle(data, q: str):
     ok = ~np.ma.getmaskarray(v3)
     v = np.ma.getdata(v3)
     if q == "q6":
-        keys, inv, _order, _starts, cnt = _groups(
+        keys, inv, cnt = _groups(
             {k: data[k].astype(np.int64) for k in ("id4", "id5")})
         nn = np.bincount(inv, weights=ok).astype(np.int64)
         byval = np.lexsort((v, ~ok, inv))        # group, NULLs last, value
@@ -1656,23 +1740,29 @@ def run_best_profit(dev) -> dict[str, int]:
     return launches
 
 
-def count_syncs(db, sql: str) -> str:
+def count_syncs(db, sql: str, timed: bool = False):
     """The synchronizing CUDA calls of one run of sql as torch's sync
     debug mode reports them, a check beside SYNCS (which reads the code):
     their number and the Python lines that made them, "file:line x
-    count"."""
+    count". With timed=True also (the run's result, its ms: host clock
+    around execute plus a synchronize)."""
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            db.execute(sql)
+            res = db.execute(sql)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
     sites = collections.Counter(f"{Path(w.filename).name}:{w.lineno}"
                                 for w in caught
                                 if "synchroniz" in str(w.message))
-    return f"{sum(sites.values())} ({', '.join(f'{k} x {v}' for k, v in sorted(sites.items()))})"
+    text = (f"{sum(sites.values())} ("
+            f"{', '.join(f'{k} x {v}' for k, v in sorted(sites.items()))})")
+    return (text, (res, ms)) if timed else text
 
 
 def _lut(keys: np.ndarray) -> np.ndarray:
@@ -2138,8 +2228,7 @@ def udf_oracle(tables, q: str):
     symbol, the sum of f(price, quantity) in float64."""
     if q == "udf_cov":
         x = tables["h2o"]
-        keys, inv, _order, _starts, cnt = _groups({"id2": x["id2"],
-                                                   "id4": x["id4"]})
+        keys, inv, cnt = _groups({"id2": x["id2"], "id4": x["id4"]})
         a, b = x["v1"].astype(np.int64), x["v2"].astype(np.int64)
         sx, sy, sxy = (np.bincount(inv, weights=z).astype(np.int64)
                        for z in (a, b, a * b))
@@ -2448,9 +2537,10 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
     connect(device="cuda").execute, on x = G1_1e7_1e1_0_0 and trades
     (PHASE8_TRADES rows, 100 symbols), each against a numpy oracle that
     runs the body's loop one position at a time over all groups at once,
-    with its median of 3 warm runs, its host syncs (read: udf_syncs;
-    measured), its route (session.stats.udf_paths, never interpreted) and
-    its launches; then io_trades (CSV LOAD, INTO OUTFILE)."""
+    with its median of 3 warm runs (u_ewma: one run), its host syncs
+    (read: udf_syncs; measured), its route (session.stats.udf_paths,
+    never interpreted) and its launches; then io_trades (CSV LOAD, INTO
+    OUTFILE)."""
     launches = {}
     trade_arrays, d = trades(PHASE8_TRADES, 100, 7)
     tables = {"h2o": data, "trades": trade_arrays}
@@ -2471,21 +2561,31 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
             want = udf_oracle12(tables, q)
             reset_launches()
             db.stats.reset()
-            res, ms = timed_runs(db, sql, 3)
+            syncs = None
+            if q == "u_ewma":
+                # one run, its synchronizing calls counted in it: host
+                # bound, its warm walls in PERF.md §5 (a depth cut, §4)
+                syncs, (res, ms) = count_syncs(db, sql, timed=True)
+                runs, timing = 1, "one run, synchronizing calls counted"
+            else:
+                res, ms = timed_runs(db, sql, 3)
+                runs, timing = 4, "median of 3 warm runs"
             total = {k: v for k, v in K.LAUNCHES.items() if v}
             launches[q] = total
             paths = dict(db.stats.udf_paths)
-            if paths != {UDF_ROUTE[q]: 4}:
+            if paths != {UDF_ROUTE[q]: runs}:
                 raise AssertionError(f"{q}: routes {paths}, want "
                                      f"{UDF_ROUTE[q]} only")
             check_udf12(q, res, want)
             walls[q] = ms
             if q == "u_ewma":
                 ewma_res = res
-            per_run = {k: v / 4 for k, v in total.items()}
-            print(f"# {q}: {res.nrows} groups, {ms:.3f} ms (median of 3 "
-                  f"warm runs), route {UDF_ROUTE[q]}, syncs read "
-                  f"{udf_syncs(q, want[1])} measured {count_syncs(db, sql)}, "
+            per_run = {k: v / runs for k, v in total.items()}
+            if syncs is None:
+                syncs = count_syncs(db, sql)
+            print(f"# {q}: {res.nrows} groups, {ms:.3f} ms ({timing}), "
+                  f"route {UDF_ROUTE[q]}, syncs read "
+                  f"{udf_syncs(q, want[1])} measured {syncs}, "
                   f"matches numpy, launches per run {per_run}", flush=True)
             if UDF_ROUTE[q] == "fused":
                 walls[q + " general"] = general_route(db, q, sql, want)
@@ -3265,6 +3365,262 @@ def run_mesh(data, dim, j1) -> dict[str, dict[str, int]]:
     return launches
 
 
+# phase 12: the h2o main path at the JAX bench's own size: bench.py's
+# default --rows 100_000_000, BASELINE.md's G1-1e8 metric scale. Every
+# published width of h2o G1 (9 columns, k = 10); nothing cut.
+ROWS_1E8 = 100_000_000
+CAP_1E8 = 100_663_296            # config.bucket_size(1e8)
+G1_1E8 = ("q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "qj",
+          "qjg")
+# the packed tier's 30-bit key words at 1e8 (id3 and id6 take 24 bits) and
+# q10's sort passes: its three words and the validity bit take 91 bits, two
+# stable int64 sorts (ops/sort.lexsort); at 1e7 two words and one sort
+WORDS_1E8 = {"q3": 1, "q5": 1, "q6": 1, "q7": 1, "q10": 3}
+SORTS_1E8 = {"q10": 2}
+# the kernels held against their plain versions at this pass's inputs:
+# the first call of each in the query named
+KERNEL_AT_1E8 = {"onehot_segment_sums": "q9", "seg_cumsum_i64": "q3",
+                 "seg_scan_multi": "q7"}
+
+
+class PlanProbe:
+    """What the engine planned for the statements run inside ``with``:
+    the tiers that answered, innermost first (the fused group-by's
+    strategy; the ordered group-by; the star join, whose group-by is the
+    fused group-by's; the count join), the packed tier's key words
+    (fused_groupby._plan_words), each float_sums_fit decision and the
+    torch.sort calls (the sort passes). It wraps those functions where
+    the engine looks them up and unwraps them on exit."""
+
+    def __init__(self):
+        self.tiers, self.words, self.fits, self.sorts = [], set(), [], 0
+        self._saved = []
+
+    def _wrap(self, module, name, make):
+        real = getattr(module, name)
+        self._saved.append((module, name, real))
+        setattr(module, name, make(real))
+
+    def _tier(self, name):
+        def make(real):
+            def run(*a, **kw):
+                out = real(*a, **kw)
+                if out is not None:
+                    self.tiers.append(self._strategy if name is None
+                                      else name)
+                return out
+            return run
+        return make
+
+    def __enter__(self):
+        fg = fused_groupby
+        self._strategy = None
+
+        def strategy(real):
+            def choose(*a):
+                out = real(*a)
+                self._strategy = None if out is None else out[0]
+                return out
+            return choose
+
+        def words(real):
+            def plan(key_ranges):
+                out = real(key_ranges)
+                if out is not None:
+                    self.words.add(out[1])
+                return out
+            return plan
+
+        def fits(real):
+            def fit(*a, **kw):
+                self.fits.append(real(*a, **kw))
+                return self.fits[-1]
+            return fit
+
+        def sort(real):
+            def counted(*a, **kw):
+                self.sorts += 1
+                return real(*a, **kw)
+            return counted
+
+        self._wrap(fg, "choose_strategy", strategy)
+        self._wrap(fg, "_plan_words", words)
+        self._wrap(fg, "float_sums_fit", fits)
+        self._wrap(fg, "run", self._tier(None))
+        self._wrap(E.fused_ordered, "run", self._tier("ordered"))
+        self._wrap(fused_star, "try_run", self._tier("star join"))
+        self._wrap(fused_join, "try_run", self._tier("count join"))
+        self._wrap(torch, "sort", sort)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, real in reversed(self._saved):
+            setattr(module, name, real)
+        return False
+
+    def line(self) -> str:
+        return (f"tier {' in '.join(self.tiers) or '-'}, key words "
+                f"{sorted(self.words) or '-'}, sort passes {self.sorts}, "
+                f"float_sums_fit {self.fits or '-'}")
+
+
+def capture_first(name: str, run):
+    """The arguments of the first K.<name> call that run() makes."""
+    real, got = getattr(K, name), []
+
+    def spy(*a):
+        if not got:
+            got.append(a)
+        return real(*a)
+    setattr(K, name, spy)
+    try:
+        run()
+    finally:
+        setattr(K, name, real)
+    torch.cuda.synchronize()
+    return got[0]
+
+
+def kernel_at_1e8(name: str, args, rows: list[dict]) -> None:
+    """One kernel at a phase-12 query's inputs: equal to its plain
+    version (integers exactly), its device time (CUDA events, median of
+    10) beside the bound of its bytes, the plain version timed once (and
+    for onehot_segment_sums the one index_add_ that computes the same
+    sums), added to its row of the kernel report."""
+    kernel = getattr(K, name)
+    plain = getattr(K, name + "_plain")
+    got, want = kernel(*args), plain(*args)
+    outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+    wants = (want,) if isinstance(want, torch.Tensor) else tuple(want)
+    for g, w in zip(outs, wants):
+        if g.dtype != w.dtype or not torch.equal(g, w):
+            raise AssertionError(f"{name} at 1e8 differs from its plain "
+                                 f"version: max |err| {max_abs_err(g, w)}")
+    if name == "onehot_segment_sums":
+        code, lanes, dp = args
+        nbytes = (code.numel() * code.element_size() + sum(
+            x.numel() * x.element_size() for x in lanes)
+            + got.numel() * got.element_size())
+        code64 = code.to(torch.int64)
+        src = torch.stack([x.to(torch.int64) for x in lanes], 1)
+
+        def library():
+            return torch.zeros(dp, len(lanes), dtype=torch.int64,
+                               device=code.device).index_add_(0, code64, src)
+        if not torch.equal(library(), got):
+            raise AssertionError("index_add_ differs at 1e8")
+        lib_ms = cuda_ms(library, reps=3)
+        del src, code64
+        shape, n = f"dp {dp}, {len(lanes)} lanes", code.numel()
+    else:
+        f, xs = args[0], args[1] if name == "seg_scan_multi" else (args[1],)
+        nbytes = scan_bytes(f, xs)
+        lib_ms = None
+        shape = f"{len(xs)} x {8 * xs[0].element_size()}-bit, flags"
+        n = xs[0].numel()
+    ms, pms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args),
+                                                      reps=1)
+    b = bound_ms(nbytes)
+    at = {"query": KERNEL_AT_1E8[name], "shape": shape, "rows": n,
+          "ms": ms, "plain_ms": pms, "bytes": nbytes, "bound_ms": b,
+          "share_of_bound": b / ms, "library_ms": lib_ms}
+    next(r for r in rows if r["name"] == name)["g1_1e8"] = at
+    print(f"# {name} at {at['query']}'s inputs at 1e8 ({shape}, {n} rows): "
+          f"equal to its plain version; kernel {ms:.4f} ms (median of 10), "
+          f"plain {pms:.4f} ms (one run)"
+          + ("" if lib_ms is None else f", index_add_ {lib_ms:.4f} ms")
+          + f"; {nbytes} bytes, bound {b:.4f} ms at 3.35 TB/s, "
+          f"{b / ms:.1%} of bound", flush=True)
+
+
+def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
+    """Phase 12: q1-q10, qj and qjg through connect(device="cuda").execute
+    over G1_1e8 (datagen.h2o_g1(1e8, 10, 42)) and its dim table at the
+    capacity bucket_size(1e8): each query's first run and 3 warm runs,
+    its launches over the 4 runs equal to MAIN_PATH_LAUNCHES (phase 4's
+    at 1e7), its tier equal to phase 4's, its key words, sort passes and
+    float_sums_fit decisions printed (q10's 3 words and 2 sorts
+    asserted), the device memory peak over its runs, its answer against
+    the numpy oracle and the oracle's seconds; then each kernel at its
+    query's inputs (KERNEL_AT_1E8). Returns the launches."""
+    t_start = time.perf_counter()
+    data = h2o_g1(ROWS_1E8, K_GROUPS, SEED)
+    dim = h2o_dim(ROWS_1E8, K_GROUPS, SEED)
+    print(f"# generated G1_1e8 (9 columns x {ROWS_1E8} rows) and its dim "
+          f"table ({len(dim['id3'])} rows) in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
+    db = connect(device=dev)
+    load(db, "source", data, dev)
+    load(db, "dim", dim, dev)
+    cap = db.catalog.get("source").columns["id1"].data.shape[0]
+    if cap != CAP_1E8 or config.bucket_size(ROWS_1E8) != CAP_1E8:
+        raise AssertionError(f"capacity {cap}, want {CAP_1E8}")
+    resident = torch.cuda.memory_allocated()
+    groups: dict = {}
+    launches, oracle_s = {}, 0.0
+    for q in G1_1E8:
+        sql = QUERIES[q]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t1 = time.perf_counter()
+        with PlanProbe() as plan:
+            res = db.execute(sql)
+            torch.cuda.synchronize()
+        first = (time.perf_counter() - t1) * 1e3
+        runs = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            db.execute(sql)
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t1) * 1e3)
+        peak = torch.cuda.max_memory_allocated()
+        got = {k: v for k, v in K.LAUNCHES.items() if v}
+        launches[q + "@1e8"] = got
+        if got != MAIN_PATH_LAUNCHES[q]:
+            raise AssertionError(f"{q} at 1e8 launched {got} over 4 runs, "
+                                 f"want {MAIN_PATH_LAUNCHES[q]}")
+        if plan.tiers != plans_1e7[q].tiers:
+            raise AssertionError(f"{q} at 1e8 took {plan.tiers}, at 1e7 "
+                                 f"{plans_1e7[q].tiers}")
+        if q in WORDS_1E8 and plan.words != {WORDS_1E8[q]}:
+            raise AssertionError(f"{q} at 1e8 planned {plan.words} key "
+                                 f"words, want {WORDS_1E8[q]}")
+        if q in SORTS_1E8 and plan.sorts != SORTS_1E8[q]:
+            raise AssertionError(f"{q} at 1e8 sorted {plan.sorts} times, "
+                                 f"want {SORTS_1E8[q]}")
+        t1 = time.perf_counter()
+        if q == "q8":
+            check_q8(res, data, groups)
+        elif q in ("qj", "qjg"):
+            check_result(q, res, *join_oracle(data, dim, q))
+        else:
+            check_result(q, res, *oracle(data, q, groups))
+        secs = time.perf_counter() - t1
+        oracle_s += secs
+        print(f"# {q}@1e8: {res.nrows} groups; {plan.line()} (at 1e7: "
+              f"{plans_1e7[q].line()}); first run {first:.3f} ms, "
+              f"{float(np.median(runs)):.3f} ms (median of 3 warm runs, "
+              f"{min(runs):.3f}-{max(runs):.3f}); device memory peak "
+              f"{peak / 2**30:.3f} GiB ({(peak - resident) / 2**30:.3f} "
+              f"above the tables' {resident / 2**30:.3f}); launches per run "
+              f"{ {k: v / 4 for k, v in got.items()} }; matches numpy "
+              f"(oracle {secs:.1f} s)", flush=True)
+        del res
+    print(f"# the numpy oracle took {oracle_s:.1f} s for the 12 queries",
+          flush=True)
+    for name, q in KERNEL_AT_1E8.items():
+        args = capture_first(name, lambda: db.execute(QUERIES[q]))
+        kernel_at_1e8(name, args, rows)
+        del args
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    print(f"# phase 12 took {time.perf_counter() - t_start:.1f} s; the "
+          f"process's peak RSS {rss:.2f} GiB", flush=True)
+    del db
+    torch.cuda.empty_cache()
+    return launches
+
+
 def ptxas_line(r: dict) -> str:
     return (f"{r['registers']} registers, {r['spill_stores']} B spill "
             f"stores, {r['spill_loads']} B spill loads, {r['stack']} B "
@@ -3336,7 +3692,8 @@ def main() -> int:
     untally = tally_scans(scans)
     walls: dict[str, float] = {}
     dim = h2o_dim(ROWS, K_GROUPS, SEED)
-    launches, db = run_slice(dev, data, dim, walls)
+    plans: dict[str, PlanProbe] = {}
+    launches, db = run_slice(dev, data, dim, walls, plans)
     join_ms = time_joins(db, data, dim)
     del db
     launches.update(run_trades(dev))
@@ -3409,6 +3766,11 @@ def main() -> int:
           "DISTINCT match numpy on every rank over the distributed tiers, "
           "the CASE without ELSE over gathered tables; onehot_segment_sums, "
           "seg_cumsum_i64 and seg_scan_multi launched on every rank")
+    launches.update(run_g1_1e8(dev, plans, rows))
+    phase("12. G1_1e8: q1-q10, qj and qjg over 1e8 rows match numpy, each "
+          "on its 1e7 tier with its 1e7 launches a run, q10 on 3 key words "
+          "and 2 sort passes; onehot_segment_sums, seg_cumsum_i64 and "
+          "seg_scan_multi equal their plain versions at its inputs")
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())

@@ -16,9 +16,12 @@ the JAX package is wrong (ROADMAP queue 3) the port is held to numpy or
 to SQL instead: a median or a corr over NULLs, first/last of a NULL, a
 DELETE or UPDATE whose predicate is NULL, and ``next`` at the last row."""
 
+import re
+
 import numpy as np
 import pytest
 import torch
+import torch_dist_world as W
 
 import aquery2_tpu
 import jax.numpy as jnp
@@ -469,6 +472,70 @@ def test_set_operations_raise(sessions):
 
 
 # --- statements -------------------------------------------------------------
+
+# --- IN over a subquery and positional items, held to SQL --------------------
+
+@pytest.fixture(scope="module")
+def fault_session():
+    ts = aquery2_tpu_torch.connect(device="cpu")
+    ts.execute(W.SQL_FAULT_TABLES)
+    return ts
+
+
+@pytest.mark.parametrize("tag", sorted(W.SQL_FAULTS))
+def test_in_subquery_and_positions_follow_sql(tag, fault_session):
+    """IN and NOT IN over a subquery in three-valued logic (a NULL probe,
+    or a missed probe against a subquery holding a NULL, is NULL), on
+    integer and string operands; ORDER BY n and GROUP BY n as the n-th
+    select item. The JAX package shares the first fault and gets the
+    second wrong or raises (ROADMAP queue 3), so each statement is held
+    to its SQL answer."""
+    sql, want = W.SQL_FAULTS[tag]
+    got = fault_session.execute(sql).rows()
+    assert W.sql_answer_matches(sql, got, want), (got, want)
+
+
+@pytest.mark.parametrize("sql", sorted(W.SQL_FAULT_RAISES))
+def test_positions_out_of_reach_raise(sql, fault_session):
+    """A position out of range, behind a *, or naming an aggregate in
+    GROUP BY raises instead of answering."""
+    with pytest.raises(TE.ExecError, match=re.escape(W.SQL_FAULT_RAISES[sql])):
+        fault_session.execute(sql)
+
+
+# positional form, and the named form the JAX package answers
+POSITIONAL = {
+    "dense": ("SELECT g, sum(a) AS s FROM t GROUP BY 1 ORDER BY 2 DESC",
+              "SELECT g, sum(a) AS s FROM t GROUP BY g ORDER BY s DESC"),
+    "packed": ("SELECT b, count(*) AS c FROM t WHERE h = 1 GROUP BY 1 "
+               "ORDER BY 2 DESC, 1 LIMIT 9",
+               "SELECT b, count(*) AS c FROM t WHERE h = 1 GROUP BY b "
+               "ORDER BY c DESC, b LIMIT 9"),
+    "fused_scan": ("SELECT a, d FROM t ORDER BY 2, 1 LIMIT 7",
+                   "SELECT a, d FROM t ORDER BY d, a LIMIT 7"),
+    "general": ("SELECT a - avg(a) AS dev FROM t ORDER BY 1 DESC LIMIT 9",
+                "SELECT a - avg(a) AS dev FROM t ORDER BY dev DESC LIMIT 9"),
+    "ordered": ("SELECT g, sums(a) AS s FROM t ASSUMING ASC ts GROUP BY 1 "
+                "ORDER BY 1 DESC",
+                "SELECT g, sums(a) AS s FROM t ASSUMING ASC ts GROUP BY g "
+                "ORDER BY g DESC"),
+    "distinct": ("SELECT DISTINCT h, g FROM t ORDER BY 2 DESC, 1",
+                 "SELECT DISTINCT h, g FROM t ORDER BY g DESC, h"),
+    "string_key": ("SELECT s, max(d) AS mx FROM t GROUP BY 1 ORDER BY 1 DESC",
+                   "SELECT s, max(d) AS mx FROM t GROUP BY s ORDER BY s "
+                   "DESC"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(POSITIONAL))
+def test_positions_resolve_before_every_tier(name, sessions):
+    """A positional item is resolved before any tier sees the statement,
+    so each tier answers it as the named item: equal to the JAX package's
+    answer to the named form."""
+    js, ts = sessions
+    pos, named = POSITIONAL[name]
+    _compare(js.execute(named), ts.execute(pos), SQRT_RTOL)
+
 
 DML = [
     "CREATE TABLE d(a INT, s VARCHAR(10), f DOUBLE)",

@@ -322,3 +322,53 @@ def test_stats_after_queries(capsys):
     db.log("quiet")
     db.log_error("quiet")
     assert capsys.readouterr().out == "hello\nerror: bad\n"
+
+
+# --- Table.ncols, schema(), head() and the sample CSV writers ---------------
+
+def test_table_ncols_schema_head_match_jax():
+    """The same table in both packages: its column count, its (name, SQL
+    type) schema and its head of k rows as text."""
+    script = ("CREATE TABLE h(a INT, s VARCHAR(6), f DOUBLE, d DATE, b BIGINT);"
+              "INSERT INTO h VALUES (3, 'pear', 1.5, '2003-01-02', NULL), "
+              "(1, 'fig', -0.25, '2003-02-11', 7), "
+              "(2, 'apple', 1e10, '2004-12-31', -5)")
+    ts, js = aquery2_tpu_torch.connect(device="cpu"), aquery2_tpu.connect()
+    for db in (ts, js):
+        db.execute(script)
+        db.execute("INSERT INTO h SELECT a + 10, s, f * 2, d, b FROM h")
+    t, j = ts.catalog.get("h"), js.catalog.get("h")
+    assert t.ncols == j.ncols == 5
+    assert [(nm, st.name) for nm, st in t.schema()] == \
+        [(nm, st.name) for nm, st in j.schema()]
+    for k in (0, 2, 6, 10):
+        assert t.head(k) == j.head(k), k
+    assert t.head() == j.head()
+
+
+@pytest.mark.parametrize("writer,kwargs", [
+    ("stock_csv", {}), ("stock_csv", {"n_days": 7, "n_symbols": 2,
+                                      "seed": 11}),
+    ("base_csv", {}), ("base_csv", {"n_symbols": 6, "seed": 1}),
+    ("tick_hist_csv", {}), ("tick_hist_csv", {"n_symbols": 2, "n_days": 30,
+                                              "seed": 4}),
+])
+def test_sample_csv_writers_match_jax(tmp_path, writer, kwargs):
+    """The port's own copies of the JAX package's CSV writers write the
+    same bytes from the same seed."""
+    from aquery2_tpu.utils import datagen as jgen
+
+    from aquery2_tpu_torch.utils import datagen as tgen
+
+    paths = {}
+    for tag, mod in (("t", tgen), ("j", jgen)):
+        names = [tmp_path / f"{tag}_{i}.csv" for i in range(2)]
+        if writer == "tick_hist_csv":
+            getattr(mod, writer)(str(names[0]), str(names[1]), **kwargs)
+        else:
+            getattr(mod, writer)(str(names[0]), **kwargs)
+            names = names[:1]
+        paths[tag] = names
+    for pt, pj in zip(paths["t"], paths["j"]):
+        assert pt.read_bytes() == pj.read_bytes()
+        assert pt.stat().st_size > 0

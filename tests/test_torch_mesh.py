@@ -3,8 +3,9 @@ worlds on the CPU: the comm layer's counts and bytes against figures
 worked out by hand, the distribution primitives of tests/test_parallel.py
 against numpy, DML and fallback statements against the single-device
 port, a median, an ordered group-by and an OVER window against the JAX
-package's mesh session, the raises of connect(), and a rank that raises
-ending its world with that error.
+package's mesh session, IN over a subquery holding NULLs and positional
+ORDER BY / GROUP BY against the single-device port and SQL, the raises
+of connect(), and a rank that raises ending its world with that error.
 """
 
 import time
@@ -16,6 +17,8 @@ import torch
 import aquery2_tpu_torch as aq
 from aquery2_tpu_torch.ops import hashing
 from aquery2_tpu_torch.parallel import launch
+from torch_dist_world import (SQL_FAULT_RAISES, SQL_FAULT_TABLES, SQL_FAULTS,
+                              sql_answer_matches)
 
 WORLD = 4
 N = 4 * 256                     # rows of t: one 256-row block a rank
@@ -98,6 +101,10 @@ def _mesh_world(rank, world):
     for q in DML:
         r = db.execute(q)
         out["dml"].append(None if r is None else r.rows())
+    db.execute(torch_dist_world.SQL_FAULT_TABLES)
+    out["faults"] = {q: torch_dist_world._record(db, q) for q in
+                     [sql for sql, _ in torch_dist_world.SQL_FAULTS.values()]
+                     + list(torch_dist_world.SQL_FAULT_RAISES)}
     for name in ("t", "t3"):
         out["placed"][name] = all(isinstance(c, ShardedColumn)
                                   for c in db.catalog.get(name)
@@ -264,6 +271,35 @@ def test_dml_and_fallbacks_match_single_device(world):
         want = None if r is None else r.rows()
         assert got == want, q
     assert world["placed"] == {"t": True, "t3": True}
+
+
+@pytest.mark.parametrize("tag", sorted(SQL_FAULTS))
+def test_sql_faults_match_single_device(world, tag):
+    """IN over a subquery holding NULLs and positional ORDER BY / GROUP BY
+    on the mesh: the single-device port's rows, which are the SQL answer
+    (tests/test_torch_general.py holds them to it)."""
+    sql, want = SQL_FAULTS[tag]
+    got = world["faults"][sql]
+    assert "error" not in got, got
+    db = aq.connect(device="cpu")
+    db.execute(SQL_FAULT_TABLES)
+    rows = db.execute(sql).rows()
+    assert got["rows"] == rows, (got["rows"], rows)
+    assert sql_answer_matches(sql, rows, want), rows
+
+
+def test_sql_fault_positions_raise_on_the_mesh(world):
+    """A position out of range, behind a * or naming an aggregate in
+    GROUP BY raises on every rank, with the single device's error."""
+    db = aq.connect(device="cpu")
+    db.execute(SQL_FAULT_TABLES)
+    for sql, words in SQL_FAULT_RAISES.items():
+        with pytest.raises(Exception) as e:
+            db.execute(sql)
+        got = world["faults"][sql]
+        assert got.get("error") == f"{type(e.value).__name__}: {e.value}", \
+            (sql, got)
+        assert words in got["error"], got
 
 
 def test_primitives_match_numpy(world):

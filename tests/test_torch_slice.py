@@ -23,6 +23,7 @@ from aquery2_tpu.parser import parse as jparse
 from aquery2_tpu.storage.table import Column as JColumn, Table as JTable
 
 import aquery2_tpu_torch
+import chip_smoke
 from aquery2_tpu_torch.engine import fused_groupby as TF
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops.sort import sort_perm as tsort_perm
@@ -157,10 +158,15 @@ def test_query_matches_jax(name, sessions):
     ttier = TF.choose_strategy(TF.plan(tsel, ttab), ttab.columns)[0]
     assert jtier == ttier == TIERS[name]
 
-    jr, tr = js.execute(sql), ts.execute(sql)
+    _assert_equal(js.execute(sql), ts.execute(sql), CLOSE.get(name, {}),
+                  name)
+
+
+def _assert_equal(jr, tr, close, name):
+    """The port's Result equal to the JAX package's: names, SQL types, row
+    order and values, exactly but for the columns in close (rtol)."""
     assert tr.column_names() == jr.column_names()
     assert tr.nrows == jr.nrows > 0
-    close = CLOSE.get(name, {})
     for jc, tc in zip(jr.table.columns.values(), tr.table.columns.values()):
         assert tc.sqltype.name == jc.sqltype.name, tc.name
         jv = np.asarray(jc.data)[:jc.nrows]
@@ -173,6 +179,86 @@ def test_query_matches_jax(name, sessions):
             np.testing.assert_array_equal(tv, jv, err_msg=f"{name}.{tc.name}")
     if not close:
         assert tr.rows() == jr.rows()
+
+
+# --- the G1_1e8 plan at a small size ------------------------------------------
+# G1_1e8's id3 and id6 take values in [1, 1e7] (24 bits), so q10's six keys
+# pack into three 30-bit words and its lexsort takes two stable int64
+# passes; at 1e7 they span [1, 1e6] (20 bits): two words, one pass. Both
+# here over N_WIDE rows, with both ends of each span present.
+N_WIDE = 200_000
+G1_Q = ("q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10")
+SCAN_KERNELS = ("seg_cumsum_i64", "seg_scan_multi", "onehot_segment_sums")
+
+
+def _wide(hi):
+    data = h2o_g1(N_WIDE, 10, SEED)
+    rng = np.random.default_rng(SEED + 1)
+    for nm in ("id3", "id6"):
+        data[nm] = rng.integers(1, hi + 1, N_WIDE).astype(np.int32)
+        data[nm][[7, 11]] = (1, hi)
+    return data
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """{id span: (arrays, the port's session)} at spans 1e7 and 1e6, and
+    the JAX package's session over the 1e7 arrays."""
+    out = {}
+    for hi in (10**7, 10**6):
+        data = _wide(hi)
+        ts = aquery2_tpu_torch.connect(device="cpu")
+        ts.catalog.create(TTable.from_numpy("source", data, device="cpu"))
+        out[hi] = (data, ts)
+    js = aquery2_tpu.connect()
+    js.catalog.create(JTable("source", [
+        JColumn(nm, JT.FloatT if nm == "v3" else JT.IntT, out[10**7][0][nm])
+        for nm in H2O_COLUMNS]))
+    return out, js
+
+
+def _planned(ts, sql, monkeypatch):
+    """(result, chip_smoke.PlanProbe of the run, calls of each kernel
+    wrapper: on CPU tensors each takes its plain version)."""
+    calls = dict.fromkeys(SCAN_KERNELS, 0)
+    for name in SCAN_KERNELS:
+        def counted(*a, _real=getattr(K, name), _name=name):
+            calls[_name] += 1
+            return _real(*a)
+        monkeypatch.setattr(K, name, counted)
+    with chip_smoke.PlanProbe() as plan:
+        res = ts.execute(sql)
+    monkeypatch.undo()
+    return res, plan, {k: v for k, v in calls.items() if v}
+
+
+@pytest.mark.parametrize("q", G1_Q)
+def test_g1_1e8_plan_at_a_small_size(q, wide, monkeypatch):
+    """At G1_1e8's id spans each query takes the tier and the kernel calls
+    it takes at 1e7's, q10 plans 3 key words and 2 sort passes (2 and 1 at
+    1e7's), and the answer equals the JAX package's and numpy's
+    (chip_smoke's oracle, under its own check)."""
+    sessions, js = wide
+    data, ts = sessions[10**7]
+    sql = QUERIES[q]
+    res, plan, calls = _planned(ts, sql, monkeypatch)
+    _r, plan7, calls7 = _planned(sessions[10**6][1], sql, monkeypatch)
+    assert plan.tiers == plan7.tiers and plan.tiers
+    assert calls == calls7 and calls
+    assert plan.fits == plan7.fits
+    if q == "q10":
+        assert (plan.words, plan.sorts) == ({3}, 2)
+        assert (plan7.words, plan7.sorts) == ({2}, 1)
+    else:
+        assert (plan.words, plan.sorts) == (plan7.words, plan7.sorts)
+    jr = js.execute(sql)
+    if q == "q8":
+        assert res.column_names() == jr.column_names()
+        assert res.rows() == jr.rows()
+        chip_smoke.check_q8(res, data)
+    else:
+        _assert_equal(jr, res, CLOSE.get(q, {}), q)
+        chip_smoke.check_result(q, res, *chip_smoke.oracle(data, q))
 
 
 def test_unported_shapes_raise(sessions):

@@ -8,6 +8,11 @@ every statement, its rows, column names, and how the mesh session counted
 it (``dist_spmd`` / ``dist_fallback`` and the reasons added), or the error
 it raised. Every rank of the world must return the same record.
 
+It also holds SQL_FAULTS, statements whose SQL answers the port once
+got wrong (IN over a subquery holding NULLs, positional ORDER BY and
+GROUP BY), shared by tests/test_torch_general.py (one device) and
+tests/test_torch_mesh.py (the 4-rank world).
+
 This module imports no JAX, so that the spawned ranks can import it.
 """
 
@@ -18,6 +23,69 @@ import math
 import pickle
 
 WORLD = 4
+
+SQL_FAULT_TABLES = (
+    "CREATE TABLE p(a INT, i INT);"
+    "INSERT INTO p VALUES (0, 1), (NULL, 2), (3, 3), (5, 4);"
+    "CREATE TABLE q(b INT); INSERT INTO q VALUES (NULL), (3);"
+    "CREATE TABLE ps(a VARCHAR(4), i INT);"
+    "INSERT INTO ps VALUES ('x', 1), (NULL, 2), ('y', 3), ('z', 4);"
+    "CREATE TABLE qs(b VARCHAR(4)); INSERT INTO qs VALUES (NULL), ('y'), "
+    "('w');"
+    "CREATE TABLE fl(v INT, g INT);"
+    "INSERT INTO fl VALUES (1, 2), (2, 1), (3, 2), (4, 1), (5, 2), (6, 1)")
+# statement -> its SQL answer; rows in this order where the statement has
+# an ORDER BY, else in any order
+SQL_FAULTS = {
+    "in_null": ("SELECT i FROM p WHERE a IN (SELECT b FROM q)", [(3,)]),
+    "not_in_null": ("SELECT i FROM p WHERE a NOT IN (SELECT b FROM q)", []),
+    "not_in_no_null": ("SELECT i FROM p WHERE a NOT IN (SELECT b FROM q "
+                       "WHERE b IS NOT NULL)", [(1,), (4,)]),
+    "in_value": ("SELECT i, a IN (SELECT b FROM q) AS x FROM p ORDER BY i",
+                 [(1, None), (2, None), (3, True), (4, None)]),
+    "in_value_no_null": ("SELECT i, a IN (SELECT b FROM q WHERE b IS NOT "
+                         "NULL) AS x FROM p ORDER BY i",
+                         [(1, False), (2, None), (3, True), (4, False)]),
+    "not_in_or": ("SELECT i FROM p WHERE NOT (a IN (SELECT b FROM q)) OR "
+                  "i = 4", [(4,)]),
+    "in_string": ("SELECT i FROM ps WHERE a IN (SELECT b FROM qs)", [(3,)]),
+    "not_in_string": ("SELECT i FROM ps WHERE a NOT IN (SELECT b FROM qs)",
+                      []),
+    "not_in_string_no_null": ("SELECT i FROM ps WHERE a NOT IN (SELECT b "
+                              "FROM qs WHERE b IS NOT NULL)", [(1,), (4,)]),
+    "order_1_desc": ("SELECT v FROM fl ORDER BY 1 DESC",
+                     [(6,), (5,), (4,), (3,), (2,), (1,)]),
+    "order_1_grouped": ("SELECT g, sum(v) FROM fl GROUP BY g ORDER BY 1 "
+                        "DESC", [(2, 9), (1, 12)]),
+    "order_2_aggregate": ("SELECT g, sum(v) AS s FROM fl GROUP BY g "
+                          "ORDER BY 2 DESC", [(1, 12), (2, 9)]),
+    "order_two_items": ("SELECT g, v FROM fl ORDER BY 1, 2 DESC",
+                        [(1, 6), (1, 4), (1, 2), (2, 5), (2, 3), (2, 1)]),
+    "order_expression": ("SELECT v * 10 - g AS w FROM fl ORDER BY 1",
+                         [(8,), (19,), (28,), (39,), (48,), (59,)]),
+    "order_constant": ("SELECT v FROM fl WHERE g = 1 ORDER BY 1 + 0",
+                       [(2,), (4,), (6,)]),
+    "order_derived": ("SELECT w FROM (SELECT v * 10 - g AS w, g FROM fl) "
+                      "WHERE g = 2 ORDER BY 1 DESC", [(48,), (28,), (8,)]),
+    "group_1": ("SELECT g, sum(v) FROM fl GROUP BY 1", [(2, 9), (1, 12)]),
+    "group_1_expression": ("SELECT g * 10 AS k, count(*) AS c FROM fl "
+                           "GROUP BY 1 ORDER BY 1 DESC", [(20, 3), (10, 3)]),
+}
+# positional items that raise, and the words of each error
+SQL_FAULT_RAISES = {
+    "SELECT v FROM fl ORDER BY 2": "out of range",
+    "SELECT v FROM fl ORDER BY 0": "out of range",
+    "SELECT g, sum(v) FROM fl GROUP BY 3": "out of range",
+    "SELECT g, sum(v) FROM fl GROUP BY 2": "aggregate",
+    "SELECT * FROM fl ORDER BY 1": "*",
+}
+
+
+def sql_answer_matches(sql: str, got, want) -> bool:
+    """Rows equal to the SQL answer, in order where sql orders them."""
+    if "ORDER BY" in sql:
+        return list(got) == list(want)
+    return sorted(got, key=repr) == sorted(want, key=repr)
 
 
 def _record(db, q: str) -> dict:
