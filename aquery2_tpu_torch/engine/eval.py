@@ -43,6 +43,7 @@ from aquery2_tpu_torch.ops import window as W
 from aquery2_tpu_torch.ops.reduce import big_of, small_of
 from aquery2_tpu_torch.ops.sort import lexsort
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.runtime.stats import sync
 from aquery2_tpu_torch.storage.table import StringDict, Table
 
 
@@ -1032,8 +1033,9 @@ def _translate_codes(v: Value, target: StringDict) -> Value:
     strs = v.dictionary.strings()
     if not strs:
         return replace(v, dictionary=target)
-    remap = torch.tensor([target.lookup(s) for s in strs], dtype=torch.int32,
-                         device=v.data.device)
+    codes = [target.lookup(s) for s in strs]
+    with sync("strings.translate"):     # a copy to the device, waited on
+        remap = torch.tensor(codes, dtype=torch.int32, device=v.data.device)
     return Value(v.kind, remap[v.data.clamp(0, len(strs) - 1).long()],
                  v.sqltype, target, v.mask, nulls=v.nulls)
 

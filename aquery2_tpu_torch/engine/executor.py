@@ -85,6 +85,7 @@ from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.reduce import big_of, small_of
 from aquery2_tpu_torch.ops.sort import sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.runtime.stats import note_tier, span, sync
 from aquery2_tpu_torch.storage import csvio
 from aquery2_tpu_torch.storage.result import Result
 from aquery2_tpu_torch.storage.table import (Column, StringDict, Table,
@@ -134,7 +135,8 @@ class Executor:
         if isinstance(stmt, A.CreateTable):
             return self._create_table(stmt)
         if isinstance(stmt, A.DropTable):
-            catalog.drop(stmt.name, if_exists=stmt.if_exists)
+            with span("catalog"):
+                catalog.drop(stmt.name, if_exists=stmt.if_exists)
             return None
         if isinstance(stmt, A.Insert):
             return self._insert(stmt)
@@ -187,7 +189,8 @@ class Executor:
         if stmt.as_select is not None:
             tbl = self.run_select(stmt.as_select)
             tbl.name = stmt.name
-            catalog.create(tbl, replace=True)
+            with span("catalog"):
+                catalog.create(tbl, replace=True)
             self._store(tbl)
             return None
         dev = self.session.device
@@ -340,16 +343,17 @@ class Executor:
         mesh = session.mesh
         placed = session.catalog            # placed tables: the dist tiers
         catalog = self._cat()
-        sel = _resolve_positions(sel, session.udfs)
-        if session.udfs:
-            # accumulation-loop AGGREGATION FUNCTIONs become aggregate
-            # expressions first, so that every tier below runs them
-            sel2 = udf_rewrite.rewrite_select(session, sel)
+        with span("plan"):
+            sel = _resolve_positions(sel, session.udfs)
+            if session.udfs:
+                # accumulation-loop AGGREGATION FUNCTIONs become aggregate
+                # expressions first, so that every tier below runs them
+                sel2 = udf_rewrite.rewrite_select(session, sel)
+                if sel2 is not None:
+                    sel = sel2
+            sel2 = _distinct_to_groupby(sel, placed)
             if sel2 is not None:
                 sel = sel2
-        sel2 = _distinct_to_groupby(sel, placed)
-        if sel2 is not None:
-            sel = sel2
         if sel.unions:
             t = self._run_union(sel)
             if t is not None:
@@ -366,19 +370,22 @@ class Executor:
                 return t
         if sel.group_by and one_table:
             table = catalog.get(srcs[0].name)
-            t = fused_groupby.run(sel, table)
+            got = fused_groupby.run(sel, table)
+            t = None if got is None else _answered(*got)
             if t is None:
-                t = fused_ordered.run(sel, table)
+                t = _answered("ordered", fused_ordered.run(sel, table))
             if t is None:
-                t = udf_device.try_run_fused(self.session, sel, table)
+                t = _answered("udf_fused", udf_device.try_run_fused(
+                    self.session, sel, table))
             if t is not None:
                 return t
         if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):
             t = None
             if not sel.assumptions and mesh is None:
-                t = fused_star.try_run(catalog, sel)
+                t = _answered("star", fused_star.try_run(catalog, sel))
                 if t is None and not sel.group_by:
-                    t = fused_join.try_run(catalog, sel)
+                    t = _answered("count_join",
+                                  fused_join.try_run(catalog, sel))
             elif not sel.assumptions:
                 # the mesh branches take the shapes the single-device
                 # tiers take; a star join they decline runs gathered
@@ -389,7 +396,8 @@ class Executor:
                     t = fused_join.try_run_mesh(session, sel)
                 if t is None:
                     t = dist_join_query.try_run(session, sel)
-            return t if t is not None else self._general(sel)
+            return t if t is not None else \
+                _answered("general", self._general(sel))
         if not sel.group_by and not sel.assumptions:
             if mesh is not None and one_table:
                 table = placed.get(srcs[0].name)
@@ -403,10 +411,10 @@ class Executor:
                     t = dist_scan.try_run(session, sel, table)
                 if t is not None:
                     return t
-            t = fused_scan.try_run(catalog, sel)
+            t = _answered("scan", fused_scan.try_run(catalog, sel))
             if t is not None:
                 return t
-        return self._general(sel)
+        return _answered("general", self._general(sel))
 
     def _general(self, sel: A.Select) -> Table:
         ws, where = self._build_sources(sel)
@@ -437,10 +445,12 @@ class Executor:
             ws = ws.permuted(grouping.order, ws.n)
 
         ctx = EvalContext(ws, self.session, grouping)
-        named = [(name, self._eval_projection(ctx, sel, expr, key_values,
-                                              key_sentinels))
-                 for name, expr in self._expand_projections(sel, ws)]
-        table = self._materialize(ctx, named)
+        with span("project"):
+            named = [(name, self._eval_projection(ctx, sel, expr, key_values,
+                                                  key_sentinels))
+                     for name, expr in self._expand_projections(sel, ws)]
+        with span("finish"):
+            table = self._materialize(ctx, named)
         if sel.having is not None:
             table = self._apply_having(ctx, sel, table)
         for kind, sub in sel.unions:
@@ -614,7 +624,8 @@ class Executor:
             if (lv.sqltype.is_string and lv.dictionary is not None
                     and rv.dictionary is not None
                     and rv.dictionary is not lv.dictionary):
-                rv = _translate_codes(rv, lv.dictionary)   # absent: -1
+                with span("join.translate"):
+                    rv = _translate_codes(rv, lv.dictionary)   # absent: -1
             lk, rk = lv.data, rv.data
             dt = torch.promote_types(lk.dtype, rk.dtype)
             lkeys.append(lk.to(dt))
@@ -630,18 +641,19 @@ class Executor:
             li, ri, m = join_mod.outer_join(lkeys, rkeys, left.n, right.n,
                                             kind, lnulls, rnulls)
         sources, indices, missing = [], [], []
-        for ws, idx_new, nulled in ((left, li, kind in ("right", "full")),
-                                    (right, ri, kind in ("left", "full"))):
-            gone = idx_new < 0 if nulled else None
-            safe = idx_new.clamp(min=0)
-            sources += ws.sources
-            for idx, om in zip(ws.indices, ws.missing):
-                indices.append(safe if idx is None
-                               else idx[safe.clamp(max=idx.shape[0] - 1)])
-                if om is not None:
-                    om = om[safe.clamp(max=om.shape[0] - 1)]
-                    om = om if gone is None else om | gone
-                missing.append(gone if om is None else om)
+        with span("join.compose"):
+            for ws, idx_new, nulled in ((left, li, kind in ("right", "full")),
+                                        (right, ri, kind in ("left", "full"))):
+                gone = idx_new < 0 if nulled else None
+                safe = idx_new.clamp(min=0)
+                sources += ws.sources
+                for idx, om in zip(ws.indices, ws.missing):
+                    indices.append(safe if idx is None
+                                   else idx[safe.clamp(max=idx.shape[0] - 1)])
+                    if om is not None:
+                        om = om[safe.clamp(max=om.shape[0] - 1)]
+                        om = om if gone is None else om | gone
+                    missing.append(gone if om is None else om)
         nl = len(left.sources)
         merged = left.merged + [(nm, lsi + nl, rsi + nl, co)
                                 for nm, lsi, rsi, co in right.merged]
@@ -663,7 +675,8 @@ class Executor:
 
     def _apply_filter(self, ws: WorkingSet, mask: torch.Tensor) -> WorkingSet:
         """The rows of mask, in order (one host sync: their count)."""
-        idx, m = filter_ops.compact_indices(mask)
+        with sync("where.compact"):
+            idx, m = filter_ops.compact_indices(mask)
         cap = config.bucket_size(max(m, 1))
         return ws.permuted(torch.cat([idx, idx.new_zeros(cap - m)]), m)
 
@@ -833,6 +846,14 @@ class Executor:
 # --------------------------------------------------------------------- #
 # helpers
 # --------------------------------------------------------------------- #
+
+def _answered(tier: str, table: Table | None) -> Table | None:
+    """table, counted in the session's ``tier_runs`` under tier where a
+    tier gave one."""
+    if table is not None:
+        note_tier(tier)
+    return table
+
 
 def _position(e: A.Expr) -> int | None:
     """n where e is a bare integer literal (a positional ORDER BY or

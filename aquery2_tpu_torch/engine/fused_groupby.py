@@ -26,7 +26,12 @@ ordinary add lanes, so every tier takes them) and median (packed tier).
 Groups come out key-ascending in every tier, as in the JAX package, then
 HAVING, ORDER BY (ops/sort.sort_perm) and LIMIT apply. Host syncs: each
 key column's stats (cached on the column) and the one compaction that
-fixes the group count.
+fixes the group count (``groupby.dense.present``, or
+``groupby.group_ends`` in ops/reduce). ``run`` names the tier that ran
+(the executor counts it in the session's ``tier_runs``) and runs in the
+spans ``aq.plan`` (the host work before the first launch, and the
+float-sum gate), ``aq.groupby.<tier>`` and ``aq.finish``
+(runtime/stats.py).
 
 Nullable columns, as the JAX package runs them: NULL group keys are coded
 as (max + 1) in a shallow copy of the table, so they form one group that
@@ -54,6 +59,7 @@ from aquery2_tpu_torch.ops import reduce as R
 from aquery2_tpu_torch.ops.segment import last_flags
 from aquery2_tpu_torch.ops.sort import lexsort, sort_perm
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.runtime.stats import span, sync
 from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils import CaseInsensitiveDict, base62uuid, legal_name
 
@@ -616,7 +622,8 @@ def float_sums_fit(scatters, cols, n: int, rows, valid,
         got = torch.stack(list(pending.values()))
         if reduce is not None:
             got = reduce(got)
-        got = got.tolist()
+        with sync("groupby.float_fit"):
+            got = got.tolist()
         for k, (bad, mx) in zip(pending, got):
             info[k][2] = (not bad, mx)
 
@@ -821,30 +828,33 @@ def _key_index(keys: list[A.Expr], expr: A.Expr) -> int:
     raise Unsupported(f"projection {expr} is not a group key")
 
 
-def run(sel: A.Select, table: Table) -> Table | None:
-    """The fused group-by of ``sel`` over ``table``: the result Table, or
-    None when the plan does not cover the statement at all."""
-    try:
-        p = plan(sel, table)
-    except Unsupported:
-        return None
-    n = table.nrows
-    if n == 0:
-        return None
-    sub = sentinel_code_null_keys(p, table)
-    if sub is not None:
-        table, p["key_sentinels"] = sub
-    cols = table.columns
+def run(sel: A.Select, table: Table) -> tuple[str, Table] | None:
+    """The fused group-by of ``sel`` over ``table``: (the tier that ran it,
+    "dense", "packed" or "sort" (the multikey tier, or keys wider than 30
+    bits); the result Table), or None when the plan does not cover the
+    statement at all."""
+    with span("plan"):
+        try:
+            p = plan(sel, table)
+        except Unsupported:
+            return None
+        n = table.nrows
+        if n == 0:
+            return None
+        sub = sentinel_code_null_keys(p, table)
+        if sub is not None:
+            table, p["key_sentinels"] = sub
+        cols = table.columns
 
-    chosen = choose_strategy(p, cols)
-    if chosen is None:
-        return None             # median over keys that do not pack
-    strategy, key_mins, key_ranges, domain = chosen
-    col_order = referenced_columns(p)
-    nullable, bail = nullable_gate(p, cols, col_order)
-    if bail:
-        return None
-    scatters = _needed_scatters(p["aggs"])
+        chosen = choose_strategy(p, cols)
+        if chosen is None:
+            return None             # median over keys that do not pack
+        strategy, key_mins, key_ranges, domain = chosen
+        col_order = referenced_columns(p)
+        nullable, bail = nullable_gate(p, cols, col_order)
+        if bail:
+            return None
+        scatters = _needed_scatters(p["aggs"])
     env = {nm: cols[nm].data for nm in col_order}
     env_null = {nm: ~cols[nm].valid for nm in sorted(nullable)}
     cap = next(iter(env.values())).shape[0]
@@ -852,25 +862,35 @@ def run(sel: A.Select, table: Table) -> Table | None:
     if p["where"] is not None:
         valid = valid & _truth(_as_rows(_row_eval(p["where"], env), valid))
     null_fn = make_null_fn(env_null) if env_null else None
-    if not float_sums_fit(scatters, cols, n, lambda e: _row_eval(e, env),
-                          valid, null_fn):
+    with span("plan"):
+        fits = float_sums_fit(scatters, cols, n, lambda e: _row_eval(e, env),
+                              valid, null_fn)
+    if not fits:
         return None
     keys = p["keys"]
     if strategy == "dense":
-        dense, counts, keyvals = _run_dense(env, env_null, valid, scatters,
-                                            keys, key_mins, key_ranges,
-                                            domain)
+        tier = "dense"
+        with span("groupby.dense"):
+            dense, counts, keyvals = _run_dense(env, env_null, valid,
+                                                scatters, keys, key_mins,
+                                                key_ranges, domain)
     elif strategy == "packed" and _plan_words(key_ranges) is not None:
-        dense, counts, keyvals = _run_packed(env, env_null, valid, scatters,
-                                             keys, key_mins, key_ranges)
+        tier = "packed"
+        with span("groupby.packed"):
+            dense, counts, keyvals = _run_packed(env, env_null, valid,
+                                                 scatters, keys, key_mins,
+                                                 key_ranges)
     else:                       # multikey, or a key wider than 30 bits
         # integer column keys wider than 30 bits sort within their stats
         # bounds; computed and float keys (no key_mins) by value
+        tier = "sort"
         bounds = ([(mn, mn + r - 1) for mn, r in zip(key_mins, key_ranges)]
                   or [None] * len(keys))
-        dense, counts, keyvals = _run_sort(env, env_null, valid, scatters,
-                                           keys, bounds)
-    return finish_groups(p, cols, dense, counts, keyvals)
+        with span("groupby.sort"):
+            dense, counts, keyvals = _run_sort(env, env_null, valid,
+                                               scatters, keys, bounds)
+    with span("finish"):
+        return tier, finish_groups(p, cols, dense, counts, keyvals)
 
 
 def finish_groups(p, cols, dense, counts, keyvals) -> Table:
@@ -912,7 +932,8 @@ def _run_dense(env, env_null, valid, scatters, keys, key_mins, key_ranges,
         env, valid, scatters, null_fn=make_null_fn(env_null) if env_null
         else None)
     outs = R.segment_reduce(code, add, mins, maxs, f64s, domain)
-    ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
+    with sync("groupby.dense.present"):
+        ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
     dense = {t: arr[ucodes] for t, arr in outs.items()}
     keyvals = [(ucodes // st) % r + mn
                for st, r, mn in zip(strides, key_ranges, key_mins)]

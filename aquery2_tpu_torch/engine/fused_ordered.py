@@ -51,6 +51,7 @@ from aquery2_tpu_torch.ops import reduce as R
 from aquery2_tpu_torch.ops import scan as S
 from aquery2_tpu_torch.ops.segment import pos_from_flags
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.runtime.stats import span, sync
 from aquery2_tpu_torch.storage.table import Column, Table, VectorColumn
 from aquery2_tpu_torch.utils import base62uuid
 
@@ -274,23 +275,28 @@ def _int_bounds(col: Column):
 def run(sel: A.Select, table: Table) -> Table | None:
     """The ordered group-by of ``sel`` over ``table``: the result Table, or
     None when the plan does not cover the statement."""
-    try:
-        p = plan(sel, table)
-    except fg.Unsupported:
-        return None
-    n = table.nrows
-    cols = table.columns
-    col_order = fg.referenced_columns(p)
-    if n == 0 or table.has_nulls(col_order):
-        return None
+    with span("plan"):
+        try:
+            p = plan(sel, table)
+        except fg.Unsupported:
+            return None
+        n = table.nrows
+        cols = table.columns
+        col_order = fg.referenced_columns(p)
+        if n == 0 or table.has_nulls(col_order):
+            return None
     env = {nm: cols[nm].data for nm in col_order}
     cap = env[col_order[0]].shape[0]
     valid = torch.arange(cap, device=env[col_order[0]].device) < n
     if p["where"] is not None:
         valid = valid & fg._truth(fg._as_rows(fg._row_eval(p["where"], env),
                                               valid))
-    got = ordered_groups(p, cols, n, env, valid)
-    return None if got is None else to_table(p, cols, *got)
+    with span("groupby.ordered"):
+        got = ordered_groups(p, cols, n, env, valid)
+    if got is None:
+        return None
+    with span("finish"):
+        return to_table(p, cols, *got)
 
 
 def ordered_groups(p, cols, n: int, env, valid, env_null=None, reduce=None):
@@ -344,12 +350,15 @@ def ordered_groups(p, cols, n: int, env, valid, env_null=None, reduce=None):
         elif _is_window_call(expr) and expr.func == "subvec":
             base = fg._as_rows(eval_sorted(expr.args[0]), pos)
             a, b = int(expr.args[1].value), int(expr.args[2].value)
-            results.append((base[valid_s & (pos >= a) & (pos < b)],
-                            torch.clamp(counts, max=b)
+            with sync("groupby.ordered.subvec"):
+                kept = base[valid_s & (pos >= a) & (pos < b)]
+            results.append((kept, torch.clamp(counts, max=b)
                             - torch.clamp(counts, max=a)))
         else:
             vals = fg._as_rows(eval_sorted(expr), pos)
-            results.append((vals[:int(counts.sum())], counts))
+            with sync("groupby.ordered.rows"):
+                g_rows = int(counts.sum())
+            results.append((vals[:g_rows], counts))
     return keyvals, results
 
 

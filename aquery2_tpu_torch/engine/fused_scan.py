@@ -31,6 +31,7 @@ import torch
 from aquery2_tpu_torch.engine import fused_groupby as fg
 from aquery2_tpu_torch.ops.sort import lexsort
 from aquery2_tpu_torch.parser import ast_nodes as A
+from aquery2_tpu_torch.runtime.stats import sync
 from aquery2_tpu_torch.storage.table import Column, Table
 from aquery2_tpu_torch.utils import base62uuid
 
@@ -192,10 +193,12 @@ def try_run(catalog, sel: A.Select) -> Table | None:
                 key = (k, asc, src.stats())
             keys.append(key)
         idx = lexsort(keys)[0]
-        m = int(valid.sum())                # the one sync
+        with sync("scan.count"):            # the one sync
+            m = int(valid.sum())
     else:
-        idx = torch.nonzero(valid).squeeze(1)
-        m = int(idx.shape[0])               # the one sync
+        with sync("scan.count"):            # the one sync
+            idx = torch.nonzero(valid).squeeze(1)
+        m = int(idx.shape[0])
     if sel.limit is not None:
         m = min(m, sel.limit)
     idx = idx[:m]

@@ -314,7 +314,8 @@ def try_run(catalog: Catalog, sel: A.Select) -> Table | None:
         col._stats = pkey.stats()
         tmp.add_column(col)
     tmp.add_column(Column(MATCH, T.BoolT, match, nrows=n))
-    return fused_groupby.run(new_sel, tmp)
+    got = fused_groupby.run(new_sel, tmp)
+    return None if got is None else got[1]
 
 
 def try_run_mesh(session, sel: A.Select):

@@ -18,7 +18,10 @@ on the device (the JAX package builds them with numpy on the host).
 
 Host syncs: the candidate total (it fixes the expansion's capacity), the
 verified count, and for an outer join the count of each side's unmatched
-rows.
+rows, counted in the session's ``syncs_by_site`` as ``join.candidates``,
+``join.verified``, ``join.unmatched_left`` and ``join.unmatched_right``.
+Its parts run in the spans ``aq.join.hash``, ``.sort``, ``.probe``,
+``.expand``, ``.verify`` and ``.outer`` (runtime/stats.py).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from aquery2_tpu_torch import config
 from aquery2_tpu_torch.ops import hashing, ragged
 from aquery2_tpu_torch.ops.filter import compact_indices
 from aquery2_tpu_torch.ops.sort import canonical_float
+from aquery2_tpu_torch.runtime.stats import span, sync
 
 
 def _key_hash(cols: list[torch.Tensor]) -> torch.Tensor:
@@ -59,27 +63,35 @@ def equi_join(lkeys: list[torch.Tensor], rkeys: list[torch.Tensor],
     puts string codes into one dictionary); lnulls/rnulls mark NULL keys,
     which never match."""
     dev = lkeys[0].device
-    lok = _rows_ok(lkeys[0].shape[0], ln, lnulls, dev)
-    rok = _rows_ok(rkeys[0].shape[0], rn, rnulls, dev)
-    lh = _key_hash(lkeys)
-    # NULL and padding build rows sort last and fail the verification; a
-    # probe hash equal to theirs (odds 2^-64 a row) only adds candidates
-    rh = torch.where(rok, _key_hash(rkeys), torch.iinfo(torch.int64).max)
-    rh_sorted, perm_r = torch.sort(rh, stable=True)
-    lo = torch.searchsorted(rh_sorted, lh, side="left")
-    hi = torch.searchsorted(rh_sorted, lh, side="right")
-    counts = torch.where(lok, hi - lo, 0)
-    total = int(counts.sum())                           # sync 1
-    li, within, valid = ragged.expand(counts,
-                                      config.bucket_size(max(total, 1)),
-                                      total)
-    ri = perm_r[(lo[li] + within).clamp(0, perm_r.shape[0] - 1)]
-    ok = valid & rok[ri]
-    for lk, rk in zip(lkeys, rkeys):                    # drop collisions
-        ok &= lk[li] == rk[ri]
-    keep, m = compact_indices(ok)                       # sync 2
-    cap = config.bucket_size(max(m, 1))
-    return _padded(li[keep], cap), _padded(ri[keep], cap), m
+    with span("join.hash"):
+        lok = _rows_ok(lkeys[0].shape[0], ln, lnulls, dev)
+        rok = _rows_ok(rkeys[0].shape[0], rn, rnulls, dev)
+        lh = _key_hash(lkeys)
+        # NULL and padding build rows sort last and fail the verification;
+        # a probe hash equal to theirs (odds 2^-64 a row) only adds
+        # candidates
+        rh = torch.where(rok, _key_hash(rkeys), torch.iinfo(torch.int64).max)
+    with span("join.sort"):
+        rh_sorted, perm_r = torch.sort(rh, stable=True)
+    with span("join.probe"):
+        lo = torch.searchsorted(rh_sorted, lh, side="left")
+        hi = torch.searchsorted(rh_sorted, lh, side="right")
+    with span("join.expand"):
+        counts = torch.where(lok, hi - lo, 0)
+        with sync("join.candidates"):
+            total = int(counts.sum())
+        li, within, valid = ragged.expand(counts,
+                                          config.bucket_size(max(total, 1)),
+                                          total)
+        ri = perm_r[(lo[li] + within).clamp(0, perm_r.shape[0] - 1)]
+    with span("join.verify"):
+        ok = valid & rok[ri]
+        for lk, rk in zip(lkeys, rkeys):                # drop collisions
+            ok &= lk[li] == rk[ri]
+        with sync("join.verified"):
+            keep, m = compact_indices(ok)
+        cap = config.bucket_size(max(m, 1))
+        return _padded(li[keep], cap), _padded(ri[keep], cap), m
 
 
 def outer_join(lkeys: list[torch.Tensor], rkeys: list[torch.Tensor],
@@ -91,18 +103,21 @@ def outer_join(lkeys: list[torch.Tensor], rkeys: list[torch.Tensor],
     the unmatched left rows (left, full), then the unmatched right rows
     (right, full), each in row order."""
     li, ri, m = equi_join(lkeys, rkeys, ln, rn, lnulls, rnulls)
-    parts_l, parts_r = [li[:m]], [ri[:m]]
-    for side, idx, n, want in ((0, li, ln, ("left", "full")),
-                               (1, ri, rn, ("right", "full"))):
-        if kind not in want:
-            continue
-        matched = torch.zeros(n, dtype=torch.bool, device=idx.device)
-        matched.index_fill_(0, idx[:m], True)
-        rows, k = compact_indices(~matched)             # sync 3 (and 4)
-        miss = torch.full((k,), -1, dtype=torch.int64, device=idx.device)
-        parts_l.append(miss if side else rows)
-        parts_r.append(rows if side else miss)
-    lo_all, ro_all = torch.cat(parts_l), torch.cat(parts_r)
-    total = int(lo_all.shape[0])
-    cap = config.bucket_size(max(total, 1))
-    return _padded(lo_all, cap), _padded(ro_all, cap), total
+    with span("join.outer"):
+        parts_l, parts_r = [li[:m]], [ri[:m]]
+        for side, idx, n, want in ((0, li, ln, ("left", "full")),
+                                   (1, ri, rn, ("right", "full"))):
+            if kind not in want:
+                continue
+            matched = torch.zeros(n, dtype=torch.bool, device=idx.device)
+            matched.index_fill_(0, idx[:m], True)
+            with sync("join.unmatched_right" if side
+                      else "join.unmatched_left"):
+                rows, k = compact_indices(~matched)
+            miss = torch.full((k,), -1, dtype=torch.int64, device=idx.device)
+            parts_l.append(miss if side else rows)
+            parts_r.append(rows if side else miss)
+        lo_all, ro_all = torch.cat(parts_l), torch.cat(parts_r)
+        total = int(lo_all.shape[0])
+        cap = config.bucket_size(max(total, 1))
+        return _padded(lo_all, cap), _padded(ro_all, cap), total

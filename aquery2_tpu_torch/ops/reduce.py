@@ -25,6 +25,7 @@ import torch
 
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops.scan import seg_extremes
+from aquery2_tpu_torch.runtime.stats import sync
 
 
 def big_of(dt: torch.dtype):
@@ -110,7 +111,8 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
 
     Returns (outs, ends_idx): tag → [g] per group in key order, and the
     [g] end-row indices. The compaction of ``last`` is the one host sync
-    here (it fixes g)."""
+    here (it fixes g; ``groupby.group_ends`` in the session's
+    ``syncs_by_site``)."""
     scanned: dict[str, torch.Tensor] = {}
     for t, col in add_lanes.items():
         if t != counts_from_ends:
@@ -122,7 +124,8 @@ def sorted_group_reduce(starts: torch.Tensor, last: torch.Tensor,
                for t, col in f64_lanes.items()}
     scanned.update(extract or {})
 
-    ends_idx = torch.nonzero(last).squeeze(1)
+    with sync("groupby.group_ends"):
+        ends_idx = torch.nonzero(last).squeeze(1)
     outs = {t: v[ends_idx] for t, v in scanned.items()}
     for t, v in running.items():         # running sum → boundary difference
         ends_v = v[ends_idx]

@@ -37,7 +37,7 @@ from aquery2_tpu_torch.engine.executor import ExecError, Executor
 from aquery2_tpu_torch.parser import ast_nodes as A
 from aquery2_tpu_torch.parser import parse
 from aquery2_tpu_torch.runtime.procedures import ProcedureStore
-from aquery2_tpu_torch.runtime.stats import QueryStats
+from aquery2_tpu_torch.runtime.stats import QueryStats, counting, span
 from aquery2_tpu_torch.runtime.triggers import TriggerHost
 from aquery2_tpu_torch.storage.catalog import Catalog
 from aquery2_tpu_torch.storage.result import Result
@@ -125,27 +125,27 @@ class Session:
         synchronize is added, runtime/stats.py)."""
         with self.stats.timed("parse"):
             stmts = parse(text)
-        last: Result | None = None
         t0 = time.perf_counter()
         if stmts and self.procedures.recording is not None:
             self.procedures.record(text.strip())
         with self.stats.timed("exec"):
-            for stmt in stmts:
-                r = self.executor.execute(stmt)
-                if r is not None:
-                    last = r
+            last = self.run_script(stmts)
         self.stats.record_query(text.strip(), time.perf_counter() - t0)
         return last
 
     sql = execute
 
     def run_script(self, stmts: list[A.Statement]) -> Result | None:
-        """Execute parsed statements in order; returns the last Result."""
+        """Execute parsed statements in order, each in its span
+        ``aq.execute``, counting tiers and host syncs into ``stats``;
+        returns the last Result."""
         last = None
-        for stmt in stmts:
-            r = self.executor.execute(stmt)
-            if r is not None:
-                last = r
+        with counting(self.stats):
+            for stmt in stmts:
+                with span("execute"):
+                    r = self.executor.execute(stmt)
+                if r is not None:
+                    last = r
         return last
 
     # -- attached SQL backends (storage/datasource.py) ----------------------

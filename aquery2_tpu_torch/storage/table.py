@@ -19,6 +19,7 @@ import torch
 
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.runtime.stats import sync
 from aquery2_tpu_torch.utils import CaseInsensitiveDict
 
 
@@ -199,7 +200,8 @@ class Column:
                     mx = torch.where(ok, d, torch.full_like(d, small)).max()
                 else:
                     mn, mx = d.min(), d.max()
-                both = torch.stack([mn, mx]).cpu()
+                with sync("column.stats"):
+                    both = torch.stack([mn, mx]).cpu()
                 self._stats = (int(both[0]), int(both[1]))
         return self._stats
 
@@ -217,7 +219,8 @@ class Column:
             mag = torch.where(torch.isfinite(d), d.abs(), 0).to(torch.float64)
             both = torch.stack([(~fin).any().to(torch.float64),
                                 mag.max() if d.shape[0] else mag.sum()])
-            bad, mx = both.tolist()
+            with sync("column.float_summary"):
+                bad, mx = both.tolist()
             self._fsum = (not bad, mx)
         return self._fsum
 
