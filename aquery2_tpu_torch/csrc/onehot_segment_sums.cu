@@ -1,18 +1,23 @@
-// Exact grouped int64 sums over a small slot domain, for Hopper (sm_90a).
+// Grouped sums over a small slot domain, for Hopper (sm_90a): exact int64
+// sums of integer and bool lanes, float64 sums of float64 lanes.
 //
 // Replaces aquery2_tpu/ops/pallas_kernels.py onehot_segment_sums (the TPU
 // kernel _make_onehot_kernel) together with its caller
 // aquery2_tpu/ops/reduce.py _pallas_onehot_reduce: out[s][j] is the sum of
-// lane j over the rows whose code is s, wrapping mod 2^64. The TPU kernel
-// splits every lane into bf16 base-128 digits so that a one-hot matmul on
-// the MXU stays exact, and returns f32 superblock partials; the card adds
-// int64 natively, so the digits, the superblocks and the matmul go.
+// lane j over the rows whose code is s, wrapping mod 2^64 for an integer
+// lane and in float64 IEEE adds for a float64 lane (whose 8-byte word of
+// the int64 output holds the double). The TPU kernel splits every lane
+// into bf16 base-128 digits so that a one-hot matmul on the MXU stays
+// exact, and returns f32 superblock partials; the card adds int64 and
+// float64 natively, so the digits, the superblocks and the matmul go.
 //
 // Bound: device memory, 4 B/row of codes plus each lane's width (8, 4 or
 // 1 B/row), read once (h2o q1: 9 B/row, q9: 37 B/row). The design:
 //   * Tiles staged in shared memory. A persistent grid (the blocks an SM
 //     holds, on every SM) walks tiles of tile_rows rows (a multiple of
-//     1024, about 32 KB of staging); each block copies the codes and every
+//     1024, about 32 KB of staging; with a float64 lane, a private plan
+//     whose one block holds an SM alone anyway takes the largest tiles that
+//     fit beside its accumulators); each block copies the codes and every
 //     lane of its next tile with 16-byte cp.async, neighbouring threads on
 //     neighbouring chunks, into the other of two stage buffers before it
 //     adds the current tile. An array whose pointer is not 16-byte aligned
@@ -22,23 +27,34 @@
 //     ragged n) is copied byte by byte. No input is routed elsewhere.
 //   * Lane dtypes are fixed outside the row loop: each thread reads its 4
 //     rows' codes, then each lane's 4 values, with one dtype switch per lane
-//     per 4 rows, widened to int64 in registers; the adds that follow see
-//     int64 only.
+//     per 4 rows, widened to 64-bit words in registers (a float64 lane's
+//     bits as they are). Whether any lane is float64 is a template flag: a
+//     call with integer and bool lanes only runs the instantiation, plan
+//     and launch it ran before float64 lanes existed.
 //   * Adds by what fits. Private route, where one copy of the [dp][k]
 //     accumulators per thread fits beside the staging (h2o q1 and q4, dp
 //     11): thread t owns entry e at acc[e * threads + t] (a warp's 64-bit
-//     words on consecutive banks) and adds with a plain load, add and store,
-//     no atomic. Shared route (q2 and q9, dp 101, up to dp 513): one copy
-//     per warp, copy-major, so an atomic waits only on lanes of its own
-//     warp that hit the same slot (fewer copies, each shared by warps,
-//     where that lets an SM hold more blocks); each entry is a low and a high 32-bit
+//     words on consecutive banks) and adds with a plain load, add and store
+//     (an integer add, or a float64 add for a float64 lane), no atomic.
+//     Shared route (q2 and q9, dp 101, up to dp 513): one copy per warp,
+//     copy-major, so an atomic waits only on lanes of its own warp that hit
+//     the same slot (fewer copies, each shared by warps, where that lets an
+//     SM hold more blocks); each integer entry is a low and a high 32-bit
 //     word added by native 32-bit shared atomics with the carry passed on
 //     (add_split), since a 64-bit shared atomic add is a CAS loop here.
+//     With a float64 lane the entries are whole 64-bit words (add_split on
+//     their halves); a warp first sums the float64 values of its lanes that
+//     hit one slot (__match_any_sync, then a tree of shuffles), and the
+//     group's first lane adds the sum to the warp's copy: a plain load, add
+//     and store where the copy is the warp's own, else a shared atomicAdd
+//     (a CAS loop, but one lane per slot and warp).
 //   * Epilogue: the block folds its copies (a warp's shuffles for the
-//     private route) and adds each nonzero (slot, lane) total into the
-//     zeroed output with one global atomic. Integer addition in any order
-//     gives the same sum, so the result equals the plain version's bit for
-//     bit.
+//     private route), in float64 for a float64 lane, and adds each nonzero
+//     (slot, lane) total into the zeroed output with one global atomic
+//     (atomicAdd on the word as an int64 or a double). Integer addition in
+//     any order gives the same sum, so an integer lane equals the plain
+//     version's bit for bit; a float64 lane's adds take an order that
+//     depends on the timing of the blocks, as index_add_'s does.
 #include "segscan.cuh"
 
 namespace aq_onehot {
@@ -54,10 +70,10 @@ constexpr int kMaxShared = 232448;              // Hopper's opt-in maximum per b
 constexpr int kMaxRowBytes = 4 + 8 * kMaxLanes;
 
 // Lane dtype codes, as ops/kernels.py passes them.
-enum : int { kI64 = 0, kI32 = 1, kBool = 2 };
+enum : int { kI64 = 0, kI32 = 1, kBool = 2, kF64 = 3 };
 
 __host__ __device__ constexpr int dtype_bytes(int dt) {
-  return dt == kI64 ? 8 : dt == kI32 ? 4 : 1;
+  return dt == kI64 || dt == kF64 ? 8 : dt == kI32 ? 4 : 1;
 }
 
 // Staging bytes of one tile: every array's rows, plus 16 for a misaligned
@@ -156,7 +172,41 @@ __device__ __forceinline__ void add_split(unsigned* lo, unsigned* hi,
   if (h != 0u) atomicAdd(hi, h);
 }
 
-template <int K, bool kPrivate>
+__device__ __forceinline__ double as_f64(unsigned long long w) {
+  return __longlong_as_double((long long)w);
+}
+
+__device__ __forceinline__ unsigned long long f64_bits(double x) {
+  return (unsigned long long)__double_as_longlong(x);
+}
+
+// Row i's float64 lanes summed over each group of a warp's lanes whose rows
+// hit one slot (peers: the lane's group, from __match_any_sync), into the
+// group's first lane: a tree in lane order (each remaining lane adds the
+// value of the next remaining lane above it, then every second one drops
+// out), in which every lane of the warp takes part in each shuffle.
+template <int K>
+__device__ __forceinline__ void sum_peers(
+    unsigned f64, unsigned peers, unsigned long long (&v)[K][kRowsPerThread],
+    int i) {
+  const int lane = threadIdx.x & 31;
+  unsigned rank = __popc(peers & ((1u << lane) - 1u));  // lower peers
+  unsigned above = peers & (0xfffffffeu << lane);       // higher peers left
+  while (__any_sync(0xffffffffu, above != 0u)) {
+    const int next = __ffs(above) - 1;                  // -1: none
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      if (!(f64 >> j & 1u)) continue;
+      const double x = __shfl_sync(0xffffffffu, as_f64(v[j][i]),
+                                   next < 0 ? lane : next);
+      if (next >= 0) v[j][i] = f64_bits(as_f64(v[j][i]) + x);
+    }
+    above &= ~__ballot_sync(0xffffffffu, rank & 1u);    // absorbed lanes
+    rank >>= 1;
+  }
+}
+
+template <int K, bool kPrivate, bool kHasF64>
 __global__ void __launch_bounds__(kThreads, 2)
 onehot_sums(Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -165,6 +215,11 @@ onehot_sums(Params p) {
   const int entries = p.dp * K;
   const int t = threadIdx.x;
   for (int i = t; i < p.acc_bytes / 8; i += kThreads) acc[i] = 0ull;
+  unsigned f64 = 0u;                          // bit j: lane j is float64
+  if (kHasF64) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) f64 |= (unsigned)(p.dtype[j] == kF64) << j;
+  }
 
   const int64_t G = gridDim.x;
 #pragma unroll
@@ -172,13 +227,15 @@ onehot_sums(Params p) {
     load_tile<K>(p, blockIdx.x + s * G, stages + s * p.stage);
     commit();
   }
-  // shared route: the copies' low 32-bit words, then their high words;
-  // this warp's copy
+  // shared route: the copies' low 32-bit words, then their high words
+  // (with a float64 lane, each entry's two words side by side: ws 32-bit
+  // words from one entry to the next); this warp's copy
+  constexpr int ws = kHasF64 ? 2 : 1;
   unsigned* const lo0 = reinterpret_cast<unsigned*>(acc);
-  unsigned* const hi0 = lo0 + (int64_t)p.copies * entries;
+  unsigned* const hi0 = kHasF64 ? lo0 + 1 : lo0 + (int64_t)p.copies * entries;
   const int64_t mine = (int64_t)((t >> 5) % p.copies) * entries;
-  unsigned* lo = lo0 + mine;
-  unsigned* hi = hi0 + mine;
+  unsigned* lo = lo0 + ws * mine;
+  unsigned* hi = hi0 + ws * mine;
 
   int buf = 0;
   for (int64_t tile = blockIdx.x; tile < p.ntiles; tile += G) {
@@ -203,7 +260,8 @@ onehot_sums(Params p) {
 #pragma unroll
       for (int j = 0; j < K; ++j) {
         const int r0 = base + t;
-        switch (p.dtype[j]) {                 // once per lane per 4 rows
+        // once per lane per 4 rows; a float64 lane's bits load as int64's
+        switch (f64 >> j & 1u ? (int)kI64 : p.dtype[j]) {
           case kI64: {
             const unsigned long long* x =
                 staged<unsigned long long>(p, st, j + 1) + r0;
@@ -226,6 +284,25 @@ onehot_sums(Params p) {
           }
         }
       }
+      if (kHasF64 && !kPrivate) {             // float64 lanes: a group's sum
+#pragma unroll
+        for (int i = 0; i < kRowsPerThread; ++i) {
+          const unsigned peers = __match_any_sync(0xffffffffu, slot[i]);
+          sum_peers<K>(f64, peers, v, i);
+          if (slot[i] >= 0 && (t & 31) == __ffs(peers) - 1) {
+            double* w = reinterpret_cast<double*>(lo + 2 * slot[i] * K);
+#pragma unroll
+            for (int j = 0; j < K; ++j) {
+              if (!(f64 >> j & 1u)) continue;
+              if (p.copies == kWarps)         // the warp's own copy
+                w[j] += as_f64(v[j][i]);
+              else
+                atomicAdd(w + j, as_f64(v[j][i]));
+            }
+          }
+          __syncwarp();                       // before another lane's add
+        }
+      }
 #pragma unroll
       for (int i = 0; i < kRowsPerThread; ++i) {
         if (slot[i] < 0) continue;            // outside [0, dp): dropped
@@ -236,10 +313,15 @@ onehot_sums(Params p) {
 #pragma unroll
           for (int j = 0; j < K; ++j) a[j] = q[j * kThreads];
 #pragma unroll
-          for (int j = 0; j < K; ++j) q[j * kThreads] = a[j] + v[j][i];
+          for (int j = 0; j < K; ++j)
+            q[j * kThreads] = f64 >> j & 1u
+                                  ? f64_bits(as_f64(a[j]) + as_f64(v[j][i]))
+                                  : a[j] + v[j][i];
         } else {
 #pragma unroll
-          for (int j = 0; j < K; ++j) add_split(lo + e + j, hi + e + j, v[j][i]);
+          for (int j = 0; j < K; ++j)
+            if (!(f64 >> j & 1u))
+              add_split(lo + ws * (e + j), hi + ws * (e + j), v[j][i]);
         }
       }
     }
@@ -251,6 +333,18 @@ onehot_sums(Params p) {
   if (kPrivate) {                             // a warp folds one entry at a time
     const int lane = t & 31;
     for (int e = t >> 5; e < entries; e += kWarps) {
+      if (f64 >> (e % K) & 1u) {
+        double total = 0.0;
+#pragma unroll
+        for (int m = 0; m < kThreads; m += 32)
+          total += as_f64(acc[(int64_t)e * kThreads + m + lane]);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          total += __shfl_xor_sync(0xffffffffu, total, o);
+        if (lane == 0 && f64_bits(total) != 0ull)
+          atomicAdd(reinterpret_cast<double*>(p.out + e), total);
+        continue;
+      }
       unsigned long long total = 0ull;
 #pragma unroll
       for (int m = 0; m < kThreads; m += 32)
@@ -262,10 +356,20 @@ onehot_sums(Params p) {
     }
   } else {
     for (int e = t; e < entries; e += kThreads) {
+      if (f64 >> (e % K) & 1u) {
+        double total = 0.0;
+        for (int c = 0; c < p.copies; ++c)
+          total += *reinterpret_cast<const double*>(
+              lo0 + 2 * ((int64_t)c * entries + e));
+        if (f64_bits(total) != 0ull)
+          atomicAdd(reinterpret_cast<double*>(p.out + e), total);
+        continue;
+      }
       unsigned long long total = 0ull;
       for (int c = 0; c < p.copies; ++c)
-        total += lo0[(int64_t)c * entries + e] +
-                 ((unsigned long long)hi0[(int64_t)c * entries + e] << 32);
+        total += lo0[ws * ((int64_t)c * entries + e)] +
+                 ((unsigned long long)hi0[ws * ((int64_t)c * entries + e)]
+                  << 32);
       if (total != 0ull) atomicAdd(p.out + e, total);
     }
   }
@@ -274,17 +378,17 @@ onehot_sums(Params p) {
 // The launch for (dp, lane dtypes, n): route, copies, tile rows, shared
 // memory and grid.
 struct Plan {
-  bool priv;
+  bool priv, f64;
   int copies, tile_rows, stage, acc_bytes, smem, per_sm, blocks;
 };
 
 inline int64_t pad16(int64_t b) { return (b + 15) / 16 * 16; }
 
-template <int K, bool kPrivate>
+template <int K, bool kPrivate, bool kHasF64>
 cudaError_t grid_for(Plan& pl, int64_t n) {
   cudaError_t err = cudaFuncSetAttribute(
-      onehot_sums<K, kPrivate>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      pl.smem);
+      onehot_sums<K, kPrivate, kHasF64>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
@@ -292,13 +396,25 @@ cudaError_t grid_for(Plan& pl, int64_t n) {
                                     device)) != cudaSuccess)
     return err;
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &pl.per_sm, onehot_sums<K, kPrivate>, kThreads, pl.smem)) !=
+           &pl.per_sm, onehot_sums<K, kPrivate, kHasF64>, kThreads,
+           pl.smem)) !=
       cudaSuccess)
     return err;
   const int64_t ntiles = (n + pl.tile_rows - 1) / pl.tile_rows;
   const int64_t fill = (int64_t)sms * (pl.per_sm > 0 ? pl.per_sm : 1);
   pl.blocks = (int)(ntiles < fill ? (ntiles > 0 ? ntiles : 1) : fill);
   return cudaSuccess;
+}
+
+// The grid of the kernel the plan runs: its route and whether a lane is
+// float64.
+template <int K>
+cudaError_t grid_of(Plan& pl, int64_t n) {
+  if (pl.priv)
+    return pl.f64 ? grid_for<K, true, true>(pl, n)
+                  : grid_for<K, true, false>(pl, n);
+  return pl.f64 ? grid_for<K, false, true>(pl, n)
+                : grid_for<K, false, false>(pl, n);
 }
 
 template <int K>
@@ -311,6 +427,12 @@ cudaError_t plan_for(Plan& pl, int dp, int row_bytes, int64_t n) {
   const int64_t one = (int64_t)dp * K * 8;
   pl.priv = total(one * kThreads, kChunkRows) <= kMaxShared;
   pl.copies = pl.priv ? kThreads : kWarps;
+  // With a float64 lane, a private plan that holds an SM alone anyway
+  // (more than half of the shared memory) takes tiles as large as fit:
+  // its one block keeps more bytes in flight (h2o q4's 21 B rows: 1,024-
+  // row tiles 1.25 ms, 3,072 1.02 ms at 1e8 rows on the H100).
+  if (pl.f64 && pl.priv && 2 * total(one * kThreads, rows) > kMaxShared)
+    rows = kMaxShared / (kStages * row_bytes) / kChunkRows * kChunkRows;
   if (!pl.priv) {
     while (pl.copies > 1 && total(one * pl.copies, rows) > kMaxShared)
       pl.copies /= 2;
@@ -322,28 +444,32 @@ cudaError_t plan_for(Plan& pl, int dp, int row_bytes, int64_t n) {
   pl.stage = (int)stage_bytes(rows, row_bytes, K + 1);
   pl.acc_bytes = (int)pad16(one * pl.copies);
   pl.smem = (int)total(one * pl.copies, rows);
-  if (pl.priv) return grid_for<K, true>(pl, n);
-  cudaError_t err = grid_for<K, false>(pl, n);
+  if (pl.priv) return grid_of<K>(pl, n);
+  cudaError_t err = grid_of<K>(pl, n);
   // fewer copies where that lets an SM hold more blocks (h2o q9 with NAs:
   // 7 lanes at dp 101 hold one block of 8 copies an SM, two of 4)
   for (Plan fewer = pl; err == cudaSuccess && fewer.copies > 1;) {
     fewer.copies /= 2;
     fewer.acc_bytes = (int)pad16(one * fewer.copies);
     fewer.smem = (int)total(one * fewer.copies, rows);
-    err = grid_for<K, false>(fewer, n);
+    err = grid_of<K>(fewer, n);
     if (err == cudaSuccess && fewer.per_sm > pl.per_sm) pl = fewer;
   }
   // the kernel's shared-memory limit back to the chosen plan's
-  return err == cudaSuccess ? grid_for<K, false>(pl, n) : err;
+  return err == cudaSuccess ? grid_of<K>(pl, n) : err;
 }
 
 template <int K>
 cudaError_t run(Params& p, const Plan& pl, cudaStream_t s) {
   const size_t smem = pl.smem;
-  if (pl.priv)
-    onehot_sums<K, true><<<pl.blocks, kThreads, smem, s>>>(p);
+  if (pl.priv && pl.f64)
+    onehot_sums<K, true, true><<<pl.blocks, kThreads, smem, s>>>(p);
+  else if (pl.priv)
+    onehot_sums<K, true, false><<<pl.blocks, kThreads, smem, s>>>(p);
+  else if (pl.f64)
+    onehot_sums<K, false, true><<<pl.blocks, kThreads, smem, s>>>(p);
   else
-    onehot_sums<K, false><<<pl.blocks, kThreads, smem, s>>>(p);
+    onehot_sums<K, false, false><<<pl.blocks, kThreads, smem, s>>>(p);
   return cudaGetLastError();
 }
 
@@ -354,9 +480,11 @@ inline cudaError_t plan(int k, const int* dtypes, int dp, int64_t n, Plan& pl,
   if (k < 1 || k > kMaxLanes || dp < 1 || (int64_t)dp * k > kMaxEntries)
     return cudaErrorInvalidValue;
   int row_bytes = 4;
+  pl.f64 = false;
   for (int j = 0; j < k; ++j) {
-    if (dtypes[j] < kI64 || dtypes[j] > kBool) return cudaErrorInvalidValue;
+    if (dtypes[j] < kI64 || dtypes[j] > kF64) return cudaErrorInvalidValue;
     row_bytes += dtype_bytes(dtypes[j]);
+    pl.f64 = pl.f64 || dtypes[j] == kF64;
   }
   cudaError_t err = cudaErrorInvalidValue;
   switch (k) {
@@ -392,9 +520,10 @@ inline cudaError_t plan(int k, const int* dtypes, int dp, int64_t n, Plan& pl,
 extern "C" {
 
 // code: int32[n] slots in [0, dp). k in 1..8 lanes: xs holds k device
-// pointers to n-row lanes, dtypes their codes (0 int64, 1 int32, 2 bool);
-// both arrays live in host memory. Any pointer alignment and any n >= 1.
-// out: int64[dp * k], zeroed by the caller, row-major [dp][k]. Returns the
+// pointers to n-row lanes, dtypes their codes (0 int64, 1 int32, 2 bool,
+// 3 float64); both arrays live in host memory. Any pointer alignment and
+// any n >= 1. out: int64[dp * k], zeroed by the caller, row-major [dp][k];
+// a float64 lane's words hold doubles (a zeroed word is +0.0). Returns the
 // cudaError_t of the launch (cudaErrorInvalidValue for a bad k or dtype,
 // or a dp * k above aq_onehot_max_entries()); allocates nothing and does
 // not synchronise.

@@ -8,7 +8,8 @@ device. Three tiers:
   dense    — key domains of at most ``config.ONEHOT_MATMUL_MAX_GROUPS``
              slots: each row's perfect-hash code picks a slot, and the
              onehot_segment_sums kernel sums every add lane per slot in
-             int64 (ops/reduce.segment_reduce).
+             int64 and every float64 lane in float64
+             (ops/reduce.segment_reduce).
   packed   — keys bit-pack (from column stats) into 30-bit words: one
              ops/sort.lexsort of [validity, words] (a single int64 sort
              up to two words), then segmented scans over the sorted rows

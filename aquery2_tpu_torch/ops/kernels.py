@@ -14,11 +14,12 @@ of its four TPU kernels.
   besides (which the JAX package scans with XLA's doubling). Runs the
   sorted reduction's min/max, the float64 running sums of ops/scan.py and
   the in-segment positions of ops/segment.py.
-* ``onehot_segment_sums`` — exact int64 per-slot sums of up to 8 lanes
-  over a small slot domain (csrc/onehot_segment_sums.cu), replacing the
-  TPU kernel ``pallas_kernels.onehot_segment_sums``
-  (``_make_onehot_kernel``) with its caller
-  ``reduce._pallas_onehot_reduce``. Runs the dense tier's sums.
+* ``onehot_segment_sums`` — per-slot sums of up to 8 lanes over a small
+  slot domain, exact int64 for integer and bool lanes and float64 for
+  float64 lanes (csrc/onehot_segment_sums.cu), replacing the TPU kernel
+  ``pallas_kernels.onehot_segment_sums`` (``_make_onehot_kernel``) with
+  its caller ``reduce._pallas_onehot_reduce``. Runs the dense tier's
+  sums, its float64 sums among them.
 * ``fused_running_stats`` — running sum, min and max of a float32 column
   in one scan (csrc/fused_running_stats.cu), replacing the TPU kernel
   ``pallas_kernels.fused_running_stats`` (``_running_kernel``), with its
@@ -45,7 +46,8 @@ per warp with shared atomics (``onehot_route`` reports the launch).
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
 use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
-kernel launches, one per wrapper call that launched.
+kernel launches, one per wrapper call that launched; ``ONEHOT_LANES`` the
+lanes those onehot_segment_sums launches summed, by dtype.
 
 The kernels are compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface (loaded with ctypes), under
@@ -70,6 +72,8 @@ import torch
 LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0,
                             "onehot_segment_sums": 0,
                             "fused_running_stats": 0}
+ONEHOT_LANES: dict[str, int] = {"int64": 0, "int32": 0, "bool": 0,
+                                "float64": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
@@ -80,9 +84,10 @@ _OPS = ("add", "min", "max")
 # lane code = dtype · 3 + op; the first two are 32-bit words, the rest 64-bit
 _LANE_DTYPES = (torch.float32, torch.int32, torch.float64, torch.int64)
 _MAX_LANES = 4
-ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool)   # lane dtype codes
+# lane dtype codes
+ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool, torch.float64)
 ONEHOT_MAX_LANES = 8
-# One copy of the [dp][k] int64 accumulators must fit a block's shared
+# One copy of the [dp][k] 8-byte accumulators must fit a block's shared
 # memory (232,448 bytes on Hopper) beside two stage buffers of 1024 rows of
 # codes and 8 int64 lanes: kMaxEntries in onehot_segment_sums.cu.
 ONEHOT_MAX_ENTRIES = (232448 - 2 * (1024 * (4 + 8 * 8) + 16 * 9)) // 8
@@ -173,11 +178,13 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name in ptxas' report, the single-pass scans by their
-    lanes and flags, onehot_segment_sums by its lanes and route."""
-    m = re.search(r"onehot_sumsILi(\d)ELb(\d)E", mangled)
+    lanes and flags, onehot_segment_sums by its lanes, its route and whether
+    a lane is float64."""
+    m = re.search(r"onehot_sumsILi(\d)ELb(\d)ELb(\d)E", mangled)
     if m:
         return (f"onehot_segment_sums {m[1]} lanes, "
-                f"{'private' if m[2] == '1' else 'shared'}")
+                f"{'private' if m[2] == '1' else 'shared'}"
+                f"{', float64' if m[3] == '1' else ''}")
     if re.search(r"segscan_lookbackIN10aq_running8RunStatsE", mangled):
         return "fused_running_stats 3 x float32, one input"
     m = re.search(r"segscan_lookbackIN6aq_i646AddI64ELb(\d)", mangled)
@@ -291,11 +298,16 @@ def seg_scan_multi_plain(flags: torch.Tensor | None,
 def onehot_segment_sums_plain(code: torch.Tensor,
                               lanes: tuple[torch.Tensor, ...],
                               dp: int) -> torch.Tensor:
-    """Plain PyTorch onehot_segment_sums: one int64 ``index_add_`` per lane
-    (wraps mod 2^64, as the kernel does)."""
-    cols = [torch.zeros(dp, dtype=torch.int64, device=code.device)
-            .index_add_(0, code, x.to(torch.int64)) for x in lanes]
-    return torch.stack(cols, 1)
+    """Plain PyTorch onehot_segment_sums: one ``index_add_`` per lane, in
+    int64 (wraps mod 2^64, as the kernel does) or, for a float64 lane, in
+    float64, its column's words holding the doubles."""
+    def col(x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.float64:
+            return torch.zeros(dp, dtype=torch.float64, device=code.device
+                               ).index_add_(0, code, x).view(torch.int64)
+        return torch.zeros(dp, dtype=torch.int64, device=code.device
+                           ).index_add_(0, code, x.to(torch.int64))
+    return torch.stack([col(x) for x in lanes], 1)
 
 
 def fused_running_stats_plain(x: torch.Tensor):
@@ -405,11 +417,13 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
 
 def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
                         dp: int) -> torch.Tensor:
-    """Exact per-slot sums: out[s, j] = sum of lanes[j] over the rows whose
-    code is s, as int64 [dp, k], wrapping mod 2^64. code: contiguous 1-D
-    int32 in [0, dp) (on the card a row outside that range is dropped).
-    lanes: k ≤ 8 contiguous 1-D int64, int32 or bool tensors of code's
-    length and device, widened to int64 as they are added. Raises
+    """Per-slot sums: out[s, j] = sum of lanes[j] over the rows whose code
+    is s, as int64 [dp, k]. code: contiguous 1-D int32 in [0, dp) (on the
+    card a row outside that range is dropped). lanes: k ≤ 8 contiguous 1-D
+    int64, int32, bool or float64 tensors of code's length and device.
+    Integer and bool lanes are widened to int64 and summed exactly,
+    wrapping mod 2^64; a float64 lane is summed in float64, and its column
+    holds the doubles' bits (read it with ``.view(torch.float64)``). Raises
     ValueError for a dp · k whose accumulators do not fit a block's shared
     memory, on every device."""
     lanes = tuple(lanes)
@@ -425,9 +439,9 @@ def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
         if (x.dtype not in ONEHOT_DTYPES or x.shape != code.shape
                 or not x.is_contiguous() or x.device != code.device):
             raise ValueError(f"onehot_segment_sums lanes must be contiguous "
-                             f"1-D int64/int32/bool of the codes' shape and "
-                             f"device, got {x.dtype} {tuple(x.shape)} on "
-                             f"{x.device}")
+                             f"1-D int64/int32/bool/float64 of the codes' "
+                             f"shape and device, got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
     if dp < 1 or dp * k > ONEHOT_MAX_ENTRIES:
         raise ValueError(f"onehot_segment_sums: {dp} slots x {k} lanes do "
                          f"not fit one block's shared memory (at most "
@@ -449,16 +463,19 @@ def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
                                         dp, n, out.data_ptr(), stream)
     _check(lib, "onehot_segment_sums", rc)
     LAUNCHES["onehot_segment_sums"] += 1
+    for x in lanes:
+        ONEHOT_LANES[str(x.dtype).removeprefix("torch.")] += 1
     return out
 
 
 def onehot_route(dp: int, dtypes: tuple[torch.dtype, ...],
                  n: int) -> dict[str, int]:
     """The launch onehot_segment_sums makes on the card for dp slots, lanes
-    of these dtypes and n rows: private (1: one copy of the accumulators
-    per thread, plain adds) or shared (0: copies shared by a warp, shared
-    atomics), copies per block, threads, blocks, tile rows, dynamic shared
-    memory per block, blocks an SM holds and one stage buffer's bytes."""
+    of these dtypes (any of ``ONEHOT_DTYPES``) and n rows: private (1: one
+    copy of the accumulators per thread, plain adds) or shared (0: copies
+    shared by a warp, shared atomics), copies per block, threads, blocks,
+    tile rows, dynamic shared memory per block, blocks an SM holds and one
+    stage buffer's bytes."""
     lib = build()
     k = len(dtypes)
     codes = (ctypes.c_int * k)(*[ONEHOT_DTYPES.index(d) for d in dtypes])

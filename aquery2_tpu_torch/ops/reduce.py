@@ -5,10 +5,11 @@ Counterpart of ``segment_reduce`` and ``sorted_group_reduce`` in
 (bf16 digit matmuls on the MXU, int32 limb pairs, a v5e cost model for
 extraction); the port keeps what they compute:
 
-* ``segment_reduce`` (the dense tier): exact int64 sums through the
-  onehot_segment_sums kernel (one call per 8 lanes), ``scatter_reduce_``
+* ``segment_reduce`` (the dense tier): exact int64 sums and float64 sums
+  through the onehot_segment_sums kernel (one call per 8 lanes, so the
+  codes are read once for up to 8 of them), and ``scatter_reduce_``
   min/max from the same sentinels (the JAX package leaves those to XLA
-  too), and float64 sums by ``index_add_``.
+  too).
 * ``sorted_group_reduce`` (the packed tier): segmented scans over the
   sorted rows, whose value at each group's last row is the group's
   aggregate — sums through the seg_cumsum_i64 kernel in native int64,
@@ -63,18 +64,22 @@ def segment_reduce(code: torch.Tensor, add_lanes: dict[str, torch.Tensor],
     slot (contiguous int32; invalid rows carry ``domain``, the overflow
     slot). Add lanes are integer or bool tensors, summed exactly in int64;
     min/max lanes are pre-masked with the sentinels; f64 lanes are
-    float64 sums. Returns tag → [domain + 1] tensors."""
+    float64 sums, in the same kernel calls as the add lanes. Returns tag →
+    [domain + 1] tensors."""
     dp = domain + 1
     dev = code.device
     outs: dict[str, torch.Tensor] = {}
-    tags = list(add_lanes)
+    lanes = ({t: _sum_lane(c) for t, c in add_lanes.items()}
+             | {t: c.to(torch.float64).contiguous()
+                for t, c in f64_lanes.items()})
+    tags = list(lanes)
     for i in range(0, len(tags), K.ONEHOT_MAX_LANES):
         chunk = tags[i:i + K.ONEHOT_MAX_LANES]
-        sums = K.onehot_segment_sums(code, tuple(
-            _sum_lane(add_lanes[t]) for t in chunk), dp)
+        sums = K.onehot_segment_sums(code, tuple(lanes[t] for t in chunk), dp)
         for j, t in enumerate(chunk):
-            outs[t] = sums[:, j]
-    if min_lanes or max_lanes or f64_lanes:
+            outs[t] = (sums[:, j].view(torch.float64) if t in f64_lanes
+                       else sums[:, j])
+    if min_lanes or max_lanes:
         idx = code.to(torch.int64)       # scatter_reduce_ takes int64 only
     for t, col in min_lanes.items():
         outs[t] = torch.full((dp,), big_of(col.dtype), dtype=col.dtype,
@@ -82,9 +87,6 @@ def segment_reduce(code: torch.Tensor, add_lanes: dict[str, torch.Tensor],
     for t, col in max_lanes.items():
         outs[t] = torch.full((dp,), small_of(col.dtype), dtype=col.dtype,
                              device=dev).scatter_reduce_(0, idx, col, "amax")
-    for t, col in f64_lanes.items():
-        outs[t] = torch.zeros(dp, dtype=torch.float64, device=dev).index_add_(
-            0, idx, col.to(torch.float64))
     return outs
 
 

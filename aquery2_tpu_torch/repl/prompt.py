@@ -8,7 +8,9 @@ with the same commands:
     exec | xexec | r      run the buffer
     f <file>              append a script file to the buffer
     echo <text>           print
-    stats [on|off|reset]  timing statistics (reference :630-645)
+    stats [on|off|reset]  timing statistics (reference :630-645), and the
+                          process's kernel launches and onehot lanes (reset
+                          clears both)
     procedure <p> <op>    record|stop|run|load|save|display (:646-677)
     save [path]           save the buffer to a file
     log <level>           info|error|silent
@@ -39,6 +41,7 @@ import sys
 
 import torch
 
+from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.session import Session, connect
 from aquery2_tpu_torch.storage.result import Result
 
@@ -155,8 +158,15 @@ class Repl:
             st.enabled = False
         elif arg == "reset":
             st.reset()
+            for counts in (K.LAUNCHES, K.ONEHOT_LANES):
+                counts.update(dict.fromkeys(counts, 0))
         else:
             print(st.format())
+            for title, counts in (("Kernel launches:  ", K.LAUNCHES),
+                                  ("Onehot lanes:     ", K.ONEHOT_LANES)):
+                if any(counts.values()):
+                    print(title + ", ".join(
+                        f"{k}={v}" for k, v in counts.items() if v))
 
     def _procedure(self, args: list[str]) -> None:
         if len(args) != 2:

@@ -21,8 +21,11 @@ Phases, in order (any mismatch raises; there is no fallback):
      seg_cumsum_i64 (and an unsegmented torch.cumsum of the same column,
      not the same function), seg_scan_multi at q7's, q8's, 3 x 32-bit,
      max_stddevs' 2 x float64 and 3 x 64-bit lanes,
-     onehot_segment_sums at q1's and q9's (and the one index_add_ that
-     computes the same sums, which the port never calls),
+     onehot_segment_sums at q1's and q9's, and at q4's with v3 a DOUBLE
+     (its float64 lane; checked with float64 lanes over the whole column,
+     ragged, misaligned, one slot, NaN and ±inf, on both routes), beside
+     the index_add_ calls that compute the same sums, which the port never
+     makes,
      fused_running_stats;
   4. through connect(device="cuda").execute, each query checked against a
      numpy oracle with its kernel launches counted from zero, and the
@@ -180,8 +183,10 @@ Phases, in order (any mismatch raises; there is no fallback):
      passes, asserted), its answer against the numpy oracle (column
      arrays, never rows()) and the oracle's seconds; then
      onehot_segment_sums, seg_cumsum_i64 and seg_scan_multi at q9's,
-     q3's and q7's inputs against their plain versions (exactly), each
-     timed beside its bound, and the process's peak RSS.
+     q3's and q7's inputs against their plain versions (exactly), and
+     onehot_segment_sums at q4's with v3 a DOUBLE (integer lanes exactly,
+     the float64 lane within ONEHOT_F64_RTOL normwise), each timed beside
+     its bound, and the process's peak RSS.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -478,6 +483,7 @@ EXACT_SUMS_RTOL = {"r2": 1e-12}   # q9: exact int64 sums, float64 formula
 ADD_F32_RTOL = 2e-5     # float32 'add' lanes: |err| ≤ this · running Σ|x|
 RUN_SUM_TOL = 1e-5      # float32 running sums: |err| ≤ this · running Σ|x|
 ADD_F64_TOL = 1e-12     # float64 'add' lanes: |err| ≤ this · running Σ|x|
+ONEHOT_F64_RTOL = 1e-12  # onehot float64 lanes: normwise, adds reordered
 # a float window frame's sum is a difference of prefix sums, S[hi] - S[lo]
 # + x[lo], and the float add lanes are not bit-reproducible on the card:
 # its error is bounded by this · the partition's running Σ|x| at hi, not
@@ -783,6 +789,90 @@ def capture_onehot(dev, data) -> dict:
     return calls
 
 
+def capture_q4_double(dev, data):
+    """The (code, lanes, dp) of q4's onehot_segment_sums call over the
+    columns q4 reads, v3 a DOUBLE as db-benchmark's groupby-datagen.R
+    writes it (datagen.h2o_g1 makes it float32): the kernel's float64 lane
+    on the main path."""
+    db = connect(device=dev)
+    load(db, "source", {"id4": data["id4"], "v1": data["v1"],
+                        "v2": data["v2"],
+                        "v3": data["v3"].astype(np.float64)}, dev)
+    code, lanes, dp = capture_first(
+        "onehot_segment_sums", lambda: db.execute(QUERIES["q4"]))
+    if [x.dtype for x in lanes].count(torch.float64) != 1:
+        raise AssertionError(f"q4 with v3 a DOUBLE summed lanes of "
+                             f"{[x.dtype for x in lanes]}")
+    return code, tuple(lanes), dp
+
+
+def onehot_close(label: str, got, want, lanes) -> float:
+    """got against want, two [dp, k] outputs of onehot_segment_sums over
+    lanes: the integer and bool columns equal bit for bit; each float64
+    column (read through .view(torch.float64)) NaN where want is NaN,
+    equal where want is infinite or zero (signed zeros included), and its
+    finite sums within ONEHOT_F64_RTOL normwise of want's (the same
+    float64 adds in another order). Raises otherwise; returns the largest
+    normwise error (0 without a float64 lane)."""
+    f64 = [j for j, x in enumerate(lanes) if x.dtype == torch.float64]
+    ints = [j for j in range(len(lanes)) if j not in f64]
+    if ints and not torch.equal(got[:, ints], want[:, ints]):
+        raise AssertionError(f"onehot_segment_sums differs ({label}): max "
+                             f"|err| {max_abs_err(got[:, ints], want[:, ints])}")
+    err = 0.0
+    for j in f64:
+        g, w = got[:, j].view(torch.float64), want[:, j].view(torch.float64)
+        fin, nan = w.isfinite(), w.isnan()
+        inf, zero = ~fin & ~nan, w == 0
+        if not (torch.equal(g.isnan(), nan) and torch.equal(g[inf], w[inf])
+                and torch.equal(g[zero], w[zero])
+                and torch.equal(g[zero].signbit(), w[zero].signbit())):
+            raise AssertionError(f"onehot_segment_sums' float64 lane {j} "
+                                 f"differs in its NaNs, infinities or zeros "
+                                 f"({label})")
+        e = float((g[fin] - w[fin]).norm()
+                  / w[fin].norm().clamp_min(np.finfo(np.float64).tiny))
+        if not e <= ONEHOT_F64_RTOL:
+            raise AssertionError(f"onehot_segment_sums' float64 lane {j} "
+                                 f"{e:.3e} normwise from the plain version "
+                                 f"({label})")
+        err = max(err, e)
+    return err
+
+
+def onehot_library(code, lanes, dp):
+    """The library calls that compute onehot_segment_sums' function,
+    prepared outside any timing (the port calls none of them): one
+    index_add_ of the integer and bool lanes as an [n, k] int64 source and
+    one float64 index_add_ a float64 lane. Returns the call, which gives
+    the [dp, k] int64 output, float64 columns as their bits."""
+    code64 = code.to(torch.int64)
+    f64 = [j for j, x in enumerate(lanes) if x.dtype == torch.float64]
+    ints = [j for j in range(len(lanes)) if j not in f64]
+    src = torch.stack([lanes[j].to(torch.int64) for j in ints], 1)
+
+    def library():
+        out = torch.zeros(dp, len(lanes), dtype=torch.int64,
+                          device=code.device)
+        out[:, ints] = torch.zeros(dp, len(ints), dtype=torch.int64,
+                                   device=code.device).index_add_(
+            0, code64, src)
+        for j in f64:
+            out[:, j] = torch.zeros(dp, dtype=torch.float64,
+                                    device=code.device).index_add_(
+                0, code64, lanes[j]).view(torch.int64)
+        return out
+    return library
+
+
+def onehot_bytes(code, lanes, out) -> int:
+    """onehot_segment_sums' bytes: the codes and every lane read once,
+    the [dp, k] output written once."""
+    return (code.numel() * code.element_size()
+            + sum(x.numel() * x.element_size() for x in lanes)
+            + out.numel() * out.element_size())
+
+
 def route_line(dp, lanes, n) -> str:
     r = K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
     return (f"{'private' if r['private'] else 'shared'} route, "
@@ -799,6 +889,60 @@ def private_limit(dtypes) -> int:
     return dp
 
 
+def onehot_f64_cases(rng, dev, col, codes, x64, x32, b50, lanes):
+    """check_onehot's cases with float64 lanes, (label, code, lanes, dp)
+    each, q4's lanes with v3 a DOUBLE first; and the largest dp at which
+    those lanes take the private route. Float64 values are normal ones
+    scaled by 1e-3 to 1e6, so the sums cancel."""
+    def f64(n):
+        return col(rng.normal(size=n) * 10.0 ** rng.integers(-3, 7, n))
+    d = f64(CAP + 3)
+    q4d = (b50[:CAP], x32[:CAP], lanes[4], d[:CAP])
+    two = (x64[:CAP], x32[:CAP], d[:CAP], b50[:CAP], lanes[3], lanes[4],
+           d[3:CAP + 3], lanes[5])
+    cases = [(f"q4's lanes with v3 a DOUBLE, dp {dp}", codes[dp][:CAP], q4d,
+              dp) for dp in (11, 2, 101, 513)]
+    cases += [(f"8 lanes, two float64, dp {dp}", codes[dp][:CAP], two, dp)
+              for dp in (101, 513)]
+    dtypes = tuple(x.dtype for x in q4d)
+    lim = private_limit(dtypes)
+    for dp in (lim, lim + 1):
+        c = col(rng.integers(0, dp, CAP).astype(np.int32))
+        cases.append((f"q4's lanes with v3 a DOUBLE at dp {dp} "
+                      f"({'at' if dp == lim else 'one past'} the private "
+                      f"route's limit)", c, q4d, dp))
+    for dp, ls in ((11, q4d), (513, two)):
+        cases.append((f"every row in slot {dp - 2}, dp {dp}, float64",
+                      torch.full((CAP,), dp - 2, dtype=torch.int32,
+                                 device=dev), ls, dp))
+    for dp in (11, 101):
+        x = d[:CAP].clone()
+        c = codes[dp][:CAP]
+        rows = [torch.nonzero(c == s).squeeze(1) for s in range(6)]
+        x[rows[1]] = -0.0                              # a slot of -0.0 only
+        x[rows[2][:5]] = float("nan")
+        x[rows[3][:1]] = float("inf")
+        x[rows[4][:1]] = float("-inf")
+        x[rows[5][:2]] = torch.tensor([float("inf"), float("-inf")],
+                                      dtype=torch.float64, device=dev)
+        cases.append((f"NaN, ±inf, inf - inf and -0.0 slots, dp {dp}", c,
+                      q4d[:3] + (x,), dp))
+    n = CAP - 3
+    odd = (x32[1:n + 1], d[1:n + 1], b50[3:n + 3], x64[3:n + 3], d[3:n + 3])
+    for dp in (11, 101):
+        cases.append((f"float64 views at offsets 1 and 3, dp {dp}",
+                      codes[dp][1:n + 1], odd, dp))
+    for dp in (11, 101):
+        tile = K.onehot_route(dp, dtypes, CAP)["tile_rows"]
+        for n in (1, 15, 17, tile - 1, tile, tile + 1, 5 * tile + 123,
+                  CAP - 3):
+            for off in (0, 3):
+                cases.append((f"{n} rows at offset {off}, dp {dp}, float64",
+                              codes[dp][off:off + n],
+                              tuple(x[off:off + n] for x in q4d), dp))
+    return cases, lim
+
+
 def check_onehot(rng, dev, data):
     """onehot_segment_sums equal to its plain version (torch.equal) over
     dp 2, 11, 101, 513 with 6 mixed lanes; every row in one slot on each
@@ -806,8 +950,17 @@ def check_onehot(rng, dev, data):
     dp x k at the private route's limit and one past it; codes and lanes
     that are views at odd offsets; and 1, 15, 17, a tile - 1, a tile, a
     tile + 1 and five tiles + 123 rows on each route, aligned and not.
-    Then timed at the inputs the main path gives it at q1 q2 q4 q9 qjg, each
-    beside its route and the one index_add_ that computes the same sums."""
+    Float64 lanes, as onehot_close holds them (integer lanes exactly, the
+    float64 columns within ONEHOT_F64_RTOL normwise): q4's lanes with v3 a
+    DOUBLE (bool, int32, int32, float64) at dp 2, 11, 101 and 513, at the
+    private route's limit and one past it, and over the whole column
+    (each block of the persistent grid walks many tiles); 8 lanes with two
+    float64 at dp 101 and 513 (copies of a warp's own and shared by warps);
+    every row in one slot; NaN, ±inf and -0.0 slots; views at odd offsets;
+    the ragged row counts above and CAP - 3 at offsets 0 and 3. Then timed
+    at the inputs the main path gives it at q1 q2 q4 q9 qjg, and at q4's
+    with v3 a DOUBLE, each beside its route and the library calls that
+    compute the same sums (onehot_library)."""
     def col(a):
         return torch.from_numpy(a).to(dev)
     x64 = rng.integers(2**62 - 2**20, 2**62, CAP + 3)
@@ -867,26 +1020,33 @@ def check_onehot(rng, dev, data):
           f"({lim * len(q4)} entries): dp {lim} {route_line(lim, q4, CAP)}; "
           f"dp {lim + 1} {route_line(lim + 1, q4, CAP)}; the 8-lane NA mix "
           f"at dp 101: {route_line(101, na8, CAP)}", flush=True)
+    f64_cases, lim64 = onehot_f64_cases(rng, dev, col, codes, x64, x32, b50,
+                                        lanes)
+    err64 = 0.0
+    for label, code, ls, dp in f64_cases:
+        for rep in range(3):
+            err64 = max(err64, onehot_close(
+                f"{label}, run {rep}", K.onehot_segment_sums(code, ls, dp),
+                K.onehot_segment_sums_plain(code, ls, dp), ls))
+    q4d = f64_cases[0][2]
+    print(f"# onehot_segment_sums with float64 lanes as its plain version in "
+          f"{len(f64_cases)} cases, 3 runs each (integer lanes equal, "
+          f"float64 within {err64:.3e} normwise); q4's lanes with v3 a "
+          f"DOUBLE take the private route up to dp {lim64}: dp 11 "
+          f"{route_line(11, q4d, CAP)}; dp {lim64 + 1} "
+          f"{route_line(lim64 + 1, q4d, CAP)}", flush=True)
 
     timed = {}
-    for q, (code, ls, dp) in capture_onehot(dev, data).items():
+    inputs = capture_onehot(dev, data)
+    if sorted(inputs) != sorted(ONEHOT_SHAPES):
+        raise AssertionError(f"dense queries called onehot_segment_sums: "
+                             f"{sorted(inputs)}")
+    inputs["q4@float64"] = capture_q4_double(dev, data)
+    for q, (code, ls, dp) in inputs.items():
         got = K.onehot_segment_sums(code, ls, dp)
-        if not torch.equal(got, K.onehot_segment_sums_plain(code, ls, dp)):
-            raise AssertionError(f"onehot_segment_sums differs at {q}")
-        # the library call for the same function, prepared outside the
-        # timing: one index_add_ of an [n, k] int64 source (the port never
-        # calls it)
-        code64 = code.to(torch.int64)
-        src = torch.stack([x.to(torch.int64) for x in ls], 1)
-
-        def library():
-            return torch.zeros(dp, len(ls), dtype=torch.int64,
-                               device=dev).index_add_(0, code64, src)
-        if not torch.equal(library(), got):
-            raise AssertionError(f"index_add_ differs at {q}")
-        nbytes = (code.numel() * code.element_size()
-                  + sum(x.numel() * x.element_size() for x in ls)
-                  + got.numel() * got.element_size())
+        onehot_close(q, got, K.onehot_segment_sums_plain(code, ls, dp), ls)
+        library = onehot_library(code, ls, dp)
+        onehot_close(f"the library calls at {q}", library(), got, ls)
         kinds = ", ".join(str(x.dtype).removeprefix("torch.") for x in ls)
         print(f"# onehot_segment_sums at {q}: {code.numel()} rows, dp {dp}, "
               f"lanes ({kinds}): {route_line(dp, ls, code.numel())}",
@@ -894,19 +1054,19 @@ def check_onehot(rng, dev, data):
         timed[q] = time_shape(
             f"onehot_segment_sums at {q}'s inputs (dp {dp}, {len(ls)} "
             f"lanes)", lambda: K.onehot_segment_sums(code, ls, dp),
-            lambda: K.onehot_segment_sums_plain(code, ls, dp), nbytes)
+            lambda: K.onehot_segment_sums_plain(code, ls, dp),
+            onehot_bytes(code, ls, got))
         timed[q]["library_ms"] = cuda_ms(library)
         timed[q]["route"] = K.onehot_route(dp, tuple(x.dtype for x in ls),
                                            code.numel())
-        print(f"# index_add_ of the [n, {len(ls)}] int64 source at {q}: "
+        print(f"# the library calls (index_add_ of the integer lanes as an "
+              f"[n, k] int64 source, and of each float64 lane) at {q}: "
               f"{timed[q]['library_ms']:.4f} ms", flush=True)
-    if sorted(timed) != sorted(ONEHOT_SHAPES):
-        raise AssertionError(f"dense queries called onehot_segment_sums: "
-                             f"{sorted(timed)}")
     row = {k: timed["q9"][k] for k in ("ms", "ms_with_host", "plain_ms",
                                        "bound_ms", "share_of_bound",
                                        "library_ms")}
     row["shapes"] = list(timed.values())
+    row["float64_normwise_err"] = err64
     return err, row
 
 
@@ -3481,37 +3641,39 @@ def capture_first(name: str, run):
     return got[0]
 
 
-def kernel_at_1e8(name: str, args, rows: list[dict]) -> None:
-    """One kernel at a phase-12 query's inputs: equal to its plain
-    version (integers exactly), its device time (CUDA events, median of
-    10) beside the bound of its bytes, the plain version timed once (and
-    for onehot_segment_sums the one index_add_ that computes the same
-    sums), added to its row of the kernel report."""
+def kernel_at_1e8(name: str, args, rows: list[dict],
+                  query: str | None = None, key: str = "g1_1e8") -> None:
+    """One kernel at a phase-12 query's inputs (query, by default
+    KERNEL_AT_1E8's): equal to its plain version (integers exactly; a
+    float64 onehot lane as onehot_close holds it), its device time (CUDA
+    events, median of 10) beside the bound of its bytes, the plain
+    version timed once (and for onehot_segment_sums the library calls
+    that compute the same sums, onehot_library), added to its row of the
+    kernel report under key."""
+    query = query or KERNEL_AT_1E8[name]
     kernel = getattr(K, name)
     plain = getattr(K, name + "_plain")
     got, want = kernel(*args), plain(*args)
-    outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
-    wants = (want,) if isinstance(want, torch.Tensor) else tuple(want)
-    for g, w in zip(outs, wants):
-        if g.dtype != w.dtype or not torch.equal(g, w):
-            raise AssertionError(f"{name} at 1e8 differs from its plain "
-                                 f"version: max |err| {max_abs_err(g, w)}")
+    if name == "onehot_segment_sums":
+        onehot_close(f"{query} at 1e8", got, want, args[1])
+    else:
+        outs = (got,) if isinstance(got, torch.Tensor) else tuple(got)
+        wants = (want,) if isinstance(want, torch.Tensor) else tuple(want)
+        for g, w in zip(outs, wants):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                raise AssertionError(f"{name} at 1e8 differs from its plain "
+                                     f"version: max |err| "
+                                     f"{max_abs_err(g, w)}")
     if name == "onehot_segment_sums":
         code, lanes, dp = args
-        nbytes = (code.numel() * code.element_size() + sum(
-            x.numel() * x.element_size() for x in lanes)
-            + got.numel() * got.element_size())
-        code64 = code.to(torch.int64)
-        src = torch.stack([x.to(torch.int64) for x in lanes], 1)
-
-        def library():
-            return torch.zeros(dp, len(lanes), dtype=torch.int64,
-                               device=code.device).index_add_(0, code64, src)
-        if not torch.equal(library(), got):
-            raise AssertionError("index_add_ differs at 1e8")
+        nbytes = onehot_bytes(code, lanes, got)
+        library = onehot_library(code, lanes, dp)
+        onehot_close(f"the library calls at {query} at 1e8", library(), got,
+                     lanes)
         lib_ms = cuda_ms(library, reps=3)
-        del src, code64
-        shape, n = f"dp {dp}, {len(lanes)} lanes", code.numel()
+        del library
+        kinds = ", ".join(str(x.dtype).removeprefix("torch.") for x in lanes)
+        shape, n = f"dp {dp}, {len(lanes)} lanes ({kinds})", code.numel()
     else:
         f, xs = args[0], args[1] if name == "seg_scan_multi" else (args[1],)
         nbytes = scan_bytes(f, xs)
@@ -3521,14 +3683,16 @@ def kernel_at_1e8(name: str, args, rows: list[dict]) -> None:
     ms, pms = cuda_ms(lambda: kernel(*args)), cuda_ms(lambda: plain(*args),
                                                       reps=1)
     b = bound_ms(nbytes)
-    at = {"query": KERNEL_AT_1E8[name], "shape": shape, "rows": n,
+    at = {"query": query, "shape": shape, "rows": n,
           "ms": ms, "plain_ms": pms, "bytes": nbytes, "bound_ms": b,
           "share_of_bound": b / ms, "library_ms": lib_ms}
-    next(r for r in rows if r["name"] == name)["g1_1e8"] = at
-    print(f"# {name} at {at['query']}'s inputs at 1e8 ({shape}, {n} rows): "
+    if name == "onehot_segment_sums":
+        at["route"] = K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
+    next(r for r in rows if r["name"] == name)[key] = at
+    print(f"# {name} at {query}'s inputs at 1e8 ({shape}, {n} rows): "
           f"equal to its plain version; kernel {ms:.4f} ms (median of 10), "
           f"plain {pms:.4f} ms (one run)"
-          + ("" if lib_ms is None else f", index_add_ {lib_ms:.4f} ms")
+          + ("" if lib_ms is None else f", the library calls {lib_ms:.4f} ms")
           + f"; {nbytes} bytes, bound {b:.4f} ms at 3.35 TB/s, "
           f"{b / ms:.1%} of bound", flush=True)
 
@@ -3542,7 +3706,9 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
     float_sums_fit decisions printed (q10's 3 words and 2 sorts
     asserted), the device memory peak over its runs, its answer against
     the numpy oracle and the oracle's seconds; then each kernel at its
-    query's inputs (KERNEL_AT_1E8). Returns the launches."""
+    query's inputs (KERNEL_AT_1E8), and onehot_segment_sums at q4's with
+    v3 a DOUBLE (capture_q4_double: its float64 lane). Returns the
+    launches."""
     t_start = time.perf_counter()
     data = h2o_g1(ROWS_1E8, K_GROUPS, SEED)
     dim = h2o_dim(ROWS_1E8, K_GROUPS, SEED)
@@ -3613,6 +3779,10 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
         args = capture_first(name, lambda: db.execute(QUERIES[q]))
         kernel_at_1e8(name, args, rows)
         del args
+    args = capture_q4_double(dev, data)
+    kernel_at_1e8("onehot_segment_sums", args, rows, "q4@float64",
+                  "g1_1e8_q4_float64")
+    del args
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     print(f"# phase 12 took {time.perf_counter() - t_start:.1f} s; the "
           f"process's peak RSS {rss:.2f} GiB", flush=True)

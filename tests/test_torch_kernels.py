@@ -17,6 +17,7 @@ from aquery2_tpu.ops import pallas_kernels as PK
 from aquery2_tpu.ops import reduce as JR
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import scan as S
+import torch_onehot_cases as C
 
 _MASK64 = (1 << 64) - 1
 
@@ -441,6 +442,30 @@ def test_onehot_segment_sums_wraps_like_int64():
     np.testing.assert_array_equal(got[:, 0].numpy(),
                                   _add_at(code.numpy(), big.numpy(), 2))
     assert got[0, 0] == 2**62 * 3 - 2**64 and got[1, 0] == -2**63
+
+
+@pytest.mark.parametrize("k,place", C.F64_PLACES)
+@pytest.mark.parametrize("dp", C.F64_DPS)
+def test_onehot_segment_sums_float64_lane(dp, k, place, rng):
+    """A float64 lane at the first, a middle or the last of 1, 6 and 8
+    lanes: its column, read as float64, within 1e-12 normwise of each
+    slot's math.fsum; every integer and bool lane equal bit for bit to an
+    integer-only call's column and to np.add.at."""
+    n = 4099
+    code = torch.from_numpy(rng.integers(0, dp, n).astype(np.int32))
+    lanes = C.f64_lanes(rng, n, k, place)
+    got = K.onehot_segment_sums(code, lanes, dp)
+    assert got.dtype == torch.int64 and tuple(got.shape) == (dp, k)
+    f = got[:, place].view(torch.float64)
+    assert C.normwise_error(f, C.fsum_slots(code, lanes[place], dp)) \
+        <= C.F64_RTOL
+    ints = [j for j in range(k) if j != place]
+    if ints:
+        alone = K.onehot_segment_sums(code, tuple(lanes[j] for j in ints), dp)
+        assert torch.equal(got[:, ints], alone)
+    for j in ints:
+        np.testing.assert_array_equal(
+            got[:, j].numpy(), _add_at(code.numpy(), lanes[j].numpy(), dp))
 
 
 def test_onehot_segment_sums_checks_inputs():

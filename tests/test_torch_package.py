@@ -19,6 +19,7 @@ import aquery2_tpu_torch
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.parser import parse as tparse
 from bench import QUERIES
+import torch_onehot_cases as C
 
 PKG = pathlib.Path(aquery2_tpu_torch.__file__).parent
 
@@ -162,10 +163,13 @@ def test_ptxas_report_names_the_scans(tmp_path, monkeypatch):
 
 
 def test_ptxas_report_names_onehot_routes():
-    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi5ELb1EEEvNS_6Params"
-                          "E") == "onehot_segment_sums 5 lanes, private"
-    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi8ELb0EEEvNS_6Params"
-                          "E") == "onehot_segment_sums 8 lanes, shared"
+    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi5ELb1ELb0EEEvNS_6Para"
+                          "msE") == "onehot_segment_sums 5 lanes, private"
+    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi8ELb0ELb0EEEvNS_6Para"
+                          "msE") == "onehot_segment_sums 8 lanes, shared"
+    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi6ELb0ELb1EEEvNS_6Para"
+                          "msE") == ("onehot_segment_sums 6 lanes, shared, "
+                                     "float64")
 
 
 def test_lookback_diag_summarizes_tile_records():
@@ -402,6 +406,255 @@ def test_kernels_match_plain_on_card(case):
                 assert int(ok.sum()) == (late if nan else n)
                 assert bool(((got[0].double() - exact).abs()[ok]
                              <= 1e-5 * scale[ok]).all()), (n, off)
+
+
+def _f64_check(code, lanes, dp, got, place):
+    """got (a call's [dp, k] output) against the plain version: the float64
+    lane at place within C.F64_RTOL normwise of each slot's math.fsum,
+    with the plain version's NaNs, infinities and signed zeros where its
+    sums are not finite or zero; every other lane equal bit for bit to an
+    integer-only plain call over the rows whose code is in [0, dp)."""
+    ok = (code >= 0) & (code < dp)
+    c, ls = code[ok], tuple(x[ok] for x in lanes)
+    want = K.onehot_segment_sums_plain(c, ls, dp)[:, place].view(torch.float64)
+    f = got[:, place].view(torch.float64)
+    assert torch.equal(f.isnan(), want.isnan()), (f, want)
+    fin = want.isfinite()
+    assert torch.equal(f[~fin & ~want.isnan()], want[~fin & ~want.isnan()])
+    assert torch.equal(f[want == 0].signbit(), want[want == 0].signbit())
+    if bool(ls[place].isfinite().all()):
+        assert C.normwise_error(f, C.fsum_slots(c, ls[place], dp)) \
+            <= C.F64_RTOL, (dp, len(lanes), place)
+    else:
+        assert C.normwise_error(f[fin], want[fin].cpu().numpy()) \
+            <= C.F64_RTOL
+    ints = [j for j in range(len(lanes)) if j != place]
+    if ints:
+        assert torch.equal(got[:, ints], K.onehot_segment_sums_plain(
+            c, tuple(ls[j] for j in ints), dp))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,place", C.F64_PLACES)
+@pytest.mark.parametrize("dp", C.F64_DPS)
+def test_onehot_float64_lane_on_card(dp, k, place):
+    """The kernel with a float64 lane at the first, a middle or the last of
+    1, 6 and 8 lanes, over five tiles and 123 rows, at dp 2, 11 (private
+    route), 101 and 513 (shared route; copies of its own for each warp or
+    shared by warps): the float64 column within 1e-12 normwise of each
+    slot's math.fsum, the integer and bool lanes bit for bit as an
+    integer-only call gives them; ONEHOT_LANES counts each lane's dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(dp * 100 + k * 10 + place)
+    dev = torch.device("cuda")
+    cpu = C.f64_lanes(rng, 1, k, place)
+    tile = K.onehot_route(dp, tuple(x.dtype for x in cpu), 1 << 20)[
+        "tile_rows"]
+    n = 5 * tile + 123
+    code = torch.from_numpy(rng.integers(0, dp, n).astype(np.int32)).to(dev)
+    lanes = tuple(x.to(dev) for x in C.f64_lanes(rng, n, k, place))
+    before = dict(K.ONEHOT_LANES)
+    got = K.onehot_segment_sums(code, lanes, dp)
+    counted = {d: K.ONEHOT_LANES[d] - before[d] for d in before}
+    assert counted == {d: sum(str(x.dtype) == "torch." + d for x in lanes)
+                       for d in before}
+    _f64_check(code, lanes, dp, got, place)
+
+
+# The integer-only routes of the dense tier's lanes at G1_1e8's 100,663,296
+# rows as the kernel planned them before it took float64 lanes (on an
+# NVIDIA H100 80GB HBM3): private, copies, threads, blocks, tile rows,
+# shared memory, blocks an SM holds, stage bytes.
+_INT_LANES = {
+    "q1": (11, (torch.bool, torch.int32)),
+    "q2": (101, (torch.bool, torch.int32)),
+    "q4": (11, (torch.bool, torch.int32, torch.int32)),
+    "q9": (101, (torch.bool, torch.int32, torch.int32) + (torch.int64,) * 3),
+    "na8_dp513": (513, _NA8_LANES),
+}
+_INT_ROUTES = {
+    "q1": (1, 256, 256, 264, 3072, 100448, 2, 27696),
+    "q2": (0, 1, 256, 528, 3072, 57008, 4, 27696),
+    "q4": (1, 256, 256, 132, 2048, 120960, 1, 26688),
+    "q9": (0, 8, 256, 264, 1024, 114784, 2, 38000),
+    "na8_dp513": (0, 1, 256, 264, 1024, 98656, 2, 32912),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["views", "ragged", "one_slot", "specials",
+                                  "out_of_range", "routes", "int_only",
+                                  "many_tiles"])
+def test_onehot_float64_edges_on_card(case):
+    """The float64 lane's edges on the card, each against the plain
+    version as _f64_check holds it: views (the codes at element offsets 1
+    and 3, the float64 lane at 1 and 3, 8 and 24 bytes: 8-byte aligned,
+    not 16); ragged n (1, 1,023, 1,025, five tiles and 123); every row in
+    one slot (a warp's 32 lanes in one group); NaN, ±inf, +inf with -inf
+    in one slot, and a slot of -0.0 only; codes outside [0, dp) dropped;
+    both routes with the float64 lane, the private route's last dp and one
+    past it, and the shared route's copies of a warp's own and shared by
+    warps; an integer-only call's route as before float64 lanes existed
+    and its output as the plain version's; and rows enough that each block
+    of the persistent grid walks four tiles and more, staged two at a time
+    (q4's lanes and 8 lanes on both routes, and q4's at element offset 1)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(7 + len(case))
+    dev = torch.device("cuda")
+    q4 = (torch.bool, torch.int32, torch.int32, torch.float64)
+
+    def lanes_of(dtypes, n):
+        place = dtypes.index(torch.float64)
+        k = len(dtypes)
+        got = C.f64_lanes(rng, n, k, place)
+        return tuple(x.to(dev) for x in got), place
+
+    def run(dp, dtypes, n, code=None, edit=None):
+        lanes, place = lanes_of(dtypes, n)
+        if code is None:
+            code = torch.from_numpy(
+                rng.integers(0, dp, n).astype(np.int32)).to(dev)
+        if edit is not None:
+            lanes = edit(code, lanes, place)
+        _f64_check(code, lanes, dp,
+                   K.onehot_segment_sums(code, lanes, dp), place)
+
+    eight = (torch.int64, torch.int32, torch.bool, torch.float64,
+             torch.int64, torch.int32, torch.bool, torch.int64)
+    if case == "views":
+        for dp in (11, 101):
+            n = 3 * K.onehot_route(dp, q4, 1 << 20)["tile_rows"] + 5
+            base, place = lanes_of(q4, n + 3)
+            code = torch.from_numpy(
+                rng.integers(0, dp, n + 3).astype(np.int32)).to(dev)
+            for off in (1, 3):
+                c = code[off:off + n]
+                ls = tuple(x[(off + j) % 4:(off + j) % 4 + n]
+                           for j, x in enumerate(base))
+                ls = ls[:place] + (base[place][off:off + n],) + ls[place + 1:]
+                assert ls[place].data_ptr() % 16 == 8
+                _f64_check(c, ls, dp, K.onehot_segment_sums(c, ls, dp), place)
+    elif case == "ragged":
+        for dtypes in (q4, eight):
+            for dp in (11, 101):
+                tile = K.onehot_route(dp, dtypes, 1 << 20)["tile_rows"]
+                for n in (1, 1023, 1025, 5 * tile + 123):
+                    run(dp, dtypes, n)
+    elif case == "one_slot":
+        for dp in (11, 101, 513):
+            for dtypes in (q4, eight):
+                n = 40_000
+                run(dp, dtypes, n, code=torch.full((n,), dp - 1,
+                                                   dtype=torch.int32,
+                                                   device=dev))
+    elif case == "specials":
+        def specials(code, lanes, place):
+            x = lanes[place].clone()
+            rows = {s: torch.nonzero(code == s).squeeze(1) for s in range(6)}
+            x[rows[1]] = -0.0                       # a slot of -0.0 only
+            x[rows[2][0]] = float("nan")
+            x[rows[3][0]] = float("inf")
+            x[rows[4][0]] = float("-inf")
+            x[rows[5][:2]] = torch.tensor([float("inf"), float("-inf")],
+                                          dtype=torch.float64, device=dev)
+            return lanes[:place] + (x,) + lanes[place + 1:]
+        for dp in (11, 101):
+            for dtypes in (q4, eight):
+                run(dp, dtypes, 30_000, edit=specials)
+    elif case == "out_of_range":
+        for dp in (11, 101):
+            n = 30_000
+            code = torch.from_numpy(
+                rng.integers(0, dp, n).astype(np.int32)).to(dev)
+            bad = torch.from_numpy(rng.random(n) < 0.1).to(dev)
+            junk = torch.tensor([-5, -1, dp, dp + 7, 2**31 - 1],
+                                dtype=torch.int32, device=dev)
+            code[bad] = junk[torch.arange(int(bad.sum()), device=dev) % 5]
+            for dtypes in (q4, eight):
+                run(dp, dtypes, n, code=code)
+    elif case == "routes":
+        lim = 1
+        while K.onehot_route(lim + 1, q4, 1 << 20)["private"]:
+            lim += 1
+        copies = set()
+        for dtypes in (q4, eight):
+            # a float64 entry is 8 bytes like an int64 one, so the route is
+            # the int64 lane's; a private block that holds its SM alone
+            # takes larger tiles
+            ints = tuple(torch.int64 if d == torch.float64 else d
+                         for d in dtypes)
+            for dp in (11, 101, lim, lim + 1, 513):
+                route = K.onehot_route(dp, dtypes, 1 << 20)
+                same = K.onehot_route(dp, ints, 1 << 20)
+                assert route["private"] == same["private"]
+                assert route["tile_rows"] >= same["tile_rows"]
+                assert route["private"] == (dp <= lim) or dtypes == eight
+                if not route["private"]:
+                    copies.add(route["copies"])
+                run(dp, dtypes, 3 * route["tile_rows"] + 77)
+        assert 8 in copies and min(copies) < 8, copies
+        assert K.onehot_route(11, q4, 1 << 20)["tile_rows"] == 3072
+    elif case == "many_tiles":
+        for dtypes in (q4, eight):
+            for dp in (11, 101, 513):
+                r = K.onehot_route(dp, dtypes, 1 << 26)
+                run(dp, dtypes, 4 * r["blocks"] * r["tile_rows"] + 123)
+        r = K.onehot_route(11, q4, 1 << 26)
+        n = 4 * r["blocks"] * r["tile_rows"] + 77
+        base, place = lanes_of(q4, n + 1)
+        code = torch.from_numpy(
+            rng.integers(0, 11, n + 1).astype(np.int32)).to(dev)
+        c, ls = code[1:], tuple(x[1:] for x in base)
+        assert ls[place].data_ptr() % 16 == 8
+        _f64_check(c, ls, 11, K.onehot_segment_sums(c, ls, 11), place)
+    else:
+        n = 100_663_296
+        for name, (dp, dtypes) in _INT_LANES.items():
+            assert tuple(K.onehot_route(dp, dtypes, n).values()) == \
+                _INT_ROUTES[name], name
+            m = 3 * K.onehot_route(dp, dtypes, 1 << 20)["tile_rows"] + 9
+            code = torch.from_numpy(
+                rng.integers(0, dp, m).astype(np.int32)).to(dev)
+            ls = tuple(torch.from_numpy(
+                rng.random(m) < 0.5 if dt == torch.bool
+                else rng.integers(-2**62, 2**62, m) if dt == torch.int64
+                else rng.integers(-2**31, 2**31 - 1, m).astype(np.int32)
+            ).to(dev) for dt in dtypes)
+            assert torch.equal(K.onehot_segment_sums(code, ls, dp),
+                               K.onehot_segment_sums_plain(code, ls, dp))
+
+
+@pytest.mark.gpu
+def test_dense_q4_sums_its_double_in_the_kernel_on_card():
+    """G1's q4 (avg of v1, v2 and a DOUBLE v3 by id4) on the card at 2e5
+    rows: one onehot_segment_sums launch with one float64 lane, and the
+    averages equal to the CPU session's (v1, v2 exactly; v3 within 1e-12,
+    its float64 adds in another order)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import h2o_g1
+
+    src = h2o_g1(200_000, 10, 5)
+    src["v3"] = src["v3"].astype(np.float64)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        db = aquery2_tpu_torch.connect(device=dev)
+        db.catalog.create(Table.from_numpy("source", src, device=dev))
+        launches = K.LAUNCHES["onehot_segment_sums"]
+        f64 = K.ONEHOT_LANES["float64"]
+        got[dev] = db.execute(QUERIES["q4"]).table.columns
+        if dev == "cuda":
+            assert K.LAUNCHES["onehot_segment_sums"] - launches == 1
+            assert K.ONEHOT_LANES["float64"] - f64 == 1
+    for nm, col in got["cpu"].items():
+        want, have = col.to_numpy(), got["cuda"][nm].to_numpy()
+        if nm == "v3":
+            np.testing.assert_allclose(have, want, rtol=1e-12, atol=0)
+        else:
+            np.testing.assert_array_equal(have, want, err_msg=nm)
 
 
 @pytest.mark.gpu

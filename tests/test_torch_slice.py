@@ -26,6 +26,7 @@ import aquery2_tpu_torch
 import chip_smoke
 from aquery2_tpu_torch.engine import fused_groupby as TF
 from aquery2_tpu_torch.ops import kernels as K
+from aquery2_tpu_torch.ops import reduce as TR
 from aquery2_tpu_torch.ops.sort import sort_perm as tsort_perm
 from aquery2_tpu_torch.parser import parse as tparse
 from aquery2_tpu_torch.storage.table import Table as TTable
@@ -385,3 +386,61 @@ def test_median_of_zeros_and_nan_matches_jax(keys):
     want = np.asarray(jr.table.columns["m"].data)[:jr.nrows]
     np.testing.assert_array_equal(tr.table.columns["m"].to_numpy(), want)
     np.testing.assert_array_equal(want, [0.0, 1.0, np.nan, -0.0, 1.25])
+
+
+class _CodeCasts(torch.overrides.TorchFunctionMode):
+    """Counts the int64 tensors made from one tensor (its casts)."""
+
+    def __init__(self, code):
+        super().__init__()
+        self.code, self.int64 = code, 0
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if (args and args[0] is self.code and isinstance(out, torch.Tensor)
+                and out.dtype == torch.int64):
+            self.int64 += 1
+        return out
+
+
+@pytest.mark.parametrize("extremes", [False, True])
+def test_segment_reduce_sums_float64_lanes_with_the_add_lanes(extremes, rng):
+    """segment_reduce's float64 lanes ride the add lanes' onehot_segment_sums
+    calls (9 lanes: two calls): each within 1e-12 normwise of the sums
+    index_add_ gave, min and max as scatter_reduce_ gives them, the add
+    lanes exactly; an int64 copy of the codes is made only for min or
+    max lanes."""
+    n, domain = 5000, 10
+    code = torch.from_numpy(rng.integers(0, domain + 1, n).astype(np.int32))
+    add = {"__counts__": torch.from_numpy(rng.random(n) < 0.9),
+           **{f"a{i}": torch.from_numpy(rng.integers(-9, 9, n))
+              for i in range(5)}}
+    f64 = {f"f{i}": torch.from_numpy(rng.normal(size=n) * 1e4)
+           for i in range(3)}
+    x = torch.from_numpy(rng.integers(-99, 99, n).astype(np.int32))
+    mins, maxs = ({"mn": x}, {"mx": x}) if extremes else ({}, {})
+    calls = []
+    real = K.onehot_segment_sums
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(K, "onehot_segment_sums",
+                   lambda c, ls, dp: calls.append(len(ls)) or real(c, ls, dp))
+        with _CodeCasts(code) as casts:
+            outs = TR.segment_reduce(code, add, mins, maxs, f64, domain)
+    assert calls == [8, 1]
+    assert casts.int64 == (1 if extremes else 0)
+    idx = code.to(torch.int64)
+    for t, col in f64.items():
+        old = torch.zeros(domain + 1, dtype=torch.float64).index_add_(
+            0, idx, col)
+        assert outs[t].dtype == torch.float64
+        assert float((outs[t] - old).norm() / old.norm()) <= 1e-12, t
+    for t, col in add.items():
+        assert torch.equal(outs[t], torch.zeros(
+            domain + 1, dtype=torch.int64).index_add_(0, idx, col.long()))
+    if extremes:
+        assert torch.equal(outs["mn"], torch.full(
+            (domain + 1,), 2**31 - 1, dtype=torch.int32).scatter_reduce_(
+                0, idx, x, "amin"))
+        assert torch.equal(outs["mx"], torch.full(
+            (domain + 1,), -2**31, dtype=torch.int32).scatter_reduce_(
+                0, idx, x, "amax"))

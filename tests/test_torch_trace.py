@@ -11,6 +11,7 @@ import torch
 import aquery2_tpu_torch
 import chip_smoke
 from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.repl.prompt import Repl
 from aquery2_tpu_torch.runtime import stats
 from aquery2_tpu_torch.storage.table import Table
@@ -173,3 +174,27 @@ def test_repl_stats_prints_and_resets_the_counters(db, capsys):
     db.execute(DENSE)
     assert not st.tier_runs and not st.syncs_by_site
     r.handle_line("stats on")
+
+
+def test_repl_stats_prints_kernel_launches_and_onehot_lanes(db, capsys,
+                                                           monkeypatch):
+    """`stats` prints the process's kernel launches and the onehot lanes
+    they summed by dtype, when any launched (CPU tensors launch none), and
+    `stats reset` clears them with the session's counters."""
+    r = Repl(db)
+    capsys.readouterr()
+    r.handle_line("stats")
+    assert "Kernel launches" not in capsys.readouterr().out
+    monkeypatch.setattr(K, "LAUNCHES", {"seg_cumsum_i64": 0,
+                                        "onehot_segment_sums": 3})
+    monkeypatch.setattr(K, "ONEHOT_LANES", {"int64": 0, "int32": 4,
+                                            "bool": 3, "float64": 1})
+    r.handle_line("stats")
+    out = capsys.readouterr().out
+    assert "Kernel launches:  onehot_segment_sums=3\n" in out
+    assert "Onehot lanes:     int32=4, bool=3, float64=1\n" in out
+    r.handle_line("stats reset")
+    r.handle_line("stats")
+    out = capsys.readouterr().out
+    assert "Kernel launches" not in out and "Onehot lanes" not in out
+    assert not any(K.LAUNCHES.values()) and not any(K.ONEHOT_LANES.values())
