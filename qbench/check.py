@@ -84,21 +84,23 @@ def permute_ragged(values: torch.Tensor, offsets: torch.Tensor,
 
 
 def _ordered(ans: Answer, keys: list[str]) -> Answer:
-    """ans with its rows ordered by its key columns."""
+    """ans with its rows ordered by its key columns, in place: each
+    column is replaced as it is permuted, so that a large answer stands
+    on the device once, not twice."""
     if not keys or ans.nrows <= 1:
         return ans
     n = ans.nrows
     dev = next(iter(ans.columns.values())).device
     perm = lexsort([ans.columns[k] for k in keys], n, dev)
-    cols, offs = {}, {}
-    for name, col in ans.columns.items():
+    for name in list(ans.columns):
         if name in ans.offsets:
-            cols[name], offs[name] = permute_ragged(col, ans.offsets[name],
-                                                    perm)
+            ans.columns[name], ans.offsets[name] = permute_ragged(
+                ans.columns[name], ans.offsets[name], perm)
         else:
-            cols[name] = col[perm]
-    valid = {k: v[perm] for k, v in ans.valid.items()}
-    return Answer(cols, ans.keys, ans.floats, valid, offs)
+            ans.columns[name] = ans.columns[name][perm]
+    for name in list(ans.valid):
+        ans.valid[name] = ans.valid[name][perm]
+    return ans
 
 
 def _cells(got: torch.Tensor, want: torch.Tensor, gv, wv) -> int:

@@ -20,6 +20,13 @@ copied to the host; the window's clock stops for the copy.
 After the window (the program's state freed): the generator makes the
 same tables again, the reference computes each sampled query's answer,
 and ``check.compare`` holds the program's to it.
+
+A cell of more than one chip runs this same function on each rank of a
+mesh session (``world``, from ``ranks.py``): each rank places every
+table, the ranks open the window together and go on or stop after each
+whole mix as rank 0 decides, rank 0's clock times the queries and its
+copy of the sampled answers is checked; the readings of the device are
+combined over the ranks.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import json
 import sys
 import time
 import warnings
+from collections.abc import Mapping
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -127,20 +135,51 @@ def find_cell(name: str, manifest: dict | None = None,
 # the program's side: load, run, copy answers out
 # ---------------------------------------------------------------------- #
 
+class HandOver(Mapping):
+    """A table's columns, each handed over once: ``items()`` takes each
+    out of cols as it yields it, so that ``Table.from_numpy`` frees a
+    generator column as soon as it has made its padded copy, and the
+    whole table stands on the device once, not twice."""
+
+    def __init__(self, cols: dict) -> None:
+        self._cols = cols
+
+    def __getitem__(self, name):
+        return self._cols[name]
+
+    def __iter__(self):
+        return iter(list(self._cols))
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+    def items(self):
+        while self._cols:
+            name = next(iter(self._cols))
+            yield name, self._cols.pop(name)
+
+
 class Program:
     """The session under test, with its tables loaded from the
     generator's tensors (string columns as dictionaries the harness
     makes, one a column, or one for the columns of a name that the
     generator's ``SHARED`` lists; ``strings`` keeps, by dictionary, the
-    integer of each code)."""
+    integer of each code). With a ``world`` (ranks.World), the session is
+    that rank's of a mesh session, and each table is placed once made,
+    the whole columns freed before the next table, so that only this
+    rank's blocks stay; each generator column is freed as soon as the
+    table holds its copy (``HandOver``)."""
 
-    def __init__(self, cell: Cell, seed: int, device: torch.device) -> None:
+    def __init__(self, cell: Cell, seed: int, device: torch.device,
+                 world=None) -> None:
         import aquery2_tpu_torch as aq
         from aquery2_tpu_torch import types as T
         from aquery2_tpu_torch.storage.table import StringDict, Table
 
         self.device = device
-        self.db = aq.connect(device=device)
+        self.world = world
+        self.db = aq.connect(device=device, **(
+            world.connect_args() if world is not None else {}))
         self.db.log_level = "silent"
         gen = load_module("generators", cell.config["generator"])
         sql_type = {torch.int32: T.IntT, torch.int64: T.LongT,
@@ -171,10 +210,13 @@ class Program:
             cols = tables.pop(tname)
             for cname, t in cols.items():
                 types[tname].setdefault(cname, sql_type[t.dtype])
-            self.db.catalog.create(Table.from_numpy(
-                tname, cols, types[tname], device=device,
-                dictionaries=dicts[tname]))
-            del cols
+            tbl = Table.from_numpy(
+                tname, cols if world is None else HandOver(cols),
+                types[tname], device=device, dictionaries=dicts[tname])
+            self.db.catalog.create(tbl)
+            if world is not None:
+                self.db.place_table(tbl)
+            del cols, tbl
         self.sync()
 
     def sync(self) -> None:
@@ -198,6 +240,18 @@ class Program:
         with _span(spans, f"{q.name}.sync"):
             self.sync()
         return answer
+
+    def copy_out(self, table):
+        """host_copy of an answer. On a mesh every rank makes it whole
+        (``Session.readable``, a collective where it is placed), rank 0
+        alone copies it, and the others wait for it here, inside the
+        pause, not in the next query's first collective."""
+        if self.world is None:
+            return host_copy(table)
+        table = self.db.readable(table)
+        copy = host_copy(table) if self.world.rank == 0 else None
+        self.world.barrier()
+        return copy
 
     def close(self) -> None:
         self.db.close()
@@ -355,14 +409,17 @@ def closed_loop(program: Program, cell: Cell, seconds: float,
     """One client, the mix in order, no think time, whole mixes until
     seconds have passed (and at least MIN_CYCLES mixes), so that every
     query of the mix weighs alike in the rate and the percentiles; the
-    clock stops while a sampled answer is copied to the host."""
+    clock stops while a sampled answer is copied to the host. On a mesh
+    rank 0's clock decides after each whole mix for every rank, and a
+    query that raises ends the run: the other ranks wait in its
+    collectives."""
     on_card = program.device.type == "cuda"
     out = Loop([], [], 0, 0, 0.0, 0, {})
     runs = {q.name: 0 for q in cell.queries}
     paused = 0.0
     t0 = time.perf_counter()
-    while (time.perf_counter() - t0 - paused < seconds
-           or out.cycles < MIN_CYCLES):
+    while _go_on(time.perf_counter() - t0 - paused < seconds
+                 or out.cycles < MIN_CYCLES, program.world):
         for q in cell.queries:
             keep = runs[q.name] == sample_at[q.name]
             runs[q.name] += 1
@@ -375,6 +432,8 @@ def closed_loop(program: Program, cell: Cell, seconds: float,
                     ans = program.run(q, keep, traced, traced and on_card)
             except Exception as exc:        # counted, and not correct
                 out.errors.append(f"{q.name}: {exc!r}"[:500])
+                if program.world is not None:
+                    raise
                 program.sync()
                 continue
             t2 = time.perf_counter()
@@ -382,12 +441,18 @@ def closed_loop(program: Program, cell: Cell, seconds: float,
             out.rows += q.input_rows
             if keep:
                 with _span(traced, "sample_copy"):
-                    out.answers[q.name] = host_copy(ans)
+                    out.answers[q.name] = program.copy_out(ans)
                 paused += time.perf_counter() - t2
             del ans
         out.cycles += 1
     out.window_s = time.perf_counter() - t0 - paused
     return out
+
+
+def _go_on(go: bool, world) -> bool:
+    """go, or on a mesh rank 0's go on every rank: one broadcast a whole
+    mix, outside every query's latency."""
+    return go if world is None else world.agree(go)
 
 
 def end_to_end(loop: Loop, peak_bytes: int, setup_s: float) -> dict:
@@ -400,16 +465,26 @@ def end_to_end(loop: Loop, peak_bytes: int, setup_s: float) -> dict:
             "peak_mem_gib": peak_bytes / GIB, "setup_s": setup_s}
 
 
+def memory_peak(device: torch.device) -> int:
+    """The device's memory peak since its last reset, bytes (0 off a
+    card)."""
+    return (torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else 0)
+
+
 def run(cell: Cell, seed: int, seconds: float, traced: bool,
-        device: torch.device, t_start: float, log=None) -> dict:
-    """One run of cell; returns the result line's object."""
+        device: torch.device, t_start: float, log=None,
+        world=None) -> dict | None:
+    """One run of cell; returns the result line's object. With a world
+    (ranks.World), this rank's part of the run: rank 0 returns the
+    result line's object, every other rank None."""
     log = log or (lambda msg: print(msg, file=sys.stderr, flush=True))
     on_card = device.type == "cuda"
     if on_card:
         from aquery2_tpu_torch.ops import kernels as K
         K.build()
         log(f"# kernels loaded ({time.perf_counter() - t_start:.1f} s)")
-    program = Program(cell, seed, device)
+    program = Program(cell, seed, device, world)
     log(f"# tables made and loaded ({time.perf_counter() - t_start:.1f} s)")
     for _ in range(WARMUP_CYCLES):
         for q in cell.queries:
@@ -417,7 +492,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     rng = np.random.default_rng(seed)
     sample_at = {q.name: int(rng.integers(0, MIN_CYCLES))
                  for q in cell.queries}
-    setup_peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    setup_peak = memory_peak(device)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     parse0 = program.db.stats.parse_time
@@ -426,6 +501,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         torch.profiler.ProfilerActivity.CPU] + (
         [torch.profiler.ProfilerActivity.CUDA] if on_card else []))
         if traced else contextlib.nullcontext())
+    if world is not None:
+        world.barrier()                 # the ranks open the window together
     setup_s = time.perf_counter() - t_start
     log(f"# warmed up; the window opens ({setup_s:.1f} s)")
     with warnings.catch_warnings(record=True) as caught, prof:
@@ -433,7 +510,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         with instrumented(program, window.kernel_calls, traced) as current:
             loop = closed_loop(program, cell, seconds, sample_at, traced,
                                current)
-    peak = torch.cuda.max_memory_allocated(device) if on_card else 0
+    peak = memory_peak(device)
     window.syncs = sum(1 for w in caught if "synchroniz" in str(w.message))
     window.queries = len(loop.latencies)
     window.parse_s = program.db.stats.parse_time - parse0
@@ -441,6 +518,8 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     window.hbm_bytes_per_s = roofline.HBM_BYTES_PER_S.get(name)
     if traced:
         trace.read_profile(prof, window)
+    if world is not None:
+        peak, setup_peak = world.combine(peak, setup_peak, window)
     log(f"# the window closed: {window.queries} queries in "
         f"{loop.window_s:.3f} s ({loop.cycles} whole mixes), "
         f"{len(loop.errors)} failed")
@@ -474,6 +553,10 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
+    if world is not None:
+        world.barrier()                 # every rank's state is freed
+        if world.rank:
+            return None
     checks = reference_checks(cell, seed, device, loop.answers, strings, fmt,
                               log)
     correct = not loop.errors and all(v <= lim for v, lim in checks.values())

@@ -1,4 +1,4 @@
-"""The benchmark of aquery2_tpu_torch: one run of one cell on one card.
+"""The benchmark of aquery2_tpu_torch: one run of one cell.
 
     python qbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
@@ -9,7 +9,11 @@ output one JSON object: correct, attempted, failed, metrics (the cell's
 end-to-end metrics, or with --trace 1 its per-layer ones), device (and
 with --trace 1 the breakdown), then the compared numbers. Exits non-zero,
 with no result, where no CUDA card is there or fewer than the cell asks
-for, and where JAX or the JAX package was loaded. The cells, their
+for, and where JAX or the JAX package was loaded. A cell of one chip
+runs in this process on cuda:0 (harness.py); a cell of N > 1 chips runs
+as N ranks of one mesh session, one process and one card a rank, and
+this process prints rank 0's result (ranks.py; exits non-zero, with no
+result, where the ranks run past their deadline). The cells, their
 configurations, queries and metrics are named in BENCHMARK.json and found
 by name under qbench/ (see harness.py).
 """
@@ -29,7 +33,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from qbench import harness  # noqa: E402
+from qbench import harness, ranks  # noqa: E402
 
 
 def main() -> int:
@@ -46,9 +50,19 @@ def main() -> int:
         print(f"qbench: {args.workload} needs {chips} CUDA card(s); "
               f"{cards} available", file=sys.stderr)
         return 2
-    out = harness.run(cell, args.seed, args.seconds, bool(args.trace),
-                      torch.device("cuda", 0), T_START)
-    bad = harness.forbidden_modules()
+    if chips == 1:
+        out = harness.run(cell, args.seed, args.seconds, bool(args.trace),
+                          torch.device("cuda", 0), T_START)
+        bad = harness.forbidden_modules()
+    else:
+        try:
+            out, bad = ranks.run(cell, args.seed, args.seconds,
+                                 bool(args.trace),
+                                 [torch.device("cuda", r)
+                                  for r in range(chips)], None, T_START)
+        except ranks.WorldTimeout as exc:
+            print(f"qbench: {exc}", file=sys.stderr)
+            return 4
     if bad:
         print(f"qbench: JAX or the JAX package was loaded: {bad}",
               file=sys.stderr)

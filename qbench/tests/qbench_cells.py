@@ -28,6 +28,17 @@ def small_cell(name: str) -> harness.Cell:
     return cell
 
 
+def mesh_cell(rows: int = ROWS, chips: int = 4) -> harness.Cell:
+    """h2o_g1_1e8.groupby's q1-q10 as a cell of chips ranks at rows rows
+    (each query's input rows too), made in memory (no workload file)."""
+    cell = harness.find_cell("h2o_g1_1e8.groupby")
+    cell.workload = {**cell.workload, "chips": chips}
+    cell.config = harness.scaled(cell.config, rows)
+    for q in cell.queries:
+        q.input_rows = rows
+    return cell
+
+
 def run_small(name: str, traced: bool = False, seconds: float = 0.2,
               seed: int = SEED) -> dict:
     """One run of the cell at its small size on the CPU."""

@@ -63,6 +63,8 @@ def test_compare_orders_rows_and_ragged_vectors():
                        offsets={"v": torch.tensor([0, 2, 4, 5])})
     assert check.compare(got, want) == {"schema": 0, "cells": 0,
                                         "float": 0.0}
+    assert got.columns["k"].tolist() == [1, 2, 3]       # ordered in place
+    assert got.offsets["v"].tolist() == [0, 2, 3, 5]
     got.columns["v"][0] = 4.5
     assert check.compare(got, want)["cells"] == 1
 
