@@ -19,6 +19,14 @@ the answer's key columns and gives three numbers, each held to a limit:
   (the harness holds the largest over a cell's queries to the workload
   file's ``float_limit``).
 
+An answer too large to check whole on one device is checked in blocks:
+``block_of`` puts each row in a block by a hash of its key columns, the
+same for a row of the input and for the answer's row that it makes, and
+``compare_parts`` gives each block's raw parts, which ``combine`` turns
+into the three numbers above: the largest schema, the sum of the cells,
+and the float error as max |got - want| over the blocks over max |want|
+over the blocks. ``compare`` is ``combine`` of one whole block.
+
 Imports torch only: nothing of the program.
 """
 
@@ -114,7 +122,10 @@ def _cells(got: torch.Tensor, want: torch.Tensor, gv, wv) -> int:
     return int(bad.sum())
 
 
-def _float_err(got: torch.Tensor, want: torch.Tensor, gv, wv) -> float:
+def _float_parts(got: torch.Tensor, want: torch.Tensor, gv,
+                 wv) -> tuple[float, float] | None:
+    """(max |got - want|, max |want|) over the rows where both are not
+    NULL, or None where a value is not finite."""
     both = torch.ones_like(want, dtype=torch.bool)
     if gv is not None:
         both &= gv
@@ -123,20 +134,30 @@ def _float_err(got: torch.Tensor, want: torch.Tensor, gv, wv) -> float:
     g = got.to(torch.float64)[both]
     w = want.to(torch.float64)[both]
     if w.numel() == 0:
-        return 0.0
+        return 0.0, 0.0
     if not (bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all())):
-        return WORST
-    scale = float(w.abs().max())
-    err = float((g - w).abs().max())
-    return err / scale if scale > 0 else err
+        return None
+    return float((g - w).abs().max()), float(w.abs().max())
 
 
-def compare(got: Answer | None, want: Answer) -> dict[str, float]:
-    """{"schema", "cells", "float"} of got against want (see the module
-    docstring); a missing answer reads worst on each."""
-    ncells = sum(int(c.numel()) for c in want.columns.values())
+def _ncells(ans: Answer) -> int:
+    return sum(int(c.numel()) for c in ans.columns.values())
+
+
+def compare_parts(got: Answer | None, want: Answer | None) -> dict:
+    """The raw parts of got against want, which ``combine`` turns into
+    the readings: {"schema", "cells", "floats": {column: (max |got -
+    want|, max |want|)}, "worst": whether float reads WORST, "has_floats":
+    whether want has float columns}. want None is a block of an answer in
+    which no row is expected: each cell got has there is wrong."""
+    if want is None:
+        return {"schema": 0, "cells": 0 if got is None else _ncells(got),
+                "floats": {}, "worst": False, "has_floats": False}
+    ncells = _ncells(want)
+    worst = {"schema": len(want.columns), "cells": ncells, "floats": {},
+             "worst": True, "has_floats": bool(want.floats)}
     if got is None:
-        return {"schema": len(want.columns), "cells": ncells, "float": WORST}
+        return worst
     names = set(got.columns) | set(want.columns)
     schema = sum(1 for name in names
                  if name not in got.columns or name not in want.columns
@@ -144,9 +165,10 @@ def compare(got: Answer | None, want: Answer) -> dict[str, float]:
     if schema == 0 and list(got.columns) != list(want.columns):
         schema = 1                              # the same columns, reordered
     if schema or got.nrows != want.nrows:
-        return {"schema": schema, "cells": ncells, "float": WORST}
+        # no row expected where got has some: each of its cells is wrong
+        return {**worst, "schema": schema, "cells": ncells or _ncells(got)}
     got, want = _ordered(got, want.keys), _ordered(want, want.keys)
-    cells, ferr = 0, 0.0
+    cells, floats, bad = 0, {}, False
     for name, w in want.columns.items():
         g = got.columns[name]
         if name in want.offsets:
@@ -160,7 +182,84 @@ def compare(got: Answer | None, want: Answer) -> dict[str, float]:
             if gv is not None or wv is not None:
                 cells += _cells(torch.zeros_like(w), torch.zeros_like(w),
                                 gv, wv)
-            ferr = max(ferr, _float_err(g, w, gv, wv))
+            part = _float_parts(g, w, gv, wv)
+            bad |= part is None
+            floats[name] = part or (0.0, 0.0)
         else:
             cells += _cells(g, w, gv, wv)
+    return {"schema": schema, "cells": cells, "floats": floats,
+            "worst": bad, "has_floats": bool(want.floats)}
+
+
+def combine(parts: list[dict]) -> dict[str, float]:
+    """{"schema", "cells", "float"} of the parts of an answer's blocks:
+    the largest schema, the sum of the cells, and for float the largest
+    over the columns of (max |got - want| over the blocks) / (max |want|
+    over the blocks), the number the whole answer gives."""
+    schema = max((p["schema"] for p in parts), default=0)
+    cells = sum(p["cells"] for p in parts)
+    if any(p["worst"] for p in parts):
+        return {"schema": schema, "cells": cells, "float": WORST}
+    err: dict[str, float] = {}
+    scale: dict[str, float] = {}
+    for p in parts:
+        for name, (e, s) in p["floats"].items():
+            err[name] = max(err.get(name, 0.0), e)
+            scale[name] = max(scale.get(name, 0.0), s)
+    ferr = 0.0
+    for name, e in err.items():
+        ferr = max(ferr, e / scale[name] if scale[name] > 0 else e)
     return {"schema": schema, "cells": cells, "float": ferr}
+
+
+def compare(got: Answer | None, want: Answer) -> dict[str, float]:
+    """{"schema", "cells", "float"} of got against want (see the module
+    docstring); a missing answer reads worst on each."""
+    return combine([compare_parts(got, want)])
+
+
+# ---------------------------------------------------------------------- #
+# blocks by a hash of the key columns
+# ---------------------------------------------------------------------- #
+
+CHUNK_ROWS = 1 << 24        # rows hashed at a time: int64 temporaries of
+                            # 128 MiB, whatever the answer's length
+MAX_BLOCKS = 1024
+
+
+def _i64(c: int) -> int:
+    """An unsigned 64-bit constant as the int64 with its bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+_GOLD = _i64(0x9E3779B97F4A7C15)
+_MUL1 = _i64(0xBF58476D1CE4E5B9)
+_MUL2 = _i64(0x94D049BB133111EB)
+
+
+def _shr(h: torch.Tensor, s: int) -> torch.Tensor:
+    """h >> s, logical (torch's is arithmetic)."""
+    return (h >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(h: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer, in int64 that wraps."""
+    h = (h ^ _shr(h, 30)) * _MUL1
+    h = (h ^ _shr(h, 27)) * _MUL2
+    return h ^ _shr(h, 31)
+
+
+def block_of(keys: list[torch.Tensor], blocks: int) -> torch.Tensor:
+    """Each row's block, int16 in [0, blocks): a fixed 64-bit mix of the
+    row's key values, each taken as its low 32 bits, mod blocks. Computed
+    CHUNK_ROWS rows at a time, so that no int64 temporary spans every
+    row; the same on every device."""
+    n = int(keys[0].shape[0])
+    out = torch.empty(n, dtype=torch.int16, device=keys[0].device)
+    for c0 in range(0, n, CHUNK_ROWS):
+        h = None
+        for k in keys:
+            v = k[c0:c0 + CHUNK_ROWS].to(torch.int64) & 0xFFFFFFFF
+            h = _mix((v if h is None else h ^ v) + _GOLD)
+        out[c0:c0 + CHUNK_ROWS] = torch.remainder(h, blocks)
+    return out

@@ -28,10 +28,13 @@ from qbench import harness  # noqa: E402
 
 def control_checks(cell: harness.Cell, seed: int, device) -> dict:
     """{"<query>.<number>": (reading, limit)} of the control's answers
-    against the reference's, over the cell's tables made from seed."""
+    against the reference's, over the cell's tables made from seed, in
+    the cell's blocks (``check_blocks``) as a run checks them."""
     tables = harness.make_tables(cell, seed, device)
-    return harness.compare_all(
-        cell, tables, lambda q, fn: fn(tables, fdtype=torch.float32))[0]
+    parts = harness.compare_all(
+        cell, tables, lambda q, fn, t, b: None if fn is None
+        else fn(t, fdtype=torch.float32))
+    return harness.readings(cell, parts)[0]
 
 
 def main() -> int:

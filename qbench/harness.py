@@ -19,14 +19,22 @@ copied to the host; the window's clock stops for the copy.
 
 After the window (the program's state freed): the generator makes the
 same tables again, the reference computes each sampled query's answer,
-and ``check.compare`` holds the program's to it.
+and ``check.compare`` holds the program's to it. A workload file's
+``check_blocks`` (B, 1 where it has none) checks each answer in B blocks
+by a hash of its key columns (``compare_all``): the input cut to a
+block's rows, the reference run on it unchanged, that block of the
+program's answer compared, and the blocks' parts combined into the same
+readings as the whole answer's (``check.combine``), so that no device
+holds more than the tables and a block of each side.
 
 A cell of more than one chip runs this same function on each rank of a
 mesh session (``world``, from ``ranks.py``): each rank places every
 table, the ranks open the window together and go on or stop after each
-whole mix as rank 0 decides, rank 0's clock times the queries and its
-copy of the sampled answers is checked; the readings of the device are
-combined over the ranks.
+whole mix as rank 0 decides, and rank 0's clock times the queries; the
+readings of the device are combined over the ranks. Block b of the check
+is rank b mod N's: each rank keeps on its host the rows of its blocks of
+the sampled answers, checks them on its own device, and sends the parts
+to rank 0 (with one block, rank 0 copies and checks every answer).
 """
 
 from __future__ import annotations
@@ -178,6 +186,7 @@ class Program:
 
         self.device = device
         self.world = world
+        self.blocks, self.block_keys = blocking(cell)
         self.db = aq.connect(device=device, **(
             world.connect_args() if world is not None else {}))
         self.db.log_level = "silent"
@@ -241,16 +250,28 @@ class Program:
             self.sync()
         return answer
 
-    def copy_out(self, table):
-        """host_copy of an answer. On a mesh every rank makes it whole
-        (``Session.readable``, a collective where it is placed), rank 0
-        alone copies it, and the others wait for it here, inside the
-        pause, not in the next query's first collective."""
-        if self.world is None:
-            return host_copy(table)
-        table = self.db.readable(table)
-        copy = host_copy(table) if self.world.rank == 0 else None
-        self.world.barrier()
+    def copy_out(self, table, query: str) -> dict | None:
+        """The sampled answer of query on the host: {block: host_copy of
+        the answer's rows in that block}, for the blocks this rank holds
+        (``owned_blocks``; all on one card). With one block that is
+        host_copy of the whole answer, as on one card. On a mesh every
+        rank makes the answer whole (``Session.readable``, a collective
+        where it is placed), each keeps the rows of its own blocks (with
+        one block, rank 0 all of them), and every rank leaves here
+        together, inside the pause, not in the next query's first
+        collective."""
+        if self.world is not None:
+            table = self.db.readable(table)
+        owned = owned_blocks(self.blocks, self.world)
+        if table is None:
+            copy = None
+        elif self.blocks == 1:
+            copy = {0: host_copy(table)} if owned else {}
+        else:
+            copy = host_blocks(table, self.block_keys[query], self.blocks,
+                               owned)
+        if self.world is not None:
+            self.world.barrier()
         return copy
 
     def close(self) -> None:
@@ -290,6 +311,70 @@ def host_copy(table) -> list[tuple]:
         valid = None if c.valid is None else c.valid[:c.nrows].cpu()
         d = c.dictionary if c.sqltype.is_string else None
         out.append((c.name, c.data[:c.nrows].cpu(), valid, None, d))
+    return out
+
+
+def host_blocks(table, keys: list[str], blocks: int,
+                owned: list[int]) -> dict[int, list[tuple]]:
+    """{block: host_copy of table's rows in that block} for each block of
+    owned, the rows in their order: a block by ``check.block_of`` of the
+    key columns, worked out check.CHUNK_ROWS rows at a time on the
+    table's device, so that what it adds there stays small."""
+    cols = list(table.columns.values())
+    by_name = {c.name: c for c in cols}
+    for k in keys:
+        c = by_name.get(k)
+        if c is None or c.sqltype.is_vector or c.sqltype.is_string:
+            raise ValueError(f"block key {k!r} is not an integer column of "
+                             f"the answer {list(by_name)}")
+    n = table.nrows
+    dev = cols[0].device
+    pieces: dict[int, list[list]] = {b: [] for b in owned}
+    for c0 in range(0, n, check.CHUNK_ROWS):
+        c1 = min(n, c0 + check.CHUNK_ROWS)
+        bid = check.block_of([by_name[k].data[c0:c1] for k in keys], blocks)
+        for b in owned:
+            rows = (bid == b).nonzero().squeeze(1)
+            if rows.numel():
+                pieces[b].append(_rows_copy(cols, c0, c1, rows))
+    none = torch.zeros(0, dtype=torch.int64, device=dev)
+    return {b: _joined(cols, pieces.pop(b) or [_rows_copy(cols, 0, 0, none)])
+            for b in owned}
+
+
+def _rows_copy(cols, c0: int, c1: int, rows: torch.Tensor) -> list:
+    """host_copy of rows (indices into rows c0 to c1) of the columns:
+    (values, valid, offsets relative to the copy) a column."""
+    out = []
+    for c in cols:
+        if c.sqltype.is_vector:
+            off = c.offsets[c0:c1 + 1]
+            vals, offs = check.permute_ragged(
+                c.values[int(off[0]):int(off[-1])], off - off[0], rows)
+            out.append((vals.cpu(), None, offs.cpu()))
+        else:
+            valid = None if c.valid is None else c.valid[c0:c1][rows].cpu()
+            out.append((c.data[c0:c1][rows].cpu(), valid, None))
+    return out
+
+
+def _joined(cols, pieces: list[list]) -> list[tuple]:
+    """The pieces of _rows_copy, one after another, as host_copy gives
+    them."""
+    out = []
+    for i, c in enumerate(cols):
+        parts = [p[i] for p in pieces]
+        vals = torch.cat([p[0] for p in parts])
+        if c.sqltype.is_vector:
+            lens = torch.cat([o[1:] - o[:-1] for _, _, o in parts])
+            offs = torch.zeros(lens.shape[0] + 1, dtype=torch.int64)
+            torch.cumsum(lens, 0, out=offs[1:])
+            out.append((c.name, vals, None, offs, None))
+            continue
+        valid = (None if c.valid is None
+                 else torch.cat([v for _, v, _ in parts]))
+        d = c.dictionary if c.sqltype.is_string else None
+        out.append((c.name, vals, valid, None, d))
     return out
 
 
@@ -441,7 +526,7 @@ def closed_loop(program: Program, cell: Cell, seconds: float,
             out.rows += q.input_rows
             if keep:
                 with _span(traced, "sample_copy"):
-                    out.answers[q.name] = program.copy_out(ans)
+                    out.answers[q.name] = program.copy_out(ans, q.name)
                 paused += time.perf_counter() - t2
             del ans
         out.cycles += 1
@@ -548,6 +633,7 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         device_info["window_s"] = window.window_s
 
     strings, fmt = program.strings, program.string_format
+    blocks = program.blocks
     program.close()
     del program
     gc.collect()
@@ -555,10 +641,16 @@ def run(cell: Cell, seed: int, seconds: float, traced: bool,
         torch.cuda.empty_cache()
     if world is not None:
         world.barrier()                 # every rank's state is freed
-        if world.rank:
-            return None
-    checks = reference_checks(cell, seed, device, loop.answers, strings, fmt,
-                              log)
+    parts = reference_parts(cell, seed, device, loop.answers, strings, fmt,
+                            owned_blocks(blocks, world), log)
+    gathered = world is not None and blocks > 1
+    if gathered:
+        parts = world.gather_parts(parts)   # every rank's blocks
+    if world is not None and world.rank:
+        return None
+    checks, floats = readings(cell, parts)
+    if gathered:
+        log(f"# every rank's blocks: float by query {floats}")
     correct = not loop.errors and all(v <= lim for v, lim in checks.values())
     out = {"correct": correct, "attempted": loop.attempted,
            "failed": len(loop.errors), "metrics": metrics,
@@ -583,6 +675,14 @@ def make_tables(cell: Cell, seed: int, device) -> dict:
     return {t: cols for t, cols in gen.make(cell.config, seed, device)}
 
 
+def _reference_module(config: str, query: str):
+    """qbench/reference/<config>.<query>.py where that file exists, else
+    qbench/reference/<config>.py."""
+    if (ROOT / "reference" / f"{config}.{query}.py").exists():
+        return load_module("reference", f"{config}.{query}")
+    return load_module("reference", config)
+
+
 def reference_fn(config: str, query: str):
     """The reference of query: qbench/reference/<config>.<query>.py's
     ``answer`` where that file exists, else the function named query of
@@ -592,43 +692,146 @@ def reference_fn(config: str, query: str):
     return getattr(load_module("reference", config), query)
 
 
-def compare_all(cell: Cell, tables: dict, answer_of) -> tuple[dict, dict]:
-    """({"<query>.schema" and "<query>.cells" of each query, and "float"
-    (the largest over the cell's queries, held to the workload file's
-    ``float_limit``): (reading, limit)}, {query: its float reading}):
-    each query's answer_of(q, its reference function) against the
-    reference's answer over tables."""
+def blocking(cell: Cell) -> tuple[int, dict[str, list[str]]]:
+    """(B, {query: its block keys}): the workload file's ``check_blocks``
+    (1 where it has none), and with B > 1 each query's entry of its
+    reference module's ``BLOCK_KEYS``, the input columns its answer is
+    grouped by. A query with no entry is checked only whole (B = 1)."""
+    blocks = cell.workload.get("check_blocks", 1)
+    if (not isinstance(blocks, int) or isinstance(blocks, bool)
+            or not 1 <= blocks <= check.MAX_BLOCKS):
+        raise ValueError(f"{cell.name}: check_blocks is {blocks!r}, not a "
+                         f"whole number from 1 to {check.MAX_BLOCKS}")
+    keys = {}
+    if blocks > 1:
+        config = cell.workload["config"]
+        for q in cell.queries:
+            k = getattr(_reference_module(config, q.name), "BLOCK_KEYS",
+                        {}).get(q.name)
+            if not k:
+                raise ValueError(
+                    f"{cell.name}: check_blocks is {blocks}, but query "
+                    f"{q.name!r} has no entry in BLOCK_KEYS of its "
+                    f"reference (qbench/reference/{config}.py): it can be "
+                    f"checked only whole, with check_blocks 1")
+            keys[q.name] = list(k)
+    return blocks, keys
+
+
+def owned_blocks(blocks: int, world=None) -> list[int]:
+    """The blocks this rank checks: block b is rank b mod N's; all of
+    them on one card."""
+    if world is None:
+        return list(range(blocks))
+    return list(range(world.rank, blocks, world.size))
+
+
+class Rows(Mapping):
+    """A table's rows at index (ascending, so each keeps its order), a
+    column gathered when it is first read: the reference function reads
+    the columns it needs, and only those are copied."""
+
+    def __init__(self, cols: dict, index: torch.Tensor) -> None:
+        self._cols, self._index, self._got = cols, index, {}
+
+    def __getitem__(self, name):
+        if name not in self._got:
+            self._got[name] = self._cols[name][self._index]
+        return self._got[name]
+
+    def __iter__(self):
+        return iter(self._cols)
+
+    def __len__(self) -> int:
+        return len(self._cols)
+
+
+def compare_all(cell: Cell, tables: dict, answer_of,
+                owned: list[int] | None = None) -> dict[str, list[dict]]:
+    """{query: check.compare_parts of each block of owned (all the
+    cell's blocks where None)}: answer_of(q, its reference function, the
+    tables of the block, the block) against the reference's answer over
+    them. With one block, the block's tables are tables. With B blocks,
+    each table that holds every block key column of q is cut to its rows
+    in the block (``Rows``; the others stay whole): an answer's row holds
+    the key values of the input rows that made it, so it lies in their
+    block. Where every cut table is empty, no row is expected, the
+    reference does not run, and answer_of is given None for the function
+    and the tables."""
     config = cell.workload["config"]
-    checks, floats = {}, {}
+    blocks, keys = blocking(cell)
+    owned = list(range(blocks)) if owned is None else owned
+    parts: dict[str, list[dict]] = {}
     for q in cell.queries:
         fn = reference_fn(config, q.name)
-        want = fn(tables)
-        res = check.compare(answer_of(q, fn), want)
+        names = keys.get(q.name)
+        bid = {} if names is None else {
+            t: check.block_of([cols[k] for k in names], blocks)
+            for t, cols in tables.items() if all(k in cols for k in names)}
+        parts[q.name] = []
+        for b in owned:
+            index = {t: (x == b).nonzero().squeeze(1) for t, x in bid.items()}
+            if index and all(i.numel() == 0 for i in index.values()):
+                parts[q.name].append(check.compare_parts(
+                    answer_of(q, None, None, b), None))
+                continue
+            cut = {t: Rows(cols, index[t]) if t in index else cols
+                   for t, cols in tables.items()}
+            want = fn(cut)
+            if names is not None and want.keys != names:
+                raise ValueError(
+                    f"BLOCK_KEYS of {q.name} are {names}, but its "
+                    f"reference's answer is keyed by {want.keys}")
+            parts[q.name].append(check.compare_parts(
+                answer_of(q, fn, cut, b), want))
+            del want, cut, index
+        del bid
+    return parts
+
+
+def readings(cell: Cell, parts: dict[str, list[dict]]) -> tuple[dict, dict]:
+    """({"<query>.schema" and "<query>.cells" of each query, and "float"
+    (the largest over the cell's queries, held to the workload file's
+    ``float_limit``): (reading, limit)}, {query: its float reading}) of
+    the parts of every block of each query (``check.combine``)."""
+    checks, floats = {}, {}
+    for q in cell.queries:
+        res = check.combine(parts[q.name])
         checks[f"{q.name}.schema"] = (res["schema"], 0)
         checks[f"{q.name}.cells"] = (res["cells"], 0)
-        if want.floats:
+        if any(p["has_floats"] for p in parts[q.name]):
             floats[q.name] = res["float"]
-        del want
     if floats:
         checks["float"] = (max(floats.values()),
                            cell.workload["float_limit"])
     return checks, floats
 
 
-def reference_checks(cell: Cell, seed: int, device, answers: dict,
-                     strings: dict, fmt: str, log) -> dict:
-    """The program's sampled answers against the reference, computed on
-    the device over the same tables made again from the seed."""
+def reference_parts(cell: Cell, seed: int, device, answers: dict,
+                    strings: dict, fmt: str, owned: list[int], log) -> dict:
+    """compare_all's parts of the program's sampled answers (host copies
+    by block, as ``Program.copy_out`` gives them) in the blocks of owned,
+    against the reference, computed on the device over the same tables
+    made again from the seed; nothing is made where owned is empty."""
+    if not owned:
+        return {q.name: [] for q in cell.queries}
     t0 = time.perf_counter()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
     tables = make_tables(cell, seed, device)
 
-    def program_answer(q, fn):
-        got = plain_answer(answers.get(q.name), strings, fmt)
+    def program_answer(q, fn, t, b):
+        copy = answers.get(q.name)
+        got = None if copy is None else plain_answer(copy[b], strings, fmt)
         return None if got is None else got.to(device)
-    checks, floats = compare_all(cell, tables, program_answer)
-    log(f"# reference: {len(cell.queries)} answers compared "
-        f"({time.perf_counter() - t0:.1f} s); float by query: {floats}")
-    return checks
+    parts = compare_all(cell, tables, program_answer, owned)
+    del tables
+    log(f"# reference: {len(cell.queries)} answers compared in "
+        f"{len(owned)} of {blocking(cell)[0]} blocks "
+        f"({time.perf_counter() - t0:.1f} s; the check's memory peak "
+        f"{memory_peak(device)} B); float by query: "
+        f"{readings(cell, parts)[1]}")
+    return parts
 
 
 def forbidden_modules() -> list[str]:

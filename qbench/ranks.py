@@ -11,8 +11,11 @@ coordinator="file://<tmp>/rendezvous", num_processes=N, process_id=r)``,
 each rank makes the same tables from the seed and places them
 (``Session.place_table``), all ranks run the same warm-up and then the
 same whole mixes in lockstep (``World.agree``: rank 0 decides after each
-mix), rank 0's host clock times the queries, and rank 0 copies the
-sampled answers out and checks them once every rank has freed its state.
+mix), and rank 0's host clock times the queries. Once every rank has
+freed its state, the sampled answers are checked: with one block
+(``check_blocks``, harness.py) by rank 0 alone, which copied them out;
+with B blocks each rank checks the blocks b = rank mod N, whose rows it
+copied out, and sends the parts to rank 0 (``World.gather_parts``).
 
 Readings: the memory peaks are the fullest rank's; with a trace, the
 per-layer metrics read rank 0's window, but for the device's busy time
@@ -48,7 +51,7 @@ import torch.multiprocessing as mp
 from qbench import harness
 
 SETUP_S = 300           # a world's set-up: imports, tables, placement, warm-up
-CHECK_S = 300           # rank 0's check against the reference
+CHECK_S = 300           # the check against the reference
 GROUP_TIMEOUT_S = 300   # the program's process-group timeout (multihost)
 
 
@@ -88,6 +91,13 @@ class World:
                             device=self.device if self._on_nccl() else "cpu")
         dist.broadcast(flag, 0)
         return bool(flag.item())
+
+    def gather_parts(self, parts: dict) -> dict:
+        """Every rank's parts of the check ({query: [parts of a block]}),
+        query by query, in rank order."""
+        got = [None] * self.size
+        dist.all_gather_object(got, parts)
+        return {q: [p for g in got for p in g[q]] for q in parts}
 
     def combine(self, peak: int, setup_peak: int, window) -> tuple[int, int]:
         """The fullest rank's memory peaks (the window's, the set-up's);

@@ -20,6 +20,10 @@ values and squares in float64, as db-benchmark's R ``sd`` does; stddev is its ro
 float64); subvec(v3, 0, 2) under ASSUMING DESC v3 is a group's two
 largest v3 in descending order (one where the group has one row).
 
+``BLOCK_KEYS`` names each query's GROUP BY columns, the keys of its
+answer: a row of the answer holds the key values of the input rows it
+comes from, so a check may cut both to one block of a hash of those
+columns (``harness.compare_all``).
 ``fdtype`` is the floating type every float sum, average and moment is
 computed in: float64 as the configuration states; the control passes
 float32. Imports torch and qbench.check: nothing of the program.
@@ -32,6 +36,11 @@ import torch
 from qbench.check import Answer, lexsort
 
 F64 = torch.float64
+
+BLOCK_KEYS = {"q1": ["id1"], "q2": ["id1", "id2"], "q3": ["id3"],
+              "q4": ["id4"], "q5": ["id6"], "q6": ["id4", "id5"],
+              "q7": ["id3"], "q8": ["id6"], "q9": ["id2", "id4"],
+              "q10": ["id1", "id2", "id3", "id4", "id5", "id6"]}
 
 
 def group(keys: list[torch.Tensor]):

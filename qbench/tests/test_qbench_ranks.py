@@ -3,8 +3,9 @@
 made in memory, through the function that run.py calls.
 
 On the CPU: 4 ranks over gloo give one correct result with the fullest
-rank's peak, and write nothing to standard output; with the exchange
-between ranks left out the check fails; a rank whose query raises, a rank
+rank's peak, and write nothing to standard output; checked in 8 blocks
+over the ranks, the same readings; with the exchange between ranks left
+out the check fails, whole or in blocks; a rank whose query raises, a rank
 that dies, and a rank that hangs each end the world within its own
 limit, never in a hang; a new cell of 4 chips needs data files alone.
 On the card (marked gpu): the same cell at
@@ -169,8 +170,24 @@ def test_a_failed_rank_ends_the_world(fault):
     assert not mp.active_children()
 
 
-def test_a_mesh_without_its_exchange_is_not_correct():
-    out, _ = _run(mesh_cell(), rank_setup=_no_exchange)
+def _blocked(cell, blocks: int):
+    cell.workload = {**cell.workload, "check_blocks": blocks}
+    return cell
+
+
+def test_four_gloo_ranks_check_in_blocks():
+    """Each rank checks its blocks of 8 and rank 0 combines the parts:
+    correct, and every reading what one block (rank 0 alone) reads."""
+    out, bad = _run(_blocked(mesh_cell(), 8))
+    assert out["correct"] is True, out["checks"]
+    assert bad == [] and out["failed"] == 0
+    whole, _ = _run(mesh_cell())
+    assert out["checks"] == whole["checks"]
+
+
+@pytest.mark.parametrize("blocks", [1, 8])
+def test_a_mesh_without_its_exchange_is_not_correct(blocks):
+    out, _ = _run(_blocked(mesh_cell(), blocks), rank_setup=_no_exchange)
     assert out["correct"] is False
     failed = {k for k, v in out["checks"].items() if v["value"] > v["limit"]}
     assert failed and out["failed"] == 0, out["checks"]
@@ -184,16 +201,19 @@ def test_a_hung_world_is_killed_at_its_deadline():
     assert not mp.active_children()
 
 
-def test_a_new_mesh_cell_needs_only_data_files(tmp_path):
+@pytest.mark.parametrize("blocks", [None, 8])
+def test_a_new_mesh_cell_needs_only_data_files(tmp_path, blocks):
     """A copy of the benchmark gains a cell of 4 chips as a workload file
-    and an entry of BENCHMARK.json alone; the harness finds it by name
-    and runs it over 4 ranks."""
+    (with check_blocks, or without) and an entry of BENCHMARK.json alone;
+    the harness finds it by name and runs it over 4 ranks."""
     root = tmp_path / "repo"
     shutil.copytree(harness.ROOT, root / "qbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
     traffic = harness.load_json(harness.ROOT / "workloads"
                                 / "h2o_g1_1e8.groupby.json")
     traffic.update(name="h2o_g1_1e8.mesh_tiny", chips=RANKS)
+    if blocks is not None:
+        traffic["check_blocks"] = blocks
     (root / "qbench" / "workloads" / "h2o_g1_1e8.mesh_tiny.json").write_text(
         json.dumps(traffic))
     m = harness.load_json(harness.REPO / "BENCHMARK.json")
