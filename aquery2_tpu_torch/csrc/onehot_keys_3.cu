@@ -1,0 +1,5 @@
+// onehot_segment_sums' keyed form with 3 keys: its kernels, built beside the
+// other key counts' (onehot_segment_sums.cuh).
+#include "onehot_segment_sums.cuh"
+
+template aq_onehot::Kernel aq_onehot::kernel_for<3>(int, bool, bool);

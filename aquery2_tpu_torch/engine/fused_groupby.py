@@ -8,7 +8,12 @@ device. Three tiers:
   dense    — key domains of at most ``config.ONEHOT_MATMUL_MAX_GROUPS``
              slots: each row's perfect-hash code picks a slot, and the
              onehot_segment_sums kernel sums every add lane per slot in
-             int64 and every float64 lane in float64
+             int64 and every float64 lane in float64. Where the plan
+             allows (_keyed: integer keys of one dtype, no min or max,
+             no nullable argument) the kernel reads the key and argument
+             columns as stored and makes the codes, the row validity,
+             the products and the counts itself
+             (ops/reduce.segment_reduce_keyed); else the tier makes them
              (ops/reduce.segment_reduce).
   packed   — keys bit-pack (from column stats) into 30-bit words: one
              ops/sort.lexsort of [validity, words] (a single int64 sort
@@ -56,6 +61,7 @@ import torch
 
 from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
+from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import reduce as R
 from aquery2_tpu_torch.ops.segment import last_flags
 from aquery2_tpu_torch.ops.sort import lexsort, sort_perm
@@ -460,12 +466,20 @@ def _as_rows(v, like: torch.Tensor) -> torch.Tensor:
                       else torch.int64)
 
 
-def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
+def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None,
+                 like=None):
     """Every aggregate's per-row reduction lanes, masked so invalid rows
     are identities: (add, min, max, f64) dicts of [rows] tensors, as the
     JAX package's _build_lanes. Add lanes hold integers (bool, int32 or
     int64; squares and products of int32 widen to int64 first) and
     ``__counts__``; median rides the sort instead.
+
+    valid None: the lanes of onehot_segment_sums' keyed form, which drops
+    the invalid rows itself (no NULL masks may apply: null_fn None). The
+    lanes are not masked, ``__counts__`` is None (the kernel counts each
+    slot's rows), an integer product stays the pair of its factors (the
+    kernel multiplies them in int64), and ``like``, a column, gives the
+    rows' shape.
 
     float32 sums split into two integer-valued limbs (the JAX package's
     add_float, P1 = 14) that are summed as int64, so the sums are exact
@@ -478,6 +492,8 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
     lanes mask those rows too, and it gets a ``:cnt`` lane, its non-null
     count, which avg, var, stddev, corr and count(col) divide by."""
     rows = eval_fn if eval_fn is not None else (lambda e: _row_eval(e, env))
+    keyed = valid is None
+    like = like if keyed else valid
     add: dict[str, torch.Tensor] = {"__counts__": valid}
     mins: dict[str, torch.Tensor] = {}
     maxs: dict[str, torch.Tensor] = {}
@@ -494,8 +510,15 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
         add[tag + "#B"] = b.to(torch.int64)
 
     def widen_sq(v: torch.Tensor) -> torch.Tensor:
-        """A factor of a square or product that cannot overflow."""
-        return v.to(torch.int64) if v.element_size() <= 4 else v
+        """A factor of a square or product that cannot overflow (the keyed
+        form's kernel widens its factors itself)."""
+        return v.to(torch.int64) if not keyed and v.element_size() <= 4 \
+            else v
+
+    def product(a: torch.Tensor, b: torch.Tensor):
+        """a * b, or for the keyed form the pair, which the kernel
+        multiplies in int64."""
+        return (a, b) if keyed else a * b
 
     for fp, (kind, args) in scatters.items():
         if kind == "median":
@@ -508,17 +531,21 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
             continue                    # count(*) rides the counts
 
         def masked(v: torch.Tensor) -> torch.Tensor:
+            if keyed:
+                return v
             return torch.where(vm, v, torch.zeros((), dtype=v.dtype,
                                                   device=v.device))
 
         if kind == "corr":
-            x = _as_rows(rows(args[0]), valid)
-            y = _as_rows(rows(args[1]), valid)
+            x = _as_rows(rows(args[0]), like)
+            y = _as_rows(rows(args[1]), like)
             if not x.is_floating_point() and not y.is_floating_point():
                 xi, yi = masked(x), masked(y)
                 xw, yw = widen_sq(xi), widen_sq(yi)
-                for tag, arr in (("sx", xi), ("sy", yi), ("sxy", xw * yw),
-                                 ("sx2", xw * xw), ("sy2", yw * yw)):
+                for tag, arr in (("sx", xi), ("sy", yi),
+                                 ("sxy", product(xw, yw)),
+                                 ("sx2", product(xw, xw)),
+                                 ("sy2", product(yw, yw))):
                     add[f"{fp}:{tag}"] = arr
             else:
                 xf = masked(x).to(torch.float32)
@@ -527,7 +554,7 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
                                  ("sx2", xf * xf), ("sy2", yf * yf)):
                     add_float(f"{fp}:{tag}", arr)
             continue
-        v = _as_rows(rows(args[0]), valid)
+        v = _as_rows(rows(args[0]), like)
         if kind in ("sum", "avg", "mean"):
             if v.is_floating_point():
                 add_float(fp + ":sum", masked(v))
@@ -542,7 +569,7 @@ def _build_lanes(env, valid, scatters, eval_fn=None, null_fn=None):
                 vv = masked(v)
                 add[fp + ":sum"] = vv
                 vw = widen_sq(vv)
-                add[fp + ":ssq"] = vw * vw
+                add[fp + ":ssq"] = product(vw, vw)
         elif kind == "min":
             mins[fp + ":min"] = torch.where(vm, v, R.big_of(v.dtype))
         elif kind == "max":
@@ -858,18 +885,29 @@ def run(sel: A.Select, table: Table) -> tuple[str, Table] | None:
         scatters = _needed_scatters(p["aggs"])
     env = {nm: cols[nm].data for nm in col_order}
     env_null = {nm: ~cols[nm].valid for nm in sorted(nullable)}
-    cap = next(iter(env.values())).shape[0]
-    valid = torch.arange(cap, device=env[col_order[0]].device) < n
-    if p["where"] is not None:
-        valid = valid & _truth(_as_rows(_row_eval(p["where"], env), valid))
     null_fn = make_null_fn(env_null) if env_null else None
+    keys = p["keys"]
+    keyed = strategy == "dense" and _keyed(keys, env, scatters, null_fn)
+    like = env[col_order[0]]
+    where = None if p["where"] is None else \
+        _truth(_as_rows(_row_eval(p["where"], env), like))
+    valid = None            # the keyed form drops invalid rows itself
+    if not keyed or _computed_sum_args(scatters, cols):
+        valid = torch.arange(like.shape[0], device=like.device) < n
+        if where is not None:
+            valid = valid & where
     with span("plan"):
         fits = float_sums_fit(scatters, cols, n, lambda e: _row_eval(e, env),
                               valid, null_fn)
     if not fits:
         return None
-    keys = p["keys"]
-    if strategy == "dense":
+    if keyed:
+        tier = "dense"
+        with span("groupby.dense"):
+            dense, counts, keyvals = _run_dense_keyed(env, n, where, scatters,
+                                                      keys, key_mins,
+                                                      key_ranges, domain)
+    elif strategy == "dense":
         tier = "dense"
         with span("groupby.dense"):
             dense, counts, keyvals = _run_dense(env, env_null, valid,
@@ -914,16 +952,58 @@ def finish_groups(p, cols, dense, counts, keyvals) -> Table:
     return _finish(p, cols, results, int(counts.shape[0]), having)
 
 
-def _run_dense(env, env_null, valid, scatters, keys, key_mins, key_ranges,
-               domain):
-    """Dense tier: perfect-hash codes index [domain + 1] accumulators;
-    present slots compact in code order (= key order)."""
+def _keyed(keys, env, scatters, null_fn) -> bool:
+    """Whether the dense tier takes onehot_segment_sums' keyed form, which
+    reads the key and argument columns as they are stored: the keys
+    integer columns of one dtype (sentinel-coded NULL keys too), no min
+    or max lane (scatter_reduce_ takes the slot codes) and no NULL mask
+    on an aggregate's arguments (masked values and ``:cnt`` lanes are per
+    lane). Other plans take the code form."""
+    dtypes = {env[k.name.lower()].dtype for k in keys}
+    if (len(dtypes) != 1 or len(keys) > K.ONEHOT_MAX_KEYS
+            or dtypes.pop() not in K.ONEHOT_KEY_DTYPES):
+        return False
+    return not any(kind in ("min", "max")
+                   or (null_fn is not None and null_fn(args) is not None)
+                   for kind, args in scatters.values())
+
+
+def _computed_sum_args(scatters, cols) -> bool:
+    """Whether float_sums_fit evaluates an argument over the valid rows: a
+    sum's argument that is not a stored column."""
+    return any(not (isinstance(e, A.ColumnRef) and e.name in cols)
+               for kind, args in scatters.values() if kind in _SUM_KINDS
+               for e in args[:2 if kind == "corr" else 1])
+
+
+def _dense_strides(key_ranges) -> list[int]:
+    """Each key's stride in the perfect-hash code: the product of the
+    ranges of the keys after it."""
     strides = []
     s = 1
     for r in reversed(key_ranges):
         strides.append(s)
         s *= r
-    strides.reverse()
+    return strides[::-1]
+
+
+def _dense_groups(outs, domain, strides, key_ranges, key_mins):
+    """The present slots (count > 0) compacted in code order (= key order):
+    (per-group lanes, counts, each key's values)."""
+    with sync("groupby.dense.present"):
+        ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
+    dense = {t: arr[ucodes] for t, arr in outs.items()}
+    keyvals = [(ucodes // st) % r + mn
+               for st, r, mn in zip(strides, key_ranges, key_mins)]
+    return dense, dense["__counts__"], keyvals
+
+
+def _run_dense(env, env_null, valid, scatters, keys, key_mins, key_ranges,
+               domain):
+    """Dense tier, code form: perfect-hash codes index [domain + 1]
+    accumulators, invalid rows the last; present slots compact in code
+    order (= key order)."""
+    strides = _dense_strides(key_ranges)
     code = None
     for k, mn, st in zip(keys, key_mins, strides):
         part = (env[k.name.lower()].to(torch.int64) - mn) * st
@@ -933,12 +1013,22 @@ def _run_dense(env, env_null, valid, scatters, keys, key_mins, key_ranges,
         env, valid, scatters, null_fn=make_null_fn(env_null) if env_null
         else None)
     outs = R.segment_reduce(code, add, mins, maxs, f64s, domain)
-    with sync("groupby.dense.present"):
-        ucodes = torch.nonzero(outs["__counts__"][:domain] > 0).squeeze(1)
-    dense = {t: arr[ucodes] for t, arr in outs.items()}
-    keyvals = [(ucodes // st) % r + mn
-               for st, r, mn in zip(strides, key_ranges, key_mins)]
-    return dense, dense["__counts__"], keyvals
+    return _dense_groups(outs, domain, strides, key_ranges, key_mins)
+
+
+def _run_dense_keyed(env, n, where, scatters, keys, key_mins, key_ranges,
+                     domain):
+    """Dense tier, keyed form (_keyed): onehot_segment_sums reads rows
+    [0, n) of the key and argument columns as stored, makes each row's
+    code, drops the rows where ``where`` is False and counts each slot's
+    rows; present slots compact in code order (= key order)."""
+    strides = _dense_strides(key_ranges)
+    key_cols = [env[k.name.lower()] for k in keys]
+    add, _mins, _maxs, f64s = _build_lanes(env, None, scatters,
+                                           like=key_cols[0])
+    outs = R.segment_reduce_keyed(key_cols, key_mins, strides, where, n, add,
+                                  f64s, domain)
+    return _dense_groups(outs, domain, strides, key_ranges, key_mins)
 
 
 def _sorted_lanes(env, env_null, perm, valid_s, scatters):

@@ -19,7 +19,10 @@ of its four TPU kernels.
   float64 lanes (csrc/onehot_segment_sums.cu), replacing the TPU kernel
   ``pallas_kernels.onehot_segment_sums`` (``_make_onehot_kernel``) with
   its caller ``reduce._pallas_onehot_reduce``. Runs the dense tier's
-  sums, its float64 sums among them.
+  sums, its float64 sums among them. Its keyed form reads the key
+  columns as they are stored and makes each row's slot, its validity,
+  products of two lanes and the slot's row count in its load loop, so
+  the dense tier makes none of them in passes of its own.
 * ``fused_running_stats`` — running sum, min and max of a float32 column
   in one scan (csrc/fused_running_stats.cu), replacing the TPU kernel
   ``pallas_kernels.fused_running_stats`` (``_running_kernel``), with its
@@ -47,7 +50,9 @@ per warp with shared atomics (``onehot_route`` reports the launch).
 Dispatch: a tensor on the CPU goes to the plain PyTorch version (the tests
 use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
 kernel launches, one per wrapper call that launched; ``ONEHOT_LANES`` the
-lanes those onehot_segment_sums launches summed, by dtype.
+lanes those onehot_segment_sums launches summed, by dtype (a product of
+two lanes and a row count by their kind); ``ONEHOT_FORMS`` every
+onehot_segment_sums call by its form, keyed or code, on any device.
 
 The kernels are compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface (loaded with ctypes), under
@@ -73,7 +78,8 @@ LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0,
                             "onehot_segment_sums": 0,
                             "fused_running_stats": 0}
 ONEHOT_LANES: dict[str, int] = {"int64": 0, "int32": 0, "bool": 0,
-                                "float64": 0}
+                                "float64": 0, "product": 0, "count": 0}
+ONEHOT_FORMS: dict[str, int] = {"keyed": 0, "code": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
@@ -84,9 +90,12 @@ _OPS = ("add", "min", "max")
 # lane code = dtype · 3 + op; the first two are 32-bit words, the rest 64-bit
 _LANE_DTYPES = (torch.float32, torch.int32, torch.float64, torch.int64)
 _MAX_LANES = 4
-# lane dtype codes
+# lane dtype codes; a key's code is its index in _ONEHOT_CODES
 ONEHOT_DTYPES = (torch.int64, torch.int32, torch.bool, torch.float64)
+ONEHOT_KEY_DTYPES = (torch.int64, torch.int32, torch.int16, torch.int8)
+_ONEHOT_CODES = ONEHOT_DTYPES + (torch.int16, torch.int8)
 ONEHOT_MAX_LANES = 8
+ONEHOT_MAX_KEYS = 4
 # One copy of the [dp][k] 8-byte accumulators must fit a block's shared
 # memory (232,448 bytes on Hopper) beside two stage buffers of 1024 rows of
 # codes and 8 int64 lanes: kMaxEntries in onehot_segment_sums.cu.
@@ -161,11 +170,12 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.aq_seg_scan_multi.argtypes = [_vp, ctypes.c_int, _vp, _vp, _vp, _vp,
                                       _vp, ctypes.c_int64, _vp]
     lib.aq_seg_scan_multi.restype = ctypes.c_int
-    lib.aq_onehot_segment_sums.argtypes = [_vp, ctypes.c_int, _vp, _vp,
-                                           ctypes.c_int, ctypes.c_int64, _vp,
-                                           _vp]
+    _i = ctypes.c_int
+    lib.aq_onehot_segment_sums.argtypes = [_i, _i, _vp, _vp, _vp, _vp, _i,
+                                           _vp, _vp, _i, _vp, _vp, _i,
+                                           ctypes.c_int64, _vp, _vp]
     lib.aq_onehot_segment_sums.restype = ctypes.c_int
-    lib.aq_onehot_route.argtypes = [ctypes.c_int, _vp, ctypes.c_int,
+    lib.aq_onehot_route.argtypes = [_i, _i, _i, _i, _vp, _i, _vp, _vp, _i,
                                     ctypes.c_int64, _vp]
     lib.aq_onehot_route.restype = ctypes.c_int
     lib.aq_onehot_max_entries.restype = ctypes.c_int
@@ -178,13 +188,16 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """A kernel's name in ptxas' report, the single-pass scans by their
-    lanes and flags, onehot_segment_sums by its lanes, its route and whether
-    a lane is float64."""
-    m = re.search(r"onehot_sumsILi(\d)ELb(\d)ELb(\d)E", mangled)
+    lanes and flags, onehot_segment_sums by its lanes, its route, whether
+    a lane is float64 and its keys (the code form's one code, or the
+    keyed form's key columns)."""
+    m = re.search(r"onehot_sumsILi(\d)ELb(\d)ELb(\d)ELi(\d)E", mangled)
     if m:
         return (f"onehot_segment_sums {m[1]} lanes, "
                 f"{'private' if m[2] == '1' else 'shared'}"
-                f"{', float64' if m[3] == '1' else ''}")
+                f"{', float64' if m[3] == '1' else ''}, "
+                + ("code" if m[4] == "0"
+                   else f"{m[4]} key{'s' if m[4] != '1' else ''}"))
     if re.search(r"segscan_lookbackIN10aq_running8RunStatsE", mangled):
         return "fused_running_stats 3 x float32, one input"
     m = re.search(r"segscan_lookbackIN6aq_i646AddI64ELb(\d)", mangled)
@@ -295,19 +308,50 @@ def seg_scan_multi_plain(flags: torch.Tensor | None,
     return tuple(outs)
 
 
+def onehot_slots(code: torch.Tensor, dp: int, keys=(), mins=(0,),
+                 strides=(1,), row_mask=None) -> torch.Tensor:
+    """Each row's slot as onehot_segment_sums makes it, in int64: the sum
+    of (key - min) * stride over code and keys (wrapping mod 2^64), and
+    dp for a row that the kernel drops (row_mask False, or a slot outside
+    [0, dp))."""
+    slot = None
+    for x, mn, st in zip((code, *keys), mins, strides):
+        part = (x.to(torch.int64) - mn) * st
+        slot = part if slot is None else slot + part
+    keep = (slot >= 0) & (slot < dp)
+    if row_mask is not None:
+        keep &= row_mask
+    return torch.where(keep, slot, dp)
+
+
 def onehot_segment_sums_plain(code: torch.Tensor,
-                              lanes: tuple[torch.Tensor, ...],
-                              dp: int) -> torch.Tensor:
-    """Plain PyTorch onehot_segment_sums: one ``index_add_`` per lane, in
+                              lanes: tuple[torch.Tensor, ...], dp: int, *,
+                              keys=(), mins=None, strides=None,
+                              row_mask=None, products=(),
+                              counts=False) -> torch.Tensor:
+    """Plain PyTorch onehot_segment_sums: one ``index_add_`` per column, in
     int64 (wraps mod 2^64, as the kernel does) or, for a float64 lane, in
-    float64, its column's words holding the doubles."""
+    float64, its column's words holding the doubles. The code form
+    indexes by the codes; the keyed form builds each row's slot as the
+    dense tier built its codes (onehot_slots), sums over dp + 1 slots and
+    cuts the last (the dropped rows). A product is the two lanes' int64
+    product, the row count a column of ones."""
+    slot, size = code, dp
+    if mins is not None:
+        slot, size = onehot_slots(code, dp, keys, mins, strides,
+                                  row_mask), dp + 1
+    cols = (*lanes, *(lanes[a].to(torch.int64) * lanes[b].to(torch.int64)
+                      for a, b in products),
+            *((torch.ones(slot.shape, dtype=torch.int64,
+                          device=code.device),) if counts else ()))
+
     def col(x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.float64:
-            return torch.zeros(dp, dtype=torch.float64, device=code.device
-                               ).index_add_(0, code, x).view(torch.int64)
-        return torch.zeros(dp, dtype=torch.int64, device=code.device
-                           ).index_add_(0, code, x.to(torch.int64))
-    return torch.stack([col(x) for x in lanes], 1)
+            return torch.zeros(size, dtype=torch.float64, device=code.device
+                               ).index_add_(0, slot, x).view(torch.int64)
+        return torch.zeros(size, dtype=torch.int64, device=code.device
+                           ).index_add_(0, slot, x.to(torch.int64))
+    return torch.stack([col(x) for x in cols], 1)[:dp]
 
 
 def fused_running_stats_plain(x: torch.Tensor):
@@ -415,26 +459,85 @@ def seg_scan_multi(flags: torch.Tensor | None, xs: tuple[torch.Tensor, ...],
     return outs
 
 
+def _onehot_lanes(nsrc: int, products, counts: bool):
+    """Each output column's (source, other source) for the kernel: a
+    source's sum (other -1), a product, the row count (-1, -1)."""
+    a = [*range(nsrc), *(x for x, _ in products), *([-1] if counts else [])]
+    b = [*[-1] * nsrc, *(y for _, y in products), *([-1] if counts else [])]
+    return a, b
+
+
+def _onehot_fits(dp: int, k: int, row_bytes: int, arrays: int) -> bool:
+    """Whether one copy of the [dp][k] accumulators fits a block's shared
+    memory beside two stage buffers of 1024 rows of these arrays (the
+    kernel's plan_for at its smallest)."""
+    return (dp * k <= ONEHOT_MAX_ENTRIES
+            and -(-8 * dp * k // 16) * 16
+            + 2 * (1024 * row_bytes + 16 * arrays) <= 232448)
+
+
 def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
-                        dp: int) -> torch.Tensor:
-    """Per-slot sums: out[s, j] = sum of lanes[j] over the rows whose code
-    is s, as int64 [dp, k]. code: contiguous 1-D int32 in [0, dp) (on the
-    card a row outside that range is dropped). lanes: k ≤ 8 contiguous 1-D
-    int64, int32, bool or float64 tensors of code's length and device.
-    Integer and bool lanes are widened to int64 and summed exactly,
-    wrapping mod 2^64; a float64 lane is summed in float64, and its column
-    holds the doubles' bits (read it with ``.view(torch.float64)``). Raises
-    ValueError for a dp · k whose accumulators do not fit a block's shared
-    memory, on every device."""
-    lanes = tuple(lanes)
-    k = len(lanes)
-    if (code.dtype != torch.int32 or code.dim() != 1
+                        dp: int, *, keys: tuple[torch.Tensor, ...] = (),
+                        mins: tuple[int, ...] | None = None,
+                        strides: tuple[int, ...] | None = None,
+                        row_mask: torch.Tensor | None = None,
+                        products: tuple[tuple[int, int], ...] = (),
+                        counts: bool = False) -> torch.Tensor:
+    """Per-slot sums as int64 [dp, k]: out[s, j] is the sum of column j
+    over the rows whose slot is s. lanes: contiguous 1-D int64, int32,
+    bool or float64 tensors of code's length and device. Integer and bool
+    lanes are widened to int64 and summed exactly, wrapping mod 2^64; a
+    float64 lane is summed in float64, and its column holds the doubles'
+    bits (read it with ``.view(torch.float64)``).
+
+    The code form (no keywords): code is each row's slot, contiguous 1-D
+    int32 in [0, dp) (on the card a row outside that range is dropped),
+    and the k columns are the lanes' sums.
+
+    The keyed form (mins given): code is the first key column as stored,
+    keys the others (up to 4 in all, contiguous 1-D, of one integer
+    dtype of ONEHOT_KEY_DTYPES, length and device); a row's slot is the
+    sum of (key - mins[i]) * strides[i] in wrapping int64, and a row is
+    dropped where its slot is outside [0, dp) or its row_mask (bool, of
+    code's length) is False. The columns are the lanes' sums, then for
+    each (a, b) of products the sum of lanes[a] * lanes[b] (integer or
+    bool lanes, widened to int64), then, where counts, each slot's rows.
+
+    The kernel reads every row of every tensor given, once: hand it
+    columns cut to the rows wanted. Every call counts in ONEHOT_FORMS.
+    Raises ValueError for k outside 1..8 or a dp · k whose accumulators
+    do not fit a block's shared memory beside the staging, on every
+    device."""
+    lanes, keys, products = tuple(lanes), tuple(keys), tuple(products)
+    keyed = mins is not None
+    key_cols = (code, *keys)
+    if not keyed:
+        if keys or strides is not None or row_mask is not None \
+                or products or counts:
+            raise ValueError("onehot_segment_sums: keys, strides, row_mask, "
+                             "products and counts take the keyed form "
+                             "(mins)")
+        mins, strides = (0,), (1,)
+    want = ONEHOT_KEY_DTYPES if keyed else (torch.int32,)
+    if (code.dtype not in want or code.dim() != 1
             or not code.is_contiguous()):
-        raise ValueError(f"onehot_segment_sums takes contiguous 1-D int32 "
-                         f"codes, got {code.dtype} {tuple(code.shape)}")
-    if not 1 <= k <= ONEHOT_MAX_LANES:
-        raise ValueError(f"onehot_segment_sums takes 1..{ONEHOT_MAX_LANES} "
-                         f"lanes, got {k}")
+        raise ValueError(f"onehot_segment_sums takes contiguous 1-D "
+                         f"{'integer keys' if keyed else 'int32 codes'}, "
+                         f"got {code.dtype} {tuple(code.shape)}")
+    if (len(key_cols) > ONEHOT_MAX_KEYS or len(mins) != len(key_cols)
+            or len(strides) != len(key_cols)):
+        raise ValueError(f"onehot_segment_sums takes 1..{ONEHOT_MAX_KEYS} "
+                         f"keys, each with a min and a stride")
+    columns = [(x, code.dtype) for x in keys]
+    if row_mask is not None:
+        columns.append((row_mask, torch.bool))
+    for x, dtype in columns:
+        if (x.dtype != dtype or x.shape != code.shape
+                or not x.is_contiguous() or x.device != code.device):
+            raise ValueError(f"onehot_segment_sums: keys share the first "
+                             f"key's dtype, and keys and row_mask (bool) its "
+                             f"shape and device, contiguous; got {x.dtype} "
+                             f"{tuple(x.shape)} on {x.device}")
     for x in lanes:
         if (x.dtype not in ONEHOT_DTYPES or x.shape != code.shape
                 or not x.is_contiguous() or x.device != code.device):
@@ -442,45 +545,83 @@ def onehot_segment_sums(code: torch.Tensor, lanes: tuple[torch.Tensor, ...],
                              f"1-D int64/int32/bool/float64 of the codes' "
                              f"shape and device, got {x.dtype} "
                              f"{tuple(x.shape)} on {x.device}")
-    if dp < 1 or dp * k > ONEHOT_MAX_ENTRIES:
+    for pair in products:
+        if (len(pair) != 2 or not all(0 <= j < len(lanes) for j in pair)
+                or any(lanes[j].dtype == torch.float64 for j in pair)):
+            raise ValueError(f"onehot_segment_sums: a product is two "
+                             f"indices of integer or bool lanes, got {pair}")
+    k = len(lanes) + len(products) + bool(counts)
+    if not 1 <= k <= ONEHOT_MAX_LANES:
+        raise ValueError(f"onehot_segment_sums takes 1..{ONEHOT_MAX_LANES} "
+                         f"lanes, got {k}")
+    row_bytes = (len(key_cols) * code.element_size()
+                 + (row_mask is not None) + sum(x.element_size()
+                                                for x in lanes))
+    arrays = len(key_cols) + (row_mask is not None) + len(lanes)
+    if dp < 1 or not _onehot_fits(dp, k, row_bytes, arrays):
         raise ValueError(f"onehot_segment_sums: {dp} slots x {k} lanes do "
                          f"not fit one block's shared memory (at most "
-                         f"{ONEHOT_MAX_ENTRIES} entries)")
+                         f"{ONEHOT_MAX_ENTRIES} entries, fewer beside rows "
+                         f"wider than {4 + 8 * ONEHOT_MAX_LANES} bytes)")
     _check_device(code, "onehot_segment_sums")
+    ONEHOT_FORMS["keyed" if keyed else "code"] += 1
     if code.device.type == "cpu":
-        return onehot_segment_sums_plain(code, lanes, dp)
+        return onehot_segment_sums_plain(
+            code, lanes, dp, keys=keys, mins=mins if keyed else None,
+            strides=strides, row_mask=row_mask, products=products,
+            counts=counts)
     out = torch.zeros((dp, k), dtype=torch.int64, device=code.device)
     n = code.shape[0]
     if n == 0:
         return out
     lib = build()
-    x_ptrs = (_vp * k)(*[x.data_ptr() for x in lanes])
-    dtypes = (ctypes.c_int * k)(*[ONEHOT_DTYPES.index(x.dtype)
-                                  for x in lanes])
+    lane_a, lane_b = _onehot_lanes(len(lanes), products, counts)
+    ints = ctypes.c_int * k
     with torch.cuda.device(code.device):
         stream = torch.cuda.current_stream(code.device).cuda_stream
-        rc = lib.aq_onehot_segment_sums(code.data_ptr(), k, x_ptrs, dtypes,
-                                        dp, n, out.data_ptr(), stream)
+        rc = lib.aq_onehot_segment_sums(
+            len(key_cols), _ONEHOT_CODES.index(code.dtype),
+            (_vp * len(key_cols))(*[x.data_ptr() for x in key_cols]),
+            (ctypes.c_longlong * len(mins))(*mins),
+            (ctypes.c_longlong * len(strides))(*strides),
+            None if row_mask is None else row_mask.data_ptr(), len(lanes),
+            (_vp * len(lanes))(*[x.data_ptr() for x in lanes]),
+            (ctypes.c_int * len(lanes))(*[_ONEHOT_CODES.index(x.dtype)
+                                          for x in lanes]),
+            k, ints(*lane_a), ints(*lane_b), dp, n, out.data_ptr(), stream)
     _check(lib, "onehot_segment_sums", rc)
     LAUNCHES["onehot_segment_sums"] += 1
     for x in lanes:
         ONEHOT_LANES[str(x.dtype).removeprefix("torch.")] += 1
+    ONEHOT_LANES["product"] += len(products)
+    ONEHOT_LANES["count"] += bool(counts)
     return out
 
 
-def onehot_route(dp: int, dtypes: tuple[torch.dtype, ...],
-                 n: int) -> dict[str, int]:
+def onehot_route(dp: int, dtypes: tuple[torch.dtype, ...], n: int, *,
+                 keys: tuple[torch.dtype, ...] = (torch.int32,),
+                 row_mask: bool = False,
+                 products: tuple[tuple[int, int], ...] = (),
+                 counts: bool = False) -> dict[str, int]:
     """The launch onehot_segment_sums makes on the card for dp slots, lanes
-    of these dtypes (any of ``ONEHOT_DTYPES``) and n rows: private (1: one
-    copy of the accumulators per thread, plain adds) or shared (0: copies
-    shared by a warp, shared atomics), copies per block, threads, blocks,
-    tile rows, dynamic shared memory per block, blocks an SM holds and one
-    stage buffer's bytes."""
+    of these dtypes (any of ``ONEHOT_DTYPES``), n rows and, for the keyed
+    form, the key columns' dtypes (one of ``ONEHOT_KEY_DTYPES``, all
+    alike; the code form's is one int32 code), whether a row mask is
+    read, the products and the row count: private (1: one copy of the
+    accumulators per thread, plain adds) or shared (0: copies shared by a
+    warp, shared atomics), copies per block, threads, blocks, tile rows,
+    dynamic shared memory per block, blocks an SM holds and one stage
+    buffer's bytes."""
     lib = build()
-    k = len(dtypes)
-    codes = (ctypes.c_int * k)(*[ONEHOT_DTYPES.index(d) for d in dtypes])
+    nsrc = len(dtypes)
+    lane_a, lane_b = _onehot_lanes(nsrc, tuple(products), counts)
+    k = len(lane_a)
+    ints = ctypes.c_int * k
+    codes = (ctypes.c_int * nsrc)(*[_ONEHOT_CODES.index(d) for d in dtypes])
     info = (ctypes.c_int * len(ONEHOT_ROUTE_KEYS))()
-    _check(lib, "onehot_route", lib.aq_onehot_route(k, codes, dp, n, info))
+    _check(lib, "onehot_route", lib.aq_onehot_route(
+        len(keys), _ONEHOT_CODES.index(keys[0]), int(row_mask), nsrc, codes,
+        k, ints(*lane_a), ints(*lane_b), dp, n, info))
     return dict(zip(ONEHOT_ROUTE_KEYS, info))
 
 

@@ -9,7 +9,9 @@ extraction); the port keeps what they compute:
   through the onehot_segment_sums kernel (one call per 8 lanes, so the
   codes are read once for up to 8 of them), and ``scatter_reduce_``
   min/max from the same sentinels (the JAX package leaves those to XLA
-  too).
+  too). ``segment_reduce_keyed`` is the same sums in the kernel's keyed
+  form: no codes, validity or products are made, the kernel reads the
+  key and argument columns as they are stored.
 * ``sorted_group_reduce`` (the packed tier): segmented scans over the
   sorted rows, whose value at each group's last row is the group's
   aggregate — sums through the seg_cumsum_i64 kernel in native int64,
@@ -87,6 +89,73 @@ def segment_reduce(code: torch.Tensor, add_lanes: dict[str, torch.Tensor],
     for t, col in max_lanes.items():
         outs[t] = torch.full((dp,), small_of(col.dtype), dtype=col.dtype,
                              device=dev).scatter_reduce_(0, idx, col, "amax")
+    return outs
+
+
+def segment_reduce_keyed(keys: list[torch.Tensor], mins: list[int],
+                         strides: list[int], row_mask: torch.Tensor | None,
+                         n: int, add_lanes: dict, f64_lanes: dict,
+                         domain: int) -> dict[str, torch.Tensor]:
+    """Reduce rows [0, n) into ``domain`` dense slots with onehot_segment_sums'
+    keyed form: a row's slot is the sum of (key - min) * stride over the
+    key columns as stored, and a row whose ``row_mask`` is False is
+    dropped. An add lane is an integer or bool tensor (summed exactly in
+    int64), a pair (a, b) of them (the sum of a * b in int64) or None
+    (the slot's row count); f64 lanes are float64 sums. Columns of at
+    least n rows; one call per 8 columns, an aggregate's product beside
+    its sources where they fit. Returns tag → [domain] tensors."""
+    widened: dict[int, tuple] = {}
+
+    def lane(x: torch.Tensor) -> torch.Tensor:
+        """x as the kernel takes it, once per tensor, cut to n rows."""
+        if id(x) not in widened:
+            w = (x.to(torch.float64) if x.is_floating_point()
+                 else _sum_lane(x))[:n]
+            widened[id(x)] = (x, w)       # x kept, so that its id stays
+        return widened[id(x)][1]
+
+    calls: list[dict] = []
+    for t, c in ({**add_lanes, **f64_lanes}).items():
+        srcs = [] if c is None else [lane(x) for x in
+                                     (c if isinstance(c, tuple) else (c,))]
+        call = calls[-1] if calls else None
+        if call is not None:
+            new = {id(x) for x in srcs} - {id(x) for x in call["src"]}
+            width = (len(call["src"]) + len(call["prod"]) + call["count"]
+                     + len(new) + (isinstance(c, tuple)
+                                   or (c is None and not call["count"])))
+            if width > K.ONEHOT_MAX_LANES:
+                call = None
+        if call is None:
+            call = {"src": [], "prod": [], "count": False, "tags": {}}
+            calls.append(call)
+        ids = [id(x) for x in call["src"]]
+        for x in srcs:
+            if id(x) not in ids:
+                call["src"].append(x)
+                ids.append(id(x))
+        if c is None:
+            call["count"] = True
+            call["tags"][t] = "count"
+        elif isinstance(c, tuple):
+            call["prod"].append(tuple(ids.index(id(x)) for x in srcs))
+            call["tags"][t] = ("prod", len(call["prod"]) - 1)
+        else:
+            call["tags"][t] = ids.index(id(srcs[0]))
+    key_cols = [x.contiguous()[:n] for x in keys]
+    mask = None if row_mask is None else row_mask.contiguous()[:n]
+    outs: dict[str, torch.Tensor] = {}
+    for call in calls:
+        nsrc, nprod = len(call["src"]), len(call["prod"])
+        sums = K.onehot_segment_sums(
+            key_cols[0], tuple(call["src"]), domain, keys=tuple(key_cols[1:]),
+            mins=tuple(mins), strides=tuple(strides), row_mask=mask,
+            products=tuple(call["prod"]), counts=call["count"])
+        for t, j in call["tags"].items():
+            j = (nsrc + nprod if j == "count"
+                 else nsrc + j[1] if isinstance(j, tuple) else j)
+            outs[t] = (sums[:, j].view(torch.float64) if t in f64_lanes
+                       else sums[:, j])
     return outs
 
 

@@ -195,6 +195,7 @@ no CUDA card is available or the package is missing.
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import os
 import re
@@ -774,36 +775,37 @@ def check_multi(rng, dev, flags, x64):
 
 
 def capture_onehot(dev, data) -> dict:
-    """The (code, lanes, dp) of the first onehot_segment_sums call of each
-    dense query (q1 q2 q4 q9, and qjg's group-by) on G1_1e7_1e1_0_0 and
-    its dim table: the main path's inputs, its lanes as
-    fused_groupby._build_lanes builds them."""
+    """The (code, lanes, dp, keywords) of the first onehot_segment_sums
+    call of each dense query (q1 q2 q4 q9, and qjg's group-by) on
+    G1_1e7_1e1_0_0 and its dim table: the main path's inputs, its lanes
+    as fused_groupby._build_lanes builds them (the keyed form's: the
+    stored columns)."""
     db = connect(device=dev)
     load(db, "source", data, dev)
     load(db, "dim", h2o_dim(ROWS, K_GROUPS, SEED), dev)
     calls = {}
     for q in ONEHOT_SHAPES:
-        code, lanes, dp = capture_first(
+        (code, lanes, dp), kw = capture_first(
             "onehot_segment_sums", lambda: db.execute(QUERIES[q]))
-        calls[q] = (code, tuple(lanes), dp)
+        calls[q] = (code, tuple(lanes), dp, kw)
     return calls
 
 
 def capture_q4_double(dev, data):
-    """The (code, lanes, dp) of q4's onehot_segment_sums call over the
-    columns q4 reads, v3 a DOUBLE as db-benchmark's groupby-datagen.R
+    """The (code, lanes, dp, keywords) of q4's onehot_segment_sums call over
+    the columns q4 reads, v3 a DOUBLE as db-benchmark's groupby-datagen.R
     writes it (datagen.h2o_g1 makes it float32): the kernel's float64 lane
     on the main path."""
     db = connect(device=dev)
     load(db, "source", {"id4": data["id4"], "v1": data["v1"],
                         "v2": data["v2"],
                         "v3": data["v3"].astype(np.float64)}, dev)
-    code, lanes, dp = capture_first(
+    (code, lanes, dp), kw = capture_first(
         "onehot_segment_sums", lambda: db.execute(QUERIES["q4"]))
     if [x.dtype for x in lanes].count(torch.float64) != 1:
         raise AssertionError(f"q4 with v3 a DOUBLE summed lanes of "
                              f"{[x.dtype for x in lanes]}")
-    return code, tuple(lanes), dp
+    return code, tuple(lanes), dp, kw
 
 
 def onehot_close(label: str, got, want, lanes) -> float:
@@ -815,7 +817,7 @@ def onehot_close(label: str, got, want, lanes) -> float:
     float64 adds in another order). Raises otherwise; returns the largest
     normwise error (0 without a float64 lane)."""
     f64 = [j for j, x in enumerate(lanes) if x.dtype == torch.float64]
-    ints = [j for j in range(len(lanes)) if j not in f64]
+    ints = [j for j in range(got.shape[1]) if j not in f64]
     if ints and not torch.equal(got[:, ints], want[:, ints]):
         raise AssertionError(f"onehot_segment_sums differs ({label}): max "
                              f"|err| {max_abs_err(got[:, ints], want[:, ints])}")
@@ -840,45 +842,66 @@ def onehot_close(label: str, got, want, lanes) -> float:
     return err
 
 
-def onehot_library(code, lanes, dp):
+def onehot_library(code, lanes, dp, **kw):
     """The library calls that compute onehot_segment_sums' function,
     prepared outside any timing (the port calls none of them): one
-    index_add_ of the integer and bool lanes as an [n, k] int64 source and
-    one float64 index_add_ a float64 lane. Returns the call, which gives
-    the [dp, k] int64 output, float64 columns as their bits."""
-    code64 = code.to(torch.int64)
-    f64 = [j for j, x in enumerate(lanes) if x.dtype == torch.float64]
-    ints = [j for j in range(len(lanes)) if j not in f64]
-    src = torch.stack([lanes[j].to(torch.int64) for j in ints], 1)
+    index_add_ of the integer and bool columns (a keyed call's products
+    and row count among them, over its slots as K.onehot_slots makes
+    them, the dropped rows in a last slot cut off) as an [n, k] int64
+    source and one float64 index_add_ a float64 lane. Returns the call,
+    which gives the [dp, k] int64 output, float64 columns as their bits."""
+    size = dp + 1 if "mins" in kw else dp
+    code64 = (K.onehot_slots(code, dp, kw.get("keys", ()), kw["mins"],
+                             kw["strides"], kw.get("row_mask"))
+              if "mins" in kw else code.to(torch.int64))
+    cols = (*lanes, *(lanes[a].to(torch.int64) * lanes[b].to(torch.int64)
+                      for a, b in kw.get("products", ())),
+            *((torch.ones_like(code64),) if kw.get("counts") else ()))
+    f64 = [j for j, x in enumerate(cols) if x.dtype == torch.float64]
+    ints = [j for j in range(len(cols)) if j not in f64]
+    src = torch.stack([cols[j].to(torch.int64) for j in ints], 1)
 
     def library():
-        out = torch.zeros(dp, len(lanes), dtype=torch.int64,
+        out = torch.zeros(size, len(cols), dtype=torch.int64,
                           device=code.device)
-        out[:, ints] = torch.zeros(dp, len(ints), dtype=torch.int64,
+        out[:, ints] = torch.zeros(size, len(ints), dtype=torch.int64,
                                    device=code.device).index_add_(
             0, code64, src)
         for j in f64:
-            out[:, j] = torch.zeros(dp, dtype=torch.float64,
+            out[:, j] = torch.zeros(size, dtype=torch.float64,
                                     device=code.device).index_add_(
-                0, code64, lanes[j]).view(torch.int64)
-        return out
+                0, code64, cols[j]).view(torch.int64)
+        return out[:dp]
     return library
 
 
-def onehot_bytes(code, lanes, out) -> int:
-    """onehot_segment_sums' bytes: the codes and every lane read once,
-    the [dp, k] output written once."""
-    return (code.numel() * code.element_size()
-            + sum(x.numel() * x.element_size() for x in lanes)
+def onehot_bytes(code, lanes, out, **kw) -> int:
+    """onehot_segment_sums' bytes: the codes (or keys and row mask) and
+    every lane read once, the [dp, k] output written once."""
+    read = (code, *kw.get("keys", ()), *lanes,
+            *([kw["row_mask"]] if kw.get("row_mask") is not None else []))
+    return (sum(x.numel() * x.element_size() for x in read)
             + out.numel() * out.element_size())
 
 
-def route_line(dp, lanes, n) -> str:
-    r = K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
+def route_line(dp, lanes, n, code=None, **kw) -> str:
+    r = onehot_route_of(code, dp, lanes, n, **kw)
     return (f"{'private' if r['private'] else 'shared'} route, "
             f"{r['copies']} copies, {r['threads']} threads x {r['blocks']} "
             f"blocks ({r['blocks_per_sm']} an SM), {r['tile_rows']}-row "
             f"tiles, {r['smem']} B shared memory a block")
+
+
+def onehot_route_of(code, dp, lanes, n, **kw) -> dict:
+    """K.onehot_route for a call's code (its first key), lanes and
+    keywords."""
+    if "mins" not in kw:
+        return K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
+    return K.onehot_route(
+        dp, tuple(x.dtype for x in lanes), n,
+        keys=(code.dtype,) * (1 + len(kw.get("keys", ()))),
+        row_mask=kw.get("row_mask") is not None,
+        products=kw.get("products", ()), counts=kw.get("counts", False))
 
 
 def private_limit(dtypes) -> int:
@@ -1042,23 +1065,26 @@ def check_onehot(rng, dev, data):
         raise AssertionError(f"dense queries called onehot_segment_sums: "
                              f"{sorted(inputs)}")
     inputs["q4@float64"] = capture_q4_double(dev, data)
-    for q, (code, ls, dp) in inputs.items():
-        got = K.onehot_segment_sums(code, ls, dp)
-        onehot_close(q, got, K.onehot_segment_sums_plain(code, ls, dp), ls)
-        library = onehot_library(code, ls, dp)
+    for q, (code, ls, dp, kw) in inputs.items():
+        got = K.onehot_segment_sums(code, ls, dp, **kw)
+        onehot_close(q, got, K.onehot_segment_sums_plain(code, ls, dp, **kw),
+                     ls)
+        library = onehot_library(code, ls, dp, **kw)
         onehot_close(f"the library calls at {q}", library(), got, ls)
         kinds = ", ".join(str(x.dtype).removeprefix("torch.") for x in ls)
+        form = (f"keyed ({1 + len(kw.get('keys', ()))} keys, "
+                f"{len(kw.get('products', ()))} products)" if kw else "code")
         print(f"# onehot_segment_sums at {q}: {code.numel()} rows, dp {dp}, "
-              f"lanes ({kinds}): {route_line(dp, ls, code.numel())}",
-              flush=True)
+              f"{form} form, lanes ({kinds}): "
+              f"{route_line(dp, ls, code.numel(), code, **kw)}", flush=True)
         timed[q] = time_shape(
             f"onehot_segment_sums at {q}'s inputs (dp {dp}, {len(ls)} "
-            f"lanes)", lambda: K.onehot_segment_sums(code, ls, dp),
-            lambda: K.onehot_segment_sums_plain(code, ls, dp),
-            onehot_bytes(code, ls, got))
+            f"lanes, {form} form)",
+            lambda: K.onehot_segment_sums(code, ls, dp, **kw),
+            lambda: K.onehot_segment_sums_plain(code, ls, dp, **kw),
+            onehot_bytes(code, ls, got, **kw))
         timed[q]["library_ms"] = cuda_ms(library)
-        timed[q]["route"] = K.onehot_route(dp, tuple(x.dtype for x in ls),
-                                           code.numel())
+        timed[q]["route"] = onehot_route_of(code, dp, ls, code.numel(), **kw)
         print(f"# the library calls (index_add_ of the integer lanes as an "
               f"[n, k] int64 source, and of each float64 lane) at {q}: "
               f"{timed[q]['library_ms']:.4f} ms", flush=True)
@@ -3625,13 +3651,14 @@ class PlanProbe:
 
 
 def capture_first(name: str, run):
-    """The arguments of the first K.<name> call that run() makes."""
+    """The arguments and keywords of the first K.<name> call that run()
+    makes."""
     real, got = getattr(K, name), []
 
-    def spy(*a):
+    def spy(*a, **kw):
         if not got:
-            got.append(a)
-        return real(*a)
+            got.append((a, kw))
+        return real(*a, **kw)
     setattr(K, name, spy)
     try:
         run()
@@ -3641,7 +3668,7 @@ def capture_first(name: str, run):
     return got[0]
 
 
-def kernel_at_1e8(name: str, args, rows: list[dict],
+def kernel_at_1e8(name: str, call, rows: list[dict],
                   query: str | None = None, key: str = "g1_1e8") -> None:
     """One kernel at a phase-12 query's inputs (query, by default
     KERNEL_AT_1E8's): equal to its plain version (integers exactly; a
@@ -3651,8 +3678,9 @@ def kernel_at_1e8(name: str, args, rows: list[dict],
     that compute the same sums, onehot_library), added to its row of the
     kernel report under key."""
     query = query or KERNEL_AT_1E8[name]
-    kernel = getattr(K, name)
-    plain = getattr(K, name + "_plain")
+    args, kw = call
+    kernel = functools.partial(getattr(K, name), **kw)
+    plain = functools.partial(getattr(K, name + "_plain"), **kw)
     got, want = kernel(*args), plain(*args)
     if name == "onehot_segment_sums":
         onehot_close(f"{query} at 1e8", got, want, args[1])
@@ -3666,8 +3694,8 @@ def kernel_at_1e8(name: str, args, rows: list[dict],
                                      f"{max_abs_err(g, w)}")
     if name == "onehot_segment_sums":
         code, lanes, dp = args
-        nbytes = onehot_bytes(code, lanes, got)
-        library = onehot_library(code, lanes, dp)
+        nbytes = onehot_bytes(code, lanes, got, **kw)
+        library = onehot_library(code, lanes, dp, **kw)
         onehot_close(f"the library calls at {query} at 1e8", library(), got,
                      lanes)
         lib_ms = cuda_ms(library, reps=3)
@@ -3687,7 +3715,7 @@ def kernel_at_1e8(name: str, args, rows: list[dict],
           "ms": ms, "plain_ms": pms, "bytes": nbytes, "bound_ms": b,
           "share_of_bound": b / ms, "library_ms": lib_ms}
     if name == "onehot_segment_sums":
-        at["route"] = K.onehot_route(dp, tuple(x.dtype for x in lanes), n)
+        at["route"] = onehot_route_of(code, dp, lanes, n, **kw)
     next(r for r in rows if r["name"] == name)[key] = at
     print(f"# {name} at {query}'s inputs at 1e8 ({shape}, {n} rows): "
           f"equal to its plain version; kernel {ms:.4f} ms (median of 10), "
@@ -3776,13 +3804,13 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
     print(f"# the numpy oracle took {oracle_s:.1f} s for the 12 queries",
           flush=True)
     for name, q in KERNEL_AT_1E8.items():
-        args = capture_first(name, lambda: db.execute(QUERIES[q]))
-        kernel_at_1e8(name, args, rows)
-        del args
-    args = capture_q4_double(dev, data)
-    kernel_at_1e8("onehot_segment_sums", args, rows, "q4@float64",
-                  "g1_1e8_q4_float64")
-    del args
+        call = capture_first(name, lambda: db.execute(QUERIES[q]))
+        kernel_at_1e8(name, call, rows)
+        del call
+    *args, kw = capture_q4_double(dev, data)
+    kernel_at_1e8("onehot_segment_sums", (tuple(args), kw), rows,
+                  "q4@float64", "g1_1e8_q4_float64")
+    del args, kw
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     print(f"# phase 12 took {time.perf_counter() - t_start:.1f} s; the "
           f"process's peak RSS {rss:.2f} GiB", flush=True)

@@ -486,6 +486,132 @@ def test_onehot_segment_sums_checks_inputs():
         K.onehot_segment_sums(code, (lane[:9],), 3)
 
 
+_KEY_IDS = [np.dtype(d).name for d in C.KEY_DTYPES]
+
+
+@pytest.mark.parametrize("dtype", C.KEY_DTYPES, ids=_KEY_IDS)
+@pytest.mark.parametrize("nkeys", [1, 2, 3, 4])
+def test_onehot_keyed_form_matches_code_form_and_pallas(nkeys, dtype, rng):
+    """The keyed form (1 to 4 keys of each integer dtype, at both ends of
+    the dtype's range; 4,099 of 5,120 rows, garbage past them; a row
+    mask; int32 lanes near ±2^31 with their products, a bool and an int64
+    lane; the row count) equal to the code form on the code the dense
+    tier built from the same columns (the overflow slot cut), and to
+    _pallas_onehot_reduce on that code, column for column; the int32
+    lanes' own sums to np.add.at instead (the JAX package's digit split
+    reads an int32 at or above 2^30 as negative: 2^31 - 5 sums as
+    -(2^31 + 5))."""
+    case = C.keyed_case(rng, nkeys, dtype, 4099, 5120)
+    code, lanes, dp, kw = C.keyed_args(case)
+    got = K.onehot_segment_sums(code, lanes, dp, **kw)
+    assert tuple(got.shape) == (dp, 8)
+    assert torch.equal(got, K.onehot_segment_sums_plain(code, lanes, dp,
+                                                        **kw))
+    dense = C.dense_code(case)
+    cols = C.dense_columns(case)
+    want = K.onehot_segment_sums(torch.from_numpy(dense),
+                                 tuple(torch.from_numpy(x) for x in cols),
+                                 dp + 1)
+    assert torch.equal(got, want[:dp])
+    jw = JR._pallas_onehot_reduce(
+        jnp.asarray(dense),
+        {str(j): jnp.asarray(x) for j, x in enumerate(cols)}, dp,
+        interpret=True)
+    for j, x in enumerate(cols):
+        want = (_add_at(dense, x, dp + 1) if x.dtype == np.int32
+                else np.asarray(jw[str(j)]))
+        np.testing.assert_array_equal(got[:, j].numpy(), want[:dp],
+                                      err_msg=str(j))
+
+
+@pytest.mark.parametrize("case", ["float64", "out_of_range", "no_mask",
+                                  "counts_only", "max_entries",
+                                  "one_key_int32"])
+def test_onehot_keyed_form_edges(case, rng):
+    """The keyed form's edges against numpy: a float64 lane within 1e-12
+    normwise of math.fsum (the integer columns as the code form gives
+    them); keys outside their ranges dropped; no row mask; the row count
+    alone; dp · k at ONEHOT_MAX_ENTRIES; and one int32 key of minimum 0
+    and stride 1, which is the code form."""
+    n, cap = 3001, 3333
+    if case == "max_entries":
+        dp = K.ONEHOT_MAX_ENTRIES // 2
+        c = C.keyed_case(rng, 1, np.int32, n, cap, ranges=(dp,))
+        c["lanes"], c["products"] = c["lanes"][:1], ()
+    else:
+        c = C.keyed_case(rng, 2, np.int16, n, cap, f64=case == "float64",
+                         mask=case != "no_mask")
+    if case == "counts_only":
+        c["lanes"], c["products"] = [], ()
+    if case == "one_key_int32":
+        c = C.keyed_case(rng, 1, np.int32, n, cap, ranges=(77,), mask=False)
+        c["keys"][0] -= np.int32(-2**31)             # min 0, stride 1
+        c["mins"] = [0]
+    code, lanes, dp, kw = C.keyed_args(c)
+    if case == "out_of_range":
+        bad = torch.from_numpy(rng.random(n) < 0.1)
+        code = code.clone()
+        code[bad] = torch.tensor([-2**15, 2**15 - 1], dtype=torch.int16)[
+            torch.arange(int(bad.sum())) % 2]
+    got = K.onehot_segment_sums(code, lanes, dp, **kw)
+    slot = np.zeros(n, np.int64)
+    for k, mn, st in zip((code, *kw["keys"]), kw["mins"], kw["strides"]):
+        slot += (k.numpy().astype(np.int64) - mn) * st
+    keep = (slot >= 0) & (slot < dp)
+    if kw["row_mask"] is not None:
+        keep &= kw["row_mask"].numpy()
+    s = slot[keep]
+    cols = [x.numpy()[keep] for x in lanes] + [
+        lanes[a].numpy()[keep].astype(np.int64)
+        * lanes[b].numpy()[keep].astype(np.int64) for a, b in kw["products"]]
+    assert tuple(got.shape) == (dp, len(cols) + 1)
+    for j, v in enumerate(cols):
+        if v.dtype == np.float64:
+            f = got[:, j].view(torch.float64)
+            assert C.normwise_error(f, C.fsum_slots(
+                torch.from_numpy(s), torch.from_numpy(v), dp)) <= C.F64_RTOL
+        else:
+            np.testing.assert_array_equal(got[:, j].numpy(), _add_at(s, v, dp))
+    np.testing.assert_array_equal(got[:, -1].numpy(), np.bincount(s, None, dp))
+    if case == "one_key_int32":
+        plain = K.onehot_segment_sums(code, lanes, dp)
+        assert torch.equal(got[:, :len(lanes)], plain)
+
+
+def test_onehot_keyed_form_checks_inputs():
+    """The keyed form refuses keys of two dtypes, a float64 factor, more
+    than 4 keys, a row mask that is not bool, more than 8 columns, its
+    keywords without mins, and accumulators that do not fit beside its
+    rows; every call counts in ONEHOT_FORMS, on the CPU too."""
+    k8 = torch.zeros(10, dtype=torch.int8)
+    k64 = torch.zeros(10, dtype=torch.int64)
+    x = torch.ones(10, dtype=torch.int32)
+    f = torch.ones(10, dtype=torch.float64)
+    before = dict(K.ONEHOT_FORMS)
+    K.onehot_segment_sums(k8, (x,), 3, keys=(k8,), mins=(0, 0),
+                          strides=(1, 1), counts=True)
+    K.onehot_segment_sums(k8.to(torch.int32), (x,), 3)
+    assert K.ONEHOT_FORMS == {"keyed": before["keyed"] + 1,
+                              "code": before["code"] + 1}
+    bad = [dict(keys=(k64,), mins=(0, 0), strides=(1, 1)),
+           dict(mins=(0,), strides=(1,), products=((0, 1),), lanes=(x, f)),
+           dict(keys=(k8,) * 4, mins=(0,) * 5, strides=(1,) * 5),
+           dict(mins=(0,), strides=(1,), row_mask=x),
+           dict(mins=(0,), strides=(1,), lanes=(x,) * 8, counts=True),
+           dict(counts=True), dict(row_mask=x.bool()),
+           dict(mins=(0,), strides=(1,), keys=(k64, k64, k64),
+                lanes=(k64,) * 8, dp=K.ONEHOT_MAX_ENTRIES // 8)]
+    code = {0: k8, 1: k8, 2: k8, 3: k8, 4: k8, 5: k8.to(torch.int32),
+            6: k8.to(torch.int32), 7: k64}
+    for i, kw in enumerate(bad):
+        lanes = kw.pop("lanes", (x,))
+        dp = kw.pop("dp", 3)
+        with pytest.raises(ValueError):
+            K.onehot_segment_sums(code[i], lanes, dp, **kw)
+    K.onehot_segment_sums(k8.to(torch.int32), (k64,) * 8,
+                          K.ONEHOT_MAX_ENTRIES // 8, mins=(0,), strides=(1,))
+
+
 # --- fused_running_stats and best_profit ------------------------------------
 
 def _running_x(case, rng, cap):

@@ -163,13 +163,19 @@ def test_ptxas_report_names_the_scans(tmp_path, monkeypatch):
 
 
 def test_ptxas_report_names_onehot_routes():
-    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi5ELb1ELb0EEEvNS_6Para"
-                          "msE") == "onehot_segment_sums 5 lanes, private"
-    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi8ELb0ELb0EEEvNS_6Para"
-                          "msE") == "onehot_segment_sums 8 lanes, shared"
-    assert K._kernel_name("_ZN9aq_onehot11onehot_sumsILi6ELb0ELb1EEEvNS_6Para"
-                          "msE") == ("onehot_segment_sums 6 lanes, shared, "
-                                     "float64")
+    def name(args):
+        return K._kernel_name(f"_ZN9aq_onehot11onehot_sumsI{args}EEvNS_6Para"
+                              f"msE")
+    assert name("Li5ELb1ELb0ELi0E") == ("onehot_segment_sums 5 lanes, "
+                                        "private, code")
+    assert name("Li8ELb0ELb0ELi0E") == ("onehot_segment_sums 8 lanes, "
+                                        "shared, code")
+    assert name("Li6ELb0ELb1ELi0E") == ("onehot_segment_sums 6 lanes, "
+                                        "shared, float64, code")
+    assert name("Li6ELb0ELb0ELi2E") == ("onehot_segment_sums 6 lanes, "
+                                        "shared, 2 keys")
+    assert name("Li4ELb1ELb1ELi1E") == ("onehot_segment_sums 4 lanes, "
+                                        "private, float64, 1 key")
 
 
 def test_lookback_diag_summarizes_tile_records():
@@ -624,6 +630,155 @@ def test_onehot_float64_edges_on_card(case):
             ).to(dev) for dt in dtypes)
             assert torch.equal(K.onehot_segment_sums(code, ls, dp),
                                K.onehot_segment_sums_plain(code, ls, dp))
+
+
+_KEY_IDS = [np.dtype(d).name for d in C.KEY_DTYPES]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", C.KEY_DTYPES, ids=_KEY_IDS)
+@pytest.mark.parametrize("nkeys", [1, 2, 3, 4])
+def test_onehot_keyed_form_on_card(nkeys, dtype):
+    """The keyed form on the card against its plain version: 1 to 4 keys of
+    each integer dtype at both ends of the dtype's range, a row mask,
+    int32 lanes near ±2^31 with their products, a bool lane, an int64 or
+    a float64 lane, the row count; over three tiles and 77 rows, the
+    columns at element offsets 0, 1 and 3 (the keys, the mask and the
+    lanes off 16-byte boundaries), garbage past the rows taken. Integer
+    columns bit for bit, a float64 lane within 1e-12 normwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(nkeys * 10 + _KEY_IDS.index(
+        np.dtype(dtype).name))
+    dev = torch.device("cuda")
+    for f64 in (False, True):
+        lane_dts = (torch.int32, torch.int32, torch.bool,
+                    torch.float64 if f64 else torch.int64)
+        tile = K.onehot_route(
+            int(np.prod(C.KEY_RANGES[nkeys])), lane_dts, 1 << 20,
+            keys=(torch.from_numpy(np.zeros(1, dtype)).dtype,) * nkeys,
+            row_mask=True, products=C.KEYED_PRODUCTS, counts=True)[
+                "tile_rows"]
+        n = 3 * tile + 77
+        case = C.keyed_case(rng, nkeys, dtype, n + 3, n + 99, f64=f64)
+        for off in (0, 1, 3):
+            code, lanes, dp, kw = C.keyed_args(case, dev, off)
+            got = K.onehot_segment_sums(code, lanes, dp, **kw)
+            C.keyed_equal(got, K.onehot_segment_sums_plain(
+                code, lanes, dp, **kw), lanes)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["out_of_range", "counts_only", "ragged",
+                                  "one_slot", "max_entries", "many_tiles",
+                                  "code_form_is_one_int32_key"])
+def test_onehot_keyed_edges_on_card(case):
+    """The keyed form's edges on the card against its plain version: keys
+    outside their ranges dropped; the row count alone; 1, 1,023 and 1,025
+    rows; every row in one slot (a float64 lane's warp sums) on both
+    routes; dp · k at ONEHOT_MAX_ENTRIES; rows enough that each block of
+    the persistent grid walks four tiles and more; and one int32 key of
+    minimum 0 and stride 1 equal to the code form's call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    rng = np.random.default_rng(11 + len(case))
+    dev = torch.device("cuda")
+
+    def check(c, off=0):
+        code, lanes, dp, kw = C.keyed_args(c, dev, off)
+        got = K.onehot_segment_sums(code, lanes, dp, **kw)
+        C.keyed_equal(got, K.onehot_segment_sums_plain(code, lanes, dp,
+                                                       **kw), lanes)
+        return got
+    if case == "out_of_range":
+        for nkeys in (1, 2):
+            c = C.keyed_case(rng, nkeys, np.int32, 30_000, 30_000, f64=True)
+            bad = rng.random(30_000) < 0.1
+            c["keys"][0][bad] = rng.integers(-2**31, 2**31 - 1, int(bad.sum()))
+            check(c, 1)
+    elif case == "counts_only":
+        c = C.keyed_case(rng, 2, np.int64, 50_000, 50_003)
+        c["lanes"], c["products"] = [], ()
+        check(c, 3)
+    elif case == "ragged":
+        for n in (1, 1023, 1025):
+            for f64 in (False, True):
+                check(C.keyed_case(rng, 3, np.int16, n, n + 5, f64=f64))
+    elif case == "one_slot":
+        for ranges in ((11,), (101,), (513,)):
+            c = C.keyed_case(rng, 1, np.int8 if ranges[0] < 200 else np.int16,
+                             40_000, 40_000, f64=True, ranges=ranges)
+            c["keys"][0][:] = c["mins"][0] + ranges[0] - 1
+            check(c)
+    elif case == "max_entries":
+        dp = K.ONEHOT_MAX_ENTRIES // 2
+        c = C.keyed_case(rng, 1, np.int32, 60_000, 60_000, ranges=(dp,))
+        c["lanes"], c["products"] = c["lanes"][:1], ()
+        check(c, 1)
+    elif case == "many_tiles":
+        for nkeys, f64 in ((1, True), (2, False), (4, True)):
+            dp = int(np.prod(C.KEY_RANGES[nkeys]))
+            dts = (torch.int32, torch.int32, torch.bool,
+                   torch.float64 if f64 else torch.int64)
+            r = K.onehot_route(dp, dts, 1 << 26, keys=(torch.int32,) * nkeys,
+                               row_mask=True, products=C.KEYED_PRODUCTS,
+                               counts=True)
+            n = 4 * r["blocks"] * r["tile_rows"] + 123
+            check(C.keyed_case(rng, nkeys, np.int32, n, n + 1, f64=f64), 1)
+    else:
+        c = C.keyed_case(rng, 1, np.int32, 30_000, 30_000, ranges=(101,),
+                         mask=False)
+        c["keys"][0] -= np.int32(-2**31)             # min 0, stride 1
+        c["mins"], c["products"] = [0], ()
+        code, lanes, dp, kw = C.keyed_args(c, dev)
+        got = check(c)
+        assert torch.equal(got[:, :len(lanes)],
+                           K.onehot_segment_sums(code, lanes, dp))
+
+
+@pytest.mark.gpu
+def test_dense_tier_keyed_form_at_g1_shapes_on_card():
+    """q1, q2, q4 (v3 a DOUBLE, as the benchmark's G1), q9 and a WHERE on
+    G1 at 1e7 rows on the card: each dense query makes one
+    onehot_segment_sums call, in the keyed form, reading the stored
+    columns (no product, code or validity made), and its output equals
+    the plain version's on the same arguments (integer columns exactly,
+    the float64 lane within 1e-12 normwise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.storage.table import Table
+    from aquery2_tpu_torch.utils.datagen import h2o_g1
+
+    src = h2o_g1(10_000_000, 10, 23)
+    src["v3"] = src["v3"].astype(np.float64)
+    db = aquery2_tpu_torch.connect()
+    db.catalog.create(Table.from_numpy("source", src, device="cuda"))
+    cols = {nm: c.data for nm, c in db.catalog.get("source").columns.items()}
+    where = ("SELECT id2, id4, sum(v1) AS s, avg(v3) AS a FROM source "
+             "WHERE v2 > 7 GROUP BY id2, id4")
+    real = K.onehot_segment_sums
+    for sql in (QUERIES["q1"], QUERIES["q2"], QUERIES["q4"], QUERIES["q9"],
+                where):
+        calls = []
+
+        def spy(*a, **kw):
+            calls.append((a, kw))
+            return real(*a, **kw)
+        K.onehot_segment_sums = spy
+        try:
+            forms = dict(K.ONEHOT_FORMS)
+            db.execute(sql)
+        finally:
+            K.onehot_segment_sums = real
+        assert K.ONEHOT_FORMS["keyed"] - forms["keyed"] == 1, sql
+        assert K.ONEHOT_FORMS["code"] == forms["code"], sql
+        (code, lanes, dp), kw = calls[0]
+        stored = {c.data_ptr() for c in cols.values()}
+        for x in (code, *lanes, *kw["keys"]):
+            assert x.data_ptr() in stored and x.numel() == 10_000_000, sql
+        got = real(code, lanes, dp, **kw)
+        C.keyed_equal(got, K.onehot_segment_sums_plain(code, lanes, dp, **kw),
+                      lanes)
 
 
 @pytest.mark.gpu

@@ -223,9 +223,9 @@ def _planned(ts, sql, monkeypatch):
     wrapper: on CPU tensors each takes its plain version)."""
     calls = dict.fromkeys(SCAN_KERNELS, 0)
     for name in SCAN_KERNELS:
-        def counted(*a, _real=getattr(K, name), _name=name):
+        def counted(*a, _real=getattr(K, name), _name=name, **kw):
             calls[_name] += 1
-            return _real(*a)
+            return _real(*a, **kw)
         monkeypatch.setattr(K, name, counted)
     with chip_smoke.PlanProbe() as plan:
         res = ts.execute(sql)
@@ -444,3 +444,72 @@ def test_segment_reduce_sums_float64_lanes_with_the_add_lanes(extremes, rng):
         assert torch.equal(outs["mx"], torch.full(
             (domain + 1,), -2**31, dtype=torch.int32).scatter_reduce_(
                 0, idx, x, "amax"))
+
+
+# --- the dense tier's two forms of onehot_segment_sums ------------------------
+# The form follows the plan: integer keys of one dtype, no min or max lane
+# and no nullable argument take the keyed form (the kernel reads the
+# columns as stored); a min or max lane or a nullable argument the code
+# form. A float32 argument's limb lanes are made and passed as lanes, its
+# slots still made in the kernel: the keyed form.
+FORMS = {
+    "q1": (QUERIES["q1"], "keyed"),
+    "q2": (QUERIES["q2"], "keyed"),
+    "q4": (QUERIES["q4"], "keyed"),
+    "q9": (QUERIES["q9"], "keyed"),
+    "where": ("SELECT id1, id2, sum(v1) AS s, avg(w) AS a, count(*) AS c "
+              "FROM source WHERE v2 > 7 AND v3 < 60.5 GROUP BY id1, id2",
+              "keyed"),
+    "null_keys": ("SELECT k, sum(x) AS s, var(x) AS vr, count(*) AS c "
+                  "FROM nk GROUP BY k", "keyed"),
+    "min_max_beside_sum": ("SELECT id1, sum(v1) AS s, max(v2) AS mx, "
+                           "min(v3) AS mn FROM source GROUP BY id1", "code"),
+    "nullable_argument": ("SELECT g, sum(y) AS s, avg(y) AS a FROM nk "
+                          "GROUP BY g", "code"),
+    "float32_argument": ("SELECT id4, sum(v3) AS s, stddev(v3) AS sd "
+                         "FROM source GROUP BY id4", "keyed"),
+}
+
+
+@pytest.fixture(scope="module")
+def form_sessions(sessions):
+    """sessions plus a table nk: k an int16 key with NULLs, x an int32,
+    g an int64 key without NULLs, y an int32 with NULLs."""
+    js, ts = sessions
+    rng = np.random.default_rng(SEED + 2)
+    n = 7000
+    k = rng.integers(-3, 9, n).astype(np.int16)
+    y = rng.integers(-99, 99, n).astype(np.int32)
+    cols = [JColumn("k", JT.ShortT, k, valid=rng.random(n) < 0.9),
+            JColumn("x", JT.IntT, rng.integers(-2**31, 2**31 - 1, n)
+                    .astype(np.int32)),
+            JColumn("g", JT.LongT, rng.integers(-20, 20, n)),
+            JColumn("y", JT.IntT, y, valid=rng.random(n) < 0.8)]
+    ref = JTable("nk", cols)
+    js.catalog.create(ref)
+    ts.catalog.create(TTable.from_reference(ref, device="cpu"))
+    return js, ts
+
+
+@pytest.mark.parametrize("name", list(FORMS))
+def test_dense_tier_takes_the_form_its_plan_shows(name, form_sessions):
+    """Each dense plan runs onehot_segment_sums in the form ONEHOT_FORMS
+    records (keyed: q1 q2 q4 q9, a WHERE, NULL keys, a float32 argument;
+    code: a min or max beside a sum, a nullable argument), and answers as
+    the JAX package does."""
+    js, ts = form_sessions
+    sql, form = FORMS[name]
+    table = "nk" if " FROM nk " in sql else "source"
+    tsel, = tparse(sql)
+    tt = ts.catalog.get(table)
+    p = TF.plan(tsel, tt)
+    coded = TF.sentinel_code_null_keys(p, tt)
+    assert TF.choose_strategy(p, (coded[0] if coded else tt).columns)[0] \
+        == "dense"
+    before = dict(K.ONEHOT_FORMS)
+    tr = ts.execute(sql)
+    used = {f: K.ONEHOT_FORMS[f] - before[f] for f in before}
+    assert used[form] > 0 and sum(used.values()) == used[form], used
+    close = {**CLOSE.get(name, {}), "sd": SQRT_RTOL, "a": F64_SUM_RTOL,
+             "vr": SQRT_RTOL}
+    _assert_equal(js.execute(sql), tr, close, name)
