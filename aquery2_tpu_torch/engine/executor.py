@@ -33,10 +33,9 @@ passthrough blocks.
 
 CREATE [AGGREGATION] FUNCTION registers a user function
 (engine/udf.py); accumulation-loop AGGREGATION FUNCTION calls are
-rewritten into aggregates before the tiers (engine/udf_rewrite.py); a
-grouped call over one table that the fused tiers decline takes the fused
-UDF tier (engine/udf_device.try_run_fused), and any other call runs its
-body in the general pipeline (engine/udf_device.py, through eval).
+rewritten into aggregates before the tiers (engine/udf_rewrite.py);
+any other call runs its body in the general pipeline
+(engine/udf_device.py, through eval).
 
 LOAD [COMPLEX] DATA INFILE appends a CSV file to a table
 (storage/csvio.py); SELECT … INTO OUTFILE writes the result, on every
@@ -374,9 +373,6 @@ class Executor:
             t = None if got is None else _answered(*got)
             if t is None:
                 t = _answered("ordered", fused_ordered.run(sel, table))
-            if t is None:
-                t = _answered("udf_fused", udf_device.try_run_fused(
-                    self.session, sel, table))
             if t is not None:
                 return t
         if len(srcs) > 1 or any(isinstance(s, A.JoinSource) for s in srcs):

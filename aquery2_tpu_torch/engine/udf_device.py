@@ -58,10 +58,6 @@ body's shape (an unbound name, a NULL literal in an expression, an
 unknown call or operator, a loop that mutates no variable bound before
 it, a branch or loop that changes a variable's rank, a scalar body that
 returns nothing). Every other error propagates.
-
-``try_run_fused`` is the fused UDF tier: a grouped SELECT of key
-columns and one scalar-returning call, with the grouping preamble of
-one stable sort and one host sync.
 """
 
 from __future__ import annotations
@@ -72,7 +68,6 @@ from typing import Any
 import numpy as np
 import torch
 
-from aquery2_tpu_torch import config
 from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.parser import ast_nodes as A
 
@@ -618,16 +613,12 @@ _REDUCERS = {
 # the batched body over length classes
 # --------------------------------------------------------------------- #
 
-def length_classes(lens: torch.Tensor, ok: torch.Tensor | None = None):
+def length_classes(lens: torch.Tensor):
     """(order [G] int64, counts [65] int64) on the device: the groups
     sorted by class, and each class's count. Class c holds the groups of
-    2^(c-1) < len ≤ 2^c rows (class 0: len ≤ 1); a group where ``ok`` is
-    False goes to class 64, which is never run. The counts are bounds
-    searched in the sorted classes (no atomics: most of the fused tier's
-    slots fall in class 64)."""
+    2^(c-1) < len ≤ 2^c rows (class 0: len ≤ 1); no group reaches class
+    64. The counts are bounds searched in the sorted classes."""
     cls = torch.frexp((lens - 1).clamp(min=0).to(torch.float64)).exponent
-    if ok is not None:
-        cls = torch.where(ok, cls, 64)
     sorted_cls, order = torch.sort(cls, stable=True)
     bounds = torch.searchsorted(sorted_cls, torch.arange(
         66, dtype=sorted_cls.dtype, device=lens.device))
@@ -668,8 +659,8 @@ def run_groups(udf, columns, scalars, starts: torch.Tensor,
     columns: (parameter, [cap] row tensor) in the group-major row layout;
     scalars: (parameter, Python number); starts, lens: [G] int64 group
     spans in that layout; order and counts: length_classes' (counts read
-    on the host). Returns [G] float64 (a scalar body; a group of class 64
-    gets 0) or the [cap] float64 row values of _builtin_ret."""
+    on the host). Returns [G] float64 (a scalar body) or the [cap]
+    float64 row values of _builtin_ret."""
     dev = lens.device
     G = int(lens.shape[0])
     out = torch.zeros(cap + 1 if ret_vec else G, dtype=torch.float64,
@@ -722,161 +713,3 @@ def try_run_aggregation_udf(ctx, udf, args):
         return Value("row", out, T.DoubleT)
     return Value("group", torch.cat([out, out.new_zeros(ctx.gcap - G)]),
                  T.DoubleT)
-
-
-# --------------------------------------------------------------------- #
-# the fused UDF tier
-# --------------------------------------------------------------------- #
-
-def try_run_fused(session, sel, table):
-    """``SELECT keys..., udf(cols...) FROM t [WHERE row] GROUP BY keys``
-    with one scalar-returning AGGREGATION FUNCTION: the result Table, or
-    None for any other shape (the general pipeline takes it).
-
-    Keys are plain integer or dictionary columns whose ranges pack into
-    one 30-bit word (fused_groupby._plan_words); the arguments
-    non-nullable numeric columns or numeric literals; the WHERE a row
-    expression of the fused group-by. The preamble is one stable sort of
-    the packed word (insertion order within a group, as the reference's
-    lambdas see the rows), the group starts, lengths and keys scattered
-    into per-group slots, and ONE host sync for the group count and the
-    length classes; then the batched body (run_groups)."""
-    from aquery2_tpu_torch.engine import fused_groupby as fg
-    from aquery2_tpu_torch.storage.table import Column, Table
-    from aquery2_tpu_torch.utils import base62uuid
-
-    if (sel.assumptions or sel.distinct or sel.unions
-            or sel.having is not None or sel.order_by
-            or sel.limit is not None or not sel.group_by):
-        return None
-    if len(sel.sources) != 1 or not isinstance(sel.sources[0], A.TableSource):
-        return None
-    cols = table.columns
-    n = table.nrows
-    if n == 0:
-        return None
-
-    key_names = []
-    for g in sel.group_by:
-        if not (isinstance(g, A.ColumnRef) and g.name in cols):
-            return None
-        c = cols[g.name]
-        if c.is_vector or c.data.is_floating_point():
-            return None
-        key_names.append(g.name.lower())
-    keyset = set(key_names)
-    udf_call = None
-    projs = []          # (kind, expr, alias) for fused_groupby.output_names
-    for pr in sel.projections:
-        e = pr.expr
-        if isinstance(e, A.ColumnRef) and e.name.lower() in keyset:
-            projs.append(("key", e, pr.alias))
-        elif isinstance(e, A.Call) and e.func in session.udfs \
-                and udf_call is None:
-            udf_call = e
-            projs.append(("udf", e, pr.alias))
-        else:
-            return None
-    if udf_call is None:
-        return None
-    udf = session.udfs[udf_call.func]
-    if not udf.is_aggregation or _returns_vector(udf.body) \
-            or len(udf_call.args) != len(udf.params):
-        return None
-    scalars, arg_cols = [], []
-    for p, a in zip(udf.params, udf_call.args):
-        if isinstance(a, A.Literal) and not a.is_string \
-                and a.value is not None:
-            scalars.append((p, float(a.value)))
-        elif isinstance(a, A.ColumnRef) and a.name in cols \
-                and not cols[a.name].is_vector \
-                and not cols[a.name].sqltype.is_string \
-                and cols[a.name].valid is None:
-            arg_cols.append((p, a.name.lower()))
-        else:
-            return None
-    if sel.where is not None:
-        try:
-            fg._check_row_expr(sel.where, cols)
-        except fg.Unsupported:
-            return None
-    referenced = sorted(keyset | {nm for _, nm in arg_cols}
-                        | (fg._refs(sel.where) if sel.where is not None
-                           else set()))
-    if table.has_nulls(referenced):
-        return None
-
-    key_mins, key_ranges = [], []
-    for kn in key_names:
-        mn, mx = cols[kn].stats()
-        key_mins.append(int(mn))
-        key_ranges.append(int(mx) - int(mn) + 1)
-    planned = fg._plan_words(key_ranges)
-    if planned is None or planned[1] != 1:
-        return None
-    fields = planned[0]
-    domain = 1
-    for r in key_ranges:
-        domain *= r
-
-    env = {nm: cols[nm].data for nm in referenced}
-    cap = int(env[referenced[0]].shape[0])
-    dev = env[referenced[0]].device
-    pos = torch.arange(cap, device=dev)
-    valid = pos < n
-    if sel.where is not None:
-        valid = valid & fg._truth(fg._as_rows(fg._row_eval(sel.where, env),
-                                              valid))
-    word = torch.zeros(cap, dtype=torch.int32, device=dev)
-    for ki, kn in enumerate(key_names):
-        _wi, shift, _b = fields[ki]
-        word |= ((env[kn].to(torch.int64) - key_mins[ki])
-                 .to(torch.int32) << shift)
-    perm, valid_s, sk, starts, last = fg.sorted_groups(
-        valid, [(word, True, (0, (1 << fg._WORD_BITS) - 1))])
-
-    # per-group slots, filled by scatters; a row that starts (ends) no
-    # group writes one of 1024 spare slots, so no one address takes them
-    gout = config.bucket_size(min(domain, cap))
-    first = starts & valid_s
-    gid = torch.cumsum(first, 0) - 1
-    spare = gout + (pos & 1023)
-    slot_s = torch.where(first, gid, spare)
-    slot_e = torch.where(last, gid, spare)
-    starts_g = torch.zeros(gout + 1024, dtype=torch.int64, device=dev)
-    starts_g.index_put_((slot_s,), pos)
-    ends_g = torch.zeros(gout + 1024, dtype=torch.int64, device=dev)
-    ends_g.index_put_((slot_e,), pos)
-    words_g = torch.zeros(gout + 1024, dtype=torch.int32, device=dev)
-    words_g.index_put_((slot_s,), sk[0].to(torch.int32))
-    g_dev = first.sum()
-    ok = torch.arange(gout, device=dev) < g_dev
-    lens_g = torch.where(ok, ends_g[:gout] - starts_g[:gout] + 1, 0)
-    order, counts = length_classes(lens_g, ok)
-    head = torch.cat([g_dev.view(1), counts]).tolist()   # the one sync
-    g = head[0]
-    if g == 0:
-        return None
-
-    sorted_args = [(p, env[nm][perm]) for p, nm in arg_cols]
-    try:
-        out = run_groups(udf, sorted_args, scalars, starts_g[:gout], lens_g,
-                         order, head[1:], False, cap)
-    except _Untraceable:
-        return None             # the general pipeline's host interpreter
-    session.stats.note_udf("fused")
-
-    res = Table(f"result_{base62uuid(4)}")
-    words = words_g[:g]
-    for (kind, e, _alias), name in zip(projs, fg.output_names(projs)):
-        if kind == "key":
-            ki = key_names.index(e.name.lower())
-            _wi, shift, b = fields[ki]
-            src = cols[e.name]
-            kv = (((words >> shift) & ((1 << b) - 1)).to(torch.int64)
-                  + key_mins[ki]).to(src.data.dtype)
-            res.columns[name] = Column(name, src.sqltype, kv, nrows=g,
-                                       dictionary=src.dictionary)
-        else:
-            res.columns[name] = Column(name, T.DoubleT, out[:g], nrows=g)
-    return res

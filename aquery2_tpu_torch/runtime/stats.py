@@ -13,10 +13,10 @@ itself waited for it (a host sync). A caller that wants the device's
 time synchronizes itself. The host syncs a query makes are counted
 elsewhere, and a timer must not add to them.
 
-UDF routes (``note_udf``), with the JAX package's names:
+UDF routes (``note_udf``), with the JAX package's names (it has a
+fused UDF tier and reports ``fused`` where the port reports ``traced``):
   rewritten      an accumulation loop rewritten into aggregates
                  (engine/udf_rewrite.py), so every tier runs it;
-  fused          the fused UDF tier (engine/udf_device.try_run_fused);
   traced         the batched device body in the general pipeline
                  (engine/udf_device.try_run_aggregation_udf);
   interpreted    the host interpreter, once per group: bodies the device
@@ -33,8 +33,8 @@ tables, with the first reason a tier gave for declining in
 ``dist_fallback_reasons``.
 
 Two counters, also while ``enabled``: ``tier_runs``, the tier that
-answered each SELECT (dense, packed, sort, ordered, udf_fused, star,
-count_join, scan, general), and ``syncs_by_site``, each host read of a
+answered each SELECT (dense, packed, sort, ordered, star, count_join,
+scan, general), and ``syncs_by_site``, each host read of a
 device value by a stable site name (``join.candidates``,
 ``groupby.dense.present``, ...). Code below the executor takes no
 session: ``Session`` makes its stats current (``counting``) while its

@@ -37,10 +37,8 @@ Phases, in order (any mismatch raises; there is no fallback):
        computed-key query (the multikey tier); then the joins' parts,
        each called directly and checked: the count join's routes at qj's
        shape and at a domain near PERFECT_HASH_MAX_DOMAIN (the histogram
-       and the sort the port keeps, and the JAX package's tagged sort,
-       not ported), the star join's build and probe at qjg's shape (and
-       the JAX package's packed-value probe, not ported), device times
-       beside their bounds;
+       and the sort), the star join's build and probe at qjg's shape,
+       device times beside their bounds;
      - avgs(5, price) and MAX(stddevs(3, price)) under ASSUMING ASC time
        on a trades table of 1e7 rows and 100 symbols (seed 7);
      - q1 q2 q3 q4 q5 q7 q9 q10 on G1_1e7_1e1_5_0 (datagen.h2o_g1 with
@@ -88,15 +86,14 @@ Phases, in order (any mismatch raises; there is no fallback):
      numpy oracle that runs the body's loop one position at a time over
      all groups at once, with its median of 3 warm runs, its host syncs
      (read from the code, udf_syncs, and measured), its route in
-     session.stats.udf_paths (never "interpreted") and its launches
+     session.stats.udf_paths ("traced" alone) and its launches
      (u_ewma one run, its synchronizing calls counted in that run): on
      x = G1_1e7_1e1_0_0 covariances2 (tests/test_udf_device.py) per id3,
-     1e6 groups (a vector result, if and for, x[i - w], slices; the
-     general pipeline), clipsum (an if inside a for) per id3 and per
-     (id4, id6) under WHERE v1 > 2 (the fused UDF tier; each also
-     through the general pipeline, in 10 pairs of warm runs against the
-     fused tier); on trades cut to 2.5e6 rows (PHASE8_TRADES) ewma
-     per symbol (100 series of about 2.5e4 rows: a loop of about 2.5e4
+     1e6 groups (a vector result, if and for, x[i - w], slices),
+     clipsum (an if inside a for) per id3 and per (id4, id6) under
+     WHERE v1 > 2, all through the general pipeline; on trades cut to
+     2.5e6 rows (PHASE8_TRADES) ewma per symbol (100 series of about
+     2.5e4 rows: a loop of about 2.5e4
      host driven passes); then io_trades: that table written as CSV
      with a header under a temporary directory, LOAD DATA INFILE into a
      new table (every column equal to the generated arrays, the load's
@@ -215,7 +212,6 @@ from aquery2_tpu_torch import types as T
 from aquery2_tpu_torch.engine import executor as E
 from aquery2_tpu_torch.engine import fused_groupby, fused_join, fused_star
 from aquery2_tpu_torch.engine import join as J
-from aquery2_tpu_torch.engine import udf_device
 from aquery2_tpu_torch.ops import kernels as K
 from aquery2_tpu_torch.ops import ragged
 from aquery2_tpu_torch.ops import scan as S
@@ -316,9 +312,8 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "udf_scalar": ["seg_scan_multi"],
                "w_nulls": ["seg_scan_multi", "seg_cumsum_i64"],
                # phase 8: a batched FUNCTION body is torch ops (its
-               # grouping too: the general dense grouping, the fused UDF
-               # tier's sort); io_trades' INTO OUTFILE query is the fused
-               # dense tier
+               # grouping too: the general dense grouping); io_trades'
+               # INTO OUTFILE query is the fused dense tier
                "u_cov2": [], "u_clip": [], "u_clip_where": [], "u_ewma": [],
                "io_trades": ["onehot_segment_sums"]}
 # phase 4's launches over its 4 runs of each h2o query, as an H100 run
@@ -474,8 +469,6 @@ UDF_QUERIES = {
     "u_ewma": ("SELECT stocksymbol, ewma(price, 0.1) FROM trades GROUP BY "
                "stocksymbol"),
 }
-UDF_ROUTE = {"u_cov2": "traced", "u_clip": "fused", "u_clip_where": "fused",
-             "u_ewma": "traced"}
 COV2_RTOL, COV2_ATOL = 1e-9, 1e-12     # tests/test_udf_device.py's
 CLIP_RTOL = EWMA_RTOL = 1e-12
 GENERAL_NAS = ("q6", "q8")      # G1_1e7_1e1_5_0 through the general engine
@@ -1504,56 +1497,16 @@ def run_slice(dev, data, dim, walls, plans):
     return run_queries(db, QUERIES, check, walls=walls, plans=plans), db
 
 
-def tagged_sort_count(pcol: Column, bcol: Column) -> torch.Tensor:
-    """The JAX package's tagged-sort count join (its fused_join.py:102-148;
-    not ported, timed beside the port's routes): one sort of
-    [probe·4 + 1, build·4, build·4 + 2] (keys less their common minimum);
-    at each build row's two copies the running count of probe rows before
-    it gives the probe rows below its key and those up to it, and the
-    count is the sum of the differences. Integer keys whose span · 4 fits
-    int32."""
-    base = min(pcol.stats()[0], bcol.stats()[0])
-    p = (pcol.data[:pcol.nrows] - base) * 4 + 1
-    b = (bcol.data[:bcol.nrows] - base) * 4
-    tag = torch.sort(torch.cat([p, b, b + 2])).values & 3
-    left = (tag == 1).to(torch.int32)
-    before = torch.cumsum(left, 0, dtype=torch.int32) - left
-    return (torch.where(tag == 2, before, 0)
-            - torch.where(tag == 0, before, 0)).sum(dtype=torch.int64)
-
-
-def packed_table(bkey: Column, bcol: Column, mn: int, mx: int,
-                 cmn: int) -> torch.Tensor:
-    """The JAX package's packed star table (its fused_star.py:225-247,
-    264-279; not ported, timed beside the port's position table): over
-    the key domain, 1 | (value - cmn) << 1 of one narrow dim column, 0
-    where no row has the key."""
-    nb = bkey.nrows
-    tbl = torch.zeros(mx - mn + 2, dtype=torch.int32, device=bkey.device)
-    tbl[bkey.data[:nb].to(torch.int64) - mn] = 1 | (bcol.data[:nb] - cmn) << 1
-    return tbl
-
-
-def packed_probe(tbl: torch.Tensor, pkey: Column, mn: int, cmn: int):
-    """(match, the dim column's value) from one gather of packed_table
-    (its fused_star.py:304-317)."""
-    v = tbl.index_select(0, fused_star.domain_codes(
-        pkey.data, pkey.nrows, mn, mn + tbl.shape[0] - 2))
-    return (v & 1).bool(), (v >> 1) + cmn
-
-
 def time_joins(db, data, dim) -> dict[str, float]:
     """The joins' parts at the main path's shapes, each called directly,
     checked against numpy, then timed (device time, median of 10) beside
     its bound (its inputs read once, outputs written once, at 3.35 TB/s):
-    - the count join's routes at qj's shape: the histogram and the sort
-      that the port keeps, and the JAX package's tagged sort;
+    - the count join's routes at qj's shape: the histogram and the sort;
     - the histogram and the sort at a wide domain, 1e5 build keys spread
       over [1, 2^27] and 1e7 probe keys, half of them build keys: the
       histogram's gate (PERFECT_HASH_MAX_DOMAIN) at its limit;
-    - the star join at qjg's shape: the position table's build, the probe
-      (positions, match, the gathered w), and the JAX package's packed
-      table and its probe."""
+    - the star join at qjg's shape: the position table's build and the
+      probe (positions, match, the gathered w)."""
     src, d = db.catalog.get("source").columns, db.catalog.get("dim").columns
     pkey, bkey, bw = src["id3"], d["id3"], d["w"]
     dev = pkey.device
@@ -1569,13 +1522,10 @@ def time_joins(db, data, dim) -> dict[str, float]:
         out[label] = ms
         return ms
 
-    def count_routes(shape, pk, bk, want, tagged):
+    def count_routes(shape, pk, bk, want):
         routes = {"histogram route": lambda: fused_join.count_histogram(
                       pk, bk, *bk.stats()),
                   "sort route": lambda: fused_join.count_sorted(pk, bk)}
-        if tagged:
-            routes["tagged-sort route (the JAX package's, not ported)"] = \
-                lambda: tagged_sort_count(pk, bk)
         for route, fn in routes.items():
             got = int(fn())
             if got != want:
@@ -1587,7 +1537,7 @@ def time_joins(db, data, dim) -> dict[str, float]:
     bmn, bmx = bkey.stats()
     count_routes(f"qj's shape ({pkey.nrows} x {bkey.nrows} rows, domain "
                  f"{bmx - bmn + 1})", pkey, bkey,
-                 int(np.isin(data["id3"], dim["id3"]).sum()), True)
+                 int(np.isin(data["id3"], dim["id3"]).sum()))
     rng = np.random.default_rng(SEED)
     wide_b = (rng.choice(2**27, bkey.nrows, replace=False) + 1).astype(np.int32)
     wide_p = np.where(rng.random(ROWS) < 0.5, rng.choice(wide_b, ROWS),
@@ -1597,7 +1547,7 @@ def time_joins(db, data, dim) -> dict[str, float]:
     wmn, wmx = wb.stats()
     count_routes(f"a wide domain ({ROWS} x {wb.nrows} rows, domain "
                  f"{wmx - wmn + 1})", wp, wb,
-                 int(np.isin(wide_p, wide_b).sum()), False)
+                 int(np.isin(wide_p, wide_b).sum()))
     del wb, wp
 
     # the star join's parts at qjg's shape, against numpy
@@ -1611,11 +1561,6 @@ def time_joins(db, data, dim) -> dict[str, float]:
             and np.array_equal(w.cpu().numpy()[want_match],
                                want_w[want_match])):
         raise AssertionError("star build or probe differs from numpy")
-    cmn = bw.stats()[0]
-    tbl = packed_table(bkey, bw, mn, mx, cmn)
-    pmatch, pw = packed_probe(tbl, pkey, mn, cmn)
-    if not (torch.equal(pmatch, match) and torch.equal(pw[match], w[match])):
-        raise AssertionError("packed star probe differs from the port's")
     dom = mx - mn + 1
     timed(f"star build, position table (domain {dom}, {bkey.nrows} rows)",
           lambda: fused_star.build_positions(bkey, mn, mx),
@@ -1623,12 +1568,6 @@ def time_joins(db, data, dim) -> dict[str, float]:
     timed("star probe, positions (match and w)",
           lambda: fused_star.probe(pos, pkey, mn, [bw.data]),
           4 * (dom + 1) + 4 * pkey.nrows + 4 * bw.nrows + 5 * pkey.nrows)
-    timed("star build, packed table (the JAX package's, not ported)",
-          lambda: packed_table(bkey, bw, mn, mx, cmn),
-          8 * bkey.nrows + 4 * (dom + 1))
-    timed("star probe, packed table (the JAX package's, not ported)",
-          lambda: packed_probe(tbl, pkey, mn, cmn),
-          4 * (dom + 1) + 4 * pkey.nrows + 5 * pkey.nrows)
     return out
 
 
@@ -2567,19 +2506,19 @@ def class_max(cnt: np.ndarray) -> list[int]:
 
 def udf_syncs(q: str, cnt: np.ndarray) -> int:
     """Host syncs of one warm run, read from the code: the general GROUP
-    BY of one key column 4 (the key's stats, executor._KeyCol, 1; the
-    dense grouping's torch.bincount 2 and group count 1), the length
-    classes 1 (the fused tier: its one preamble sync, the group count
-    and the classes together), then each class's loops (loop_syncs of
-    the class's longest group): covariances2 min(4, l) - 1 and l - 4
-    passes, clipsum and ewma l."""
+    BY, 4 for one key column (the key's stats, executor._KeyCol, 1; the
+    dense grouping's torch.bincount 2 and group count 1), and for
+    u_clip_where 6 (the WHERE's compaction 1, the two keys' stats 2, the
+    bincount 2 and the group count 1); the length classes 1; then each
+    class's loops (loop_syncs of the class's longest group):
+    covariances2 min(4, l) - 1 and l - 4 passes, clipsum and ewma l."""
     loops = 0
     for mx in class_max(cnt):
         if q == "u_cov2":
             loops += loop_syncs(min(4, mx) - 1) + loop_syncs(max(mx - 4, 0))
         else:
             loops += loop_syncs(mx)
-    head = {"u_cov2": 4, "u_ewma": 4}.get(q, 0)
+    head = 6 if q == "u_clip_where" else 4
     return head + 1 + loops
 
 
@@ -2759,9 +2698,9 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
             total = {k: v for k, v in K.LAUNCHES.items() if v}
             launches[q] = total
             paths = dict(db.stats.udf_paths)
-            if paths != {UDF_ROUTE[q]: runs}:
-                raise AssertionError(f"{q}: routes {paths}, want "
-                                     f"{UDF_ROUTE[q]} only")
+            if paths != {"traced": runs}:
+                raise AssertionError(f"{q}: routes {paths}, want traced "
+                                     "only")
             check_udf12(q, res, want)
             walls[q] = ms
             if q == "u_ewma":
@@ -2770,11 +2709,9 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
             if syncs is None:
                 syncs = count_syncs(db, sql)
             print(f"# {q}: {res.nrows} groups, {ms:.3f} ms ({timing}), "
-                  f"route {UDF_ROUTE[q]}, syncs read "
+                  "route traced, syncs read "
                   f"{udf_syncs(q, want[1])} measured {syncs}, "
                   f"matches numpy, launches per run {per_run}", flush=True)
-            if UDF_ROUTE[q] == "fused":
-                walls[q + " general"] = general_route(db, q, sql, want)
         del db
     with tempfile.TemporaryDirectory() as tmp:
         launches["io_trades"] = run_io(dev, trade_arrays, d, ewma_res,
@@ -2782,57 +2719,6 @@ def run_slice12(dev, data, walls) -> dict[str, dict[str, int]]:
         walls["io_h2o_na"], walls["io_h2o_na loadtxt"] = run_io_nulls(
             dev, Path(tmp))
     return launches
-
-
-def general_route(db, q: str, sql: str, want) -> float:
-    """A fused-tier query against the general pipeline's traced route,
-    which answers it when try_run_fused declines: the same answer, its
-    syncs, and 10 pairs of warm runs, alternating which route runs
-    first. Returns the general route's median ms."""
-    fused = udf_device.try_run_fused
-
-    def declined(*a):
-        return None
-
-    def run(general: bool) -> float:
-        udf_device.try_run_fused = declined if general else fused
-        try:
-            t1 = time.perf_counter()
-            db.execute(sql)
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t1) * 1e3
-        finally:
-            udf_device.try_run_fused = fused
-
-    udf_device.try_run_fused = declined
-    try:
-        db.stats.reset()
-        res = db.execute(sql)
-        if db.stats.udf_paths != {"traced": 1}:
-            raise AssertionError(f"{q} general: routes {db.stats.udf_paths}")
-        check_udf12(q, res, want)
-        syncs = count_syncs(db, sql)
-    finally:
-        udf_device.try_run_fused = fused
-    db.stats.reset()
-    pairs = []
-    for i in range(10):
-        general_first = bool(i % 2)
-        a = run(general_first)
-        b = run(not general_first)
-        pairs.append((b, a) if general_first else (a, b))  # (fused, general)
-    if db.stats.udf_paths != {"fused": 10, "traced": 10}:
-        raise AssertionError(f"{q} pairs: routes {db.stats.udf_paths}")
-    f_ms = float(np.median([p[0] for p in pairs]))
-    g_ms = float(np.median([p[1] for p in pairs]))
-    wins = sum(g < f for f, g in pairs)
-    print(f"# {q} through the general pipeline (try_run_fused declining): "
-          f"matches numpy, syncs measured {syncs}; 10 alternating pairs of "
-          f"warm runs: fused median {f_ms:.3f} ms (runs "
-          f"{', '.join(f'{p[0]:.3f}' for p in pairs)}), general median "
-          f"{g_ms:.3f} ms (runs {', '.join(f'{p[1]:.3f}' for p in pairs)}), "
-          f"general faster in {wins} of 10", flush=True)
-    return g_ms
 
 
 H2O_NA_CSV = ("CREATE TABLE x_csv(id1 INT, id2 INT, id3 INT, id4 INT, "

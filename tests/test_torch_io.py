@@ -244,6 +244,7 @@ OUTFILE_QUERIES = {
     "general": ("SELECT k, sum(v) AS s FROM t WHERE w > 1.5 GROUP BY k "
                 "ORDER BY s DESC"),
     "fused_scan": "SELECT k, v FROM t WHERE v > 15 ORDER BY v",
+    # the JAX package's fused UDF tier, the port's traced route
     "fused_udf": "SELECT k, clipsum(v, 25) AS c FROM t GROUP BY k",
     "vector": "SELECT k, v FROM t ASSUMING ASC v GROUP BY k",
 }
@@ -269,7 +270,8 @@ def test_into_outfile_matches_jax(tmp_path, name, monkeypatch):
         texts.append((tmp_path / f"{tag}.csv").read_text())
         assert db.execute(q).nrows == len(texts[-1].splitlines())
         if name == "fused_udf":
-            assert db.stats.udf_paths == {"fused": 2}
+            assert db.stats.udf_paths == {"traced" if tag == "t"
+                                          else "fused": 2}
     assert texts[0] == texts[1]
     assert not texts[0].startswith("k,")
 
@@ -281,7 +283,7 @@ def test_into_outfile_and_table(tmp_path):
     db.execute("INSERT INTO t VALUES (1, 10), (2, 20), (1, 30)")
     db.execute('SELECT k, clipsum(v, 15) AS c FROM t GROUP BY k INTO r')
     assert db.execute("SELECT k, c FROM r").rows() == [(1, 25.0), (2, 15.0)]
-    assert db.stats.udf_paths == {"fused": 1}
+    assert db.stats.udf_paths == {"traced": 1}
 
 
 # --- the session surface and stats ---------------------------------------------
@@ -309,10 +311,10 @@ def test_stats_after_queries(capsys):
     st = db.stats
     assert st.queries == 4 and len(st.history) == 4
     assert st.parse_time > 0 and st.exec_time > 0
-    assert st.udf_paths == {"fused": 1, "traced": 1}
+    assert st.udf_paths == {"traced": 2}
     text = st.format()
     assert "Queries executed: 4" in text
-    assert "UDF paths:        fused=1, traced=1" in text
+    assert "UDF paths:        traced=2" in text
     assert "SELECT clipsum(v, 10) AS c FROM t" in text
     st.reset()
     assert st.queries == 0 and not st.history and not st.udf_paths

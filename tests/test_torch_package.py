@@ -1037,9 +1037,9 @@ def test_windows_and_functions_match_numpy_on_card():
 @pytest.mark.gpu
 def test_function_bodies_and_csv_match_numpy_on_card(tmp_path):
     """AGGREGATION FUNCTION bodies on the card at 2e5 trades rows against
-    numpy: clipsum on the fused UDF tier (an if inside a for), a running
-    sum into _builtin_ret in the general pipeline, both over 2e4 groups
-    of several length classes, then the table through CSV LOAD and INTO
+    numpy: clipsum (an if inside a for) and a running sum into
+    _builtin_ret, both through the general pipeline over 2e4 groups of
+    several length classes, then the table through CSV LOAD and INTO
     OUTFILE."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -1074,7 +1074,7 @@ def test_function_bodies_and_csv_match_numpy_on_card(tmp_path):
     want = run - np.repeat(run[starts] - price[order][starts],
                            np.bincount(inv))
     np.testing.assert_allclose(r.table["r"].to_numpy(), want, rtol=1e-12)
-    assert db.stats.udf_paths == {"fused": 1, "traced": 1}
+    assert db.stats.udf_paths == {"traced": 2}
     (tmp_path / "t.csv").write_text("stocksymbol,time,quantity,price\n" + "".join(
         f"{d.strings()[s]},{t},{q},{p}\n" for s, t, q, p in zip(
             sym, a["time"], a["quantity"], a["price"])))

@@ -198,7 +198,7 @@ def test_partial_range_loop_does_not_rewrite(ts, js):
                                     ts.udfs) is None
     q = "SELECT k2, firsthalf(a) FROM t GROUP BY k2"
     got = ts.execute(q).rows()
-    assert ts.stats.udf_paths == {"fused": 1}
+    assert ts.stats.udf_paths == {"traced": 1}
     _approx_rows(got, js.execute(q).rows())
     k2, a = _np(ts, "k2"), _np(ts, "a").astype(np.float64)
     for kk, v in got:

@@ -1,9 +1,10 @@
 """AGGREGATION FUNCTION bodies on the device, through both packages.
 
-Every case of tests/test_udf_device.py and tests/test_udf_fused.py,
-through the port (aquery2_tpu_torch.connect("cpu")) against the JAX
-package (aquery2_tpu.connect()) on the same seeded rows, with those
-files' tolerances; then each construct of the batched body on its own
+Every case of tests/test_udf_device.py and of the JAX package's tests of
+its fused UDF tier, through the port (aquery2_tpu_torch.connect("cpu"))
+against the JAX package (aquery2_tpu.connect()) on the same seeded rows,
+with those files' tolerances (the port runs the fused tier's queries
+through the general pipeline's traced route); then each construct of the batched body on its own
 (an if nested in a for, elif chains, augmented writes to indexed locals,
 subvec, every reducer and elementwise function, a whole-table call, a
 call over a join), skewed groups across length classes, the rows of a
@@ -12,8 +13,8 @@ group in insertion order under every grouping of the general pipeline
 as in the JAX package) and NULL arguments (their stored values, as in
 the JAX package). The route of each call is read from
 ``session.stats.udf_paths``; a route is forced as the JAX files force it,
-by monkeypatching ``udf_device.try_run_aggregation_udf``,
-``udf_device.try_run_fused`` or ``udf_rewrite.rewrite_select``."""
+by monkeypatching ``udf_device.try_run_aggregation_udf`` or
+``udf_rewrite.rewrite_select``."""
 
 import numpy as np
 import pytest
@@ -201,9 +202,10 @@ def test_whole_table_aggregation_udf(ts, js, monkeypatch):
     _close(dev, ts.execute(q).rows())
 
 
-# --- the cases of tests/test_udf_fused.py ----------------------------------
+# --- the cases of the JAX package's fused UDF tier tests --------------------
 
 FUSED_QUERIES = [
+    "SELECT k, udfcov(a, b) FROM t GROUP BY k",
     "SELECT k, udfcov(a, b) AS c FROM t GROUP BY k",
     "SELECT k, k2, udfcov(a, b) AS c FROM t GROUP BY k, k2",
     "SELECT k, udfcov(a, b) AS c FROM t WHERE a > 3 GROUP BY k",
@@ -220,8 +222,8 @@ def _kk(s):
 @pytest.fixture
 def tk(monkeypatch):
     """udfcov rewrites into plain aggregates and would never reach the
-    fused UDF tier under test: the rewrite is off here, in both packages,
-    as in tests/test_udf_fused.py."""
+    batched body under test: the rewrite is off here, in both packages,
+    as in the JAX package's fused UDF tier tests."""
     monkeypatch.setattr(udf_rewrite, "rewrite_select",
                         lambda session, sel: None)
     monkeypatch.setattr(jax_udf_rewrite, "rewrite_select",
@@ -235,36 +237,24 @@ def jk(tk):
 
 
 @pytest.mark.parametrize("q", FUSED_QUERIES)
-def test_fused_udf_matches_general(tk, jk, q, monkeypatch):
-    calls = []
-    orig = udf_device.try_run_fused
-
-    def spy(*a, **kw):
-        out = orig(*a, **kw)
-        calls.append(out is not None)
-        return out
-
-    monkeypatch.setattr(udf_device, "try_run_fused", spy)
-    fused = sorted(tk.execute(q).rows())
-    assert calls and calls[-1], f"{q} did not take the fused UDF tier"
-    assert tk.stats.udf_paths == {"fused": 1}
-    want = sorted(jk.execute(q).rows())
+def test_grouped_udf_matches_jax_fused_tier(tk, jk, q):
+    """The port's traced route gives the rows and the column names of the
+    JAX package's fused UDF tier."""
+    res = tk.execute(q)
+    assert tk.stats.udf_paths == {"traced": 1}
+    ref = jk.execute(q)
     assert jk.stats.udf_paths == {"fused": 1}
-    assert tk.execute(q).column_names() == jk.execute(q).column_names()
-
-    monkeypatch.setattr(udf_device, "try_run_fused", lambda *a, **kw: None)
-    general = sorted(tk.execute(q).rows())
-    assert tk.stats.udf_paths["traced"] == 1
-    for got in (fused, general):
-        assert len(got) == len(want)
-        for fr, gr in zip(got, want):
-            assert fr[:-1] == gr[:-1]
-            assert fr[-1] == pytest.approx(gr[-1], rel=1e-12, abs=1e-15)
+    assert res.column_names() == ref.column_names()
+    got, want = sorted(res.rows()), sorted(ref.rows())
+    assert len(got) == len(want)
+    for fr, gr in zip(got, want):
+        assert fr[:-1] == gr[:-1]
+        assert fr[-1] == pytest.approx(gr[-1], rel=1e-12, abs=1e-15)
 
 
 def test_fused_udf_oracle(tk):
     r = tk.execute("SELECT k, udfcov(a, b) AS c FROM t GROUP BY k")
-    assert tk.stats.udf_paths == {"fused": 1}
+    assert tk.stats.udf_paths == {"traced": 1}
     tbl = tk.catalog.get("t")
     k = tbl.columns["k"].to_numpy()
     a = tbl.columns["a"].to_numpy().astype(np.float64)
@@ -307,7 +297,7 @@ def _np_abc(rows):
 
 
 CONSTRUCTS = {
-    # an if nested in a for (fused tier, then the general pipeline)
+    # an if nested in a for (grouped, then grouped and ordered)
     "if_in_for": (CLIPSUM, "SELECT c, clipsum(a, 20) FROM t GROUP BY c",
                   lambda a, b: np.minimum(a, 20).sum()),
     "if_in_for_general": (CLIPSUM, "SELECT c, clipsum(a, 20) FROM t GROUP BY "
@@ -373,7 +363,7 @@ def test_reducers_over_slices(red):
               "SELECT c, r2(b) FROM t GROUP BY c"):
         got = t.execute(q).rows()
         _close(got, j.execute(q).rows(), rtol=REL, atol=0)
-    assert t.stats.udf_paths == {"fused": 1, "traced": 1}
+    assert t.stats.udf_paths == {"traced": 2}
     _a, b, c = _np_abc(rows)
     fn = {"sum": np.sum, "avg": np.mean, "mean": np.mean, "count": len,
           "min": np.min, "max": np.max, "first": lambda v: v[0],
@@ -412,7 +402,7 @@ def test_elementwise_functions(fn):
     t, j = _pair(rows, body)
     q = "SELECT c, ew(a) FROM t GROUP BY c"
     got = t.execute(q).rows()
-    assert t.stats.udf_paths == {"fused": 1}
+    assert t.stats.udf_paths == {"traced": 1}
     _close(got, j.execute(q).rows(), rtol=REL, atol=1e-12)
     a, _b, c = _np_abc(rows)
     f = ELEMENTWISE.get(fn)
@@ -478,7 +468,7 @@ def test_skewed_groups_across_length_classes():
               "SELECT c, runsum(a) AS r FROM t GROUP BY c"):
         got = t.execute(q).rows()
         _close(got, j.execute(q).rows(), rtol=REL, atol=0)
-    assert t.stats.udf_paths == {"fused": 1, "traced": 2}
+    assert t.stats.udf_paths == {"traced": 3}
     got = dict(t.execute("SELECT c, runsum(a) FROM t GROUP BY c").rows())
     for k in (0, 1, 300, 600):
         np.testing.assert_allclose(got[k], np.cumsum(vals[keys == k]),
@@ -498,8 +488,8 @@ def _first_last(keys, vals):
 
 
 ORDER_GROUPINGS = {
-    # the fused UDF tier, then each grouping of the general pipeline
-    "fused": "SELECT k, firstlast(v) AS f FROM s GROUP BY k",
+    # each grouping of the general pipeline
+    "plain": "SELECT k, firstlast(v) AS f FROM s GROUP BY k",
     "dense": "SELECT k, firstlast(v) AS f FROM s GROUP BY k ORDER BY k",
     "sort": "SELECT fk, firstlast(v) AS f FROM s GROUP BY fk",
     "nullable": "SELECT nk, firstlast(v) AS f FROM s GROUP BY nk",
@@ -527,8 +517,7 @@ def test_rows_of_a_group_in_insertion_order(route):
     db.execute("INSERT INTO d VALUES " + ", ".join(
         f"({i}, {1000 + i})" for i in range(40)))
     got = dict(db.execute(ORDER_GROUPINGS[route]).rows())
-    assert db.stats.udf_paths == ({"fused": 1} if route == "fused"
-                                  else {"traced": 1})
+    assert db.stats.udf_paths == {"traced": 1}
     if route == "nullable":
         keys = np.where(nk_null, -1, k % 9)
         want = {(None if a == -1 else int(a)): b
