@@ -240,8 +240,8 @@ def _key_entries(p, env, valid, key_mins, key_ranges, packed):
             wi, shift, _b = fields[ki]
             words[wi] |= ((env[k.name.lower()].to(torch.int64)
                            - key_mins[ki]).to(torch.int32) << shift)
-        bound = (0, (1 << fg._WORD_BITS) - 1)
-        return [(w, True, bound) for w in words]
+        return [(w, True, b)
+                for w, b in zip(words, fg.word_bounds(fields, nwords))]
     bounds = ([(mn, mn + r - 1) for mn, r in zip(key_mins, key_ranges)]
               or [None] * len(keys))
     kv = [fg._as_rows(fg._row_eval(k, env), valid) for k in keys]

@@ -1073,9 +1073,19 @@ def sorted_groups(valid, keys, order_keys=()):
     return perm, valid_s, sk[1:], starts, last_flags(starts) & valid_s
 
 
+def word_bounds(fields, nwords):
+    """Each key word's (lo, hi) for lexsort: (0, 2^used - 1), used the bits
+    _plan_words gave its fields, so that the sort runs over those bits."""
+    used = [1] * nwords
+    for wi, shift, bits in fields.values():
+        used[wi] = max(used[wi], shift + bits)
+    return [(0, (1 << u) - 1) for u in used]
+
+
 def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
-    """Packed tier: keys pack into int32 words of 30-bit fields, sorted by
-    sorted_groups (two words and the validity bit fit one int64 sort). The
+    """Packed tier: keys pack into int32 words of fields of at most 30
+    bits, sorted by sorted_groups over the bits the words use (word_bounds;
+    the validity bit and the words pack into as few sorts as fit). The
     aggregate-argument columns are gathered by the sort permutation and
     reduced over the sorted runs (reduce_sorted_runs)."""
     fields, nwords = _plan_words(key_ranges)
@@ -1089,7 +1099,7 @@ def _run_packed(env, env_null, valid, scatters, keys, key_mins, key_ranges):
                       .to(torch.int32) << shift)
     dense, counts, gwords = reduce_sorted_runs(
         env, env_null, valid, scatters,
-        [(w, True, (0, (1 << _WORD_BITS) - 1)) for w in words])
+        [(w, True, b) for w, b in zip(words, word_bounds(fields, nwords))])
     keyvals = []
     for ki in range(len(keys)):
         wi, shift, b = fields[ki]

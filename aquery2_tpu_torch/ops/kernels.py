@@ -28,6 +28,12 @@ of its four TPU kernels.
   ``pallas_kernels.fused_running_stats`` (``_running_kernel``), with its
   ``best_profit`` wrapper. No engine caller, as in the JAX package.
 
+Beside them, ``radix_sort_pairs`` (csrc/radix_sort.cu), which has no TPU
+kernel of its own (the JAX package sorts with ``lax.sort``): CUB's stable
+radix sort of (key, value) pairs over a key's low ``end_bit`` bits, the
+key 32-bit where it fits, the value a 32-bit row index where n < 2^31,
+float64 keys by their order bits. ops/sort.lexsort sorts each pack with it.
+
 The scans are memory-bound with a carry across blocks. Blocks of a CUDA
 grid run in no order, so the TPU kernels' sequential carry in SMEM needs
 another way across tiles (csrc/segscan.cuh). Each scan is one launch with
@@ -52,7 +58,10 @@ use it); a CUDA tensor launches the kernel or raises. ``LAUNCHES`` counts
 kernel launches, one per wrapper call that launched; ``ONEHOT_LANES`` the
 lanes those onehot_segment_sums launches summed, by dtype (a product of
 two lanes and a row count by their kind); ``ONEHOT_FORMS`` every
-onehot_segment_sums call by its form, keyed or code, on any device.
+onehot_segment_sums call by its form, keyed or code, on any device;
+``SORT_PACKS`` the radix_sort_pairs launches by key route (``u32``,
+``u64``, ``f64``) and their digit passes of 8 bits (``passes``), on the
+card only.
 
 The kernels are compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface (loaded with ctypes), under
@@ -76,10 +85,12 @@ import torch
 
 LAUNCHES: dict[str, int] = {"seg_cumsum_i64": 0, "seg_scan_multi": 0,
                             "onehot_segment_sums": 0,
-                            "fused_running_stats": 0}
+                            "fused_running_stats": 0,
+                            "radix_sort_pairs": 0}
 ONEHOT_LANES: dict[str, int] = {"int64": 0, "int32": 0, "bool": 0,
                                 "float64": 0, "product": 0, "count": 0}
 ONEHOT_FORMS: dict[str, int] = {"keyed": 0, "code": 0}
+SORT_PACKS: dict[str, int] = {"u32": 0, "u64": 0, "f64": 0, "passes": 0}
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "aquery2_tpu_torch"
@@ -100,6 +111,11 @@ ONEHOT_MAX_KEYS = 4
 # memory (232,448 bytes on Hopper) beside two stage buffers of 1024 rows of
 # codes and 8 int64 lanes: kMaxEntries in onehot_segment_sums.cu.
 ONEHOT_MAX_ENTRIES = (232448 - 2 * (1024 * (4 + 8 * 8) + 16 * 9)) // 8
+# radix_sort_pairs' key routes by the keys' dtype, and the key kind
+# (csrc/radix_sort.cu's KeyKind) of each; a float64 key descending is kind 3
+_SORT_ROUTES = {torch.int32: "u32", torch.int64: "u64", torch.float64: "f64"}
+_SORT_KINDS = {"u32": 0, "u64": 1, "f64": 2}
+_I64_MIN = -(1 << 63)
 ONEHOT_ROUTE_KEYS = ("private", "copies", "threads", "blocks", "tile_rows",
                      "smem", "blocks_per_sm", "stage_bytes")
 
@@ -183,6 +199,14 @@ def build(defines: tuple[str, ...] = ()) -> ctypes.CDLL:
     lib.aq_fused_running_stats.argtypes = [_vp, _vp, _vp, _vp, _vp, _vp,
                                            ctypes.c_int64, _vp]
     lib.aq_fused_running_stats.restype = ctypes.c_int
+    lib.aq_radix_sort_temp_bytes.argtypes = [_i, _i, ctypes.c_int64, _i,
+                                             ctypes.POINTER(ctypes.c_size_t)]
+    lib.aq_radix_sort_temp_bytes.restype = ctypes.c_int
+    lib.aq_radix_sort_pairs.argtypes = [_i, _i, _vp, _vp, _vp, _vp, _vp,
+                                        ctypes.c_int64, _i, _vp,
+                                        ctypes.c_size_t,
+                                        ctypes.POINTER(ctypes.c_int), _vp]
+    lib.aq_radix_sort_pairs.restype = ctypes.c_int
     return lib
 
 
@@ -352,6 +376,32 @@ def onehot_segment_sums_plain(code: torch.Tensor,
         return torch.zeros(size, dtype=torch.int64, device=code.device
                            ).index_add_(0, slot, x.to(torch.int64))
     return torch.stack([col(x) for x in cols], 1)[:dp]
+
+
+def f64_order_bits(x: torch.Tensor, descending: bool) -> torch.Tensor:
+    """The int64 words whose unsigned order is float64 x's order with -0.0
+    equal to 0.0 and every NaN after +inf (x negated first where
+    descending, so NaN stays last): csrc/radix_sort.cu's f64_order_bits."""
+    x = -x if descending else x
+    b = torch.where(x.isnan(), float("nan"), x + 0.0).view(torch.int64)
+    return torch.where(b < 0, ~b, b ^ _I64_MIN)
+
+
+def radix_sort_pairs_plain(keys: torch.Tensor, values: torch.Tensor,
+                           end_bit: int, descending: bool = False):
+    """Plain PyTorch radix_sort_pairs: one stable ``torch.sort`` of the
+    keys' bits [0, end_bit) taken as an unsigned integer (float64 keys:
+    of their order bits, which come back as the sorted keys)."""
+    if keys.dtype == torch.float64:
+        keys = f64_order_bits(keys, descending)
+    if keys.dtype == torch.int32:
+        order = keys.to(torch.int64) & ((1 << end_bit) - 1)
+    elif end_bit < 64:
+        order = keys & ((1 << end_bit) - 1)
+    else:
+        order = keys ^ _I64_MIN
+    idx = torch.sort(order, stable=True).indices
+    return keys[idx], values[idx]
 
 
 def fused_running_stats_plain(x: torch.Tensor):
@@ -662,3 +712,78 @@ def best_profit(x: torch.Tensor, n: int) -> torch.Tensor:
     _sums, mins, _maxs = fused_running_stats(xf)
     idx = torch.arange(xf.shape[0], device=xf.device)
     return torch.where(idx < n, xf - mins, float("-inf")).max()
+
+
+def radix_sort_pairs(keys: torch.Tensor, values: torch.Tensor, end_bit: int,
+                     descending: bool = False):
+    """Stable sort of (key, value) pairs by the keys' bits [0, end_bit)
+    taken as an unsigned integer: (the sorted keys, the values in their
+    order). Bits at and above end_bit order nothing but move with their
+    key. keys: contiguous 1-D int32 (32-bit keys, end_bit 1..32), int64
+    (64-bit keys, 1..64) or float64 (end_bit 64: sorted by
+    ``f64_order_bits``, descending there reversing the order but for NaN,
+    and those bits come back as the sorted keys, int64). values:
+    contiguous 1-D int32 (fewer than 2^31 rows) or int64 of the keys'
+    length and device.
+
+    On the card the sort is CUB's DeviceRadixSort on double buffers, whose
+    first halves are the int32 or int64 keys and the values given: their
+    contents are overwritten, so hand it tensors it may reuse (float64
+    keys are only read). A call that launches counts once in LAUNCHES
+    and in SORT_PACKS by its route: every int call of n > 1 and every
+    float64 call of n > 0 (its order-bits pass; CUB's digit passes,
+    counted in SORT_PACKS["passes"], run where n > 1). An int call of
+    n < 2 returns its inputs."""
+    route = _SORT_ROUTES.get(keys.dtype)
+    width = 32 if route == "u32" else 64
+    if route is None or keys.dim() != 1 or not keys.is_contiguous():
+        raise ValueError(f"radix_sort_pairs takes contiguous 1-D int32, "
+                         f"int64 or float64 keys, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if (values.dtype not in (torch.int32, torch.int64)
+            or values.shape != keys.shape or not values.is_contiguous()
+            or values.device != keys.device):
+        raise ValueError(f"radix_sort_pairs values must be contiguous 1-D "
+                         f"int32 or int64 of the keys' shape and device, "
+                         f"got {values.dtype} {tuple(values.shape)} on "
+                         f"{values.device}")
+    if not 1 <= end_bit <= width or (route == "f64" and end_bit != 64):
+        raise ValueError(f"radix_sort_pairs: end_bit {end_bit} for "
+                         f"{keys.dtype} keys")
+    if descending and route != "f64":
+        raise ValueError("radix_sort_pairs: descending takes float64 keys")
+    n = keys.shape[0]
+    wide = values.dtype == torch.int64
+    if not wide and n >= 1 << 31:
+        raise ValueError(f"radix_sort_pairs: int32 values index fewer than "
+                         f"2^31 rows, got {n}")
+    _check_device(keys, "radix_sort_pairs")
+    if keys.device.type == "cpu":
+        return radix_sort_pairs_plain(keys, values, end_bit, descending)
+    if n < 2 and route != "f64":
+        return keys, values                # nothing to order or to compute
+    lib = build()
+    kind = _SORT_KINDS[route] + bool(descending)
+    with torch.cuda.device(keys.device):
+        x, buf = (keys, torch.empty(n, dtype=torch.int64, device=keys.device)
+                  ) if route == "f64" else (None, keys)
+        buf_alt, values_alt = torch.empty_like(buf), torch.empty_like(values)
+        nbytes = ctypes.c_size_t()
+        _check(lib, "radix_sort_pairs", lib.aq_radix_sort_temp_bytes(
+            kind, int(wide), n, end_bit, ctypes.byref(nbytes)))
+        temp = torch.empty(max(nbytes.value, 1), dtype=torch.uint8,
+                           device=keys.device)
+        selector = ctypes.c_int()
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        rc = lib.aq_radix_sort_pairs(
+            kind, int(wide), None if x is None else x.data_ptr(),
+            buf.data_ptr(), buf_alt.data_ptr(), values.data_ptr(),
+            values_alt.data_ptr(), n, end_bit, temp.data_ptr(), nbytes.value,
+            ctypes.byref(selector), stream)
+    _check(lib, "radix_sort_pairs", rc)
+    if n:
+        LAUNCHES["radix_sort_pairs"] += 1
+        SORT_PACKS[route] += 1
+    if n > 1:
+        SORT_PACKS["passes"] += -(-end_bit // 8)
+    return (buf, values) if selector.value == 0 else (buf_alt, values_alt)

@@ -158,13 +158,15 @@ class Repl:
             st.enabled = False
         elif arg == "reset":
             st.reset()
-            for counts in (K.LAUNCHES, K.ONEHOT_LANES, K.ONEHOT_FORMS):
+            for counts in (K.LAUNCHES, K.ONEHOT_LANES, K.ONEHOT_FORMS,
+                           K.SORT_PACKS):
                 counts.update(dict.fromkeys(counts, 0))
         else:
             print(st.format())
             for title, counts in (("Kernel launches:  ", K.LAUNCHES),
                                   ("Onehot lanes:     ", K.ONEHOT_LANES),
-                                  ("Onehot forms:     ", K.ONEHOT_FORMS)):
+                                  ("Onehot forms:     ", K.ONEHOT_FORMS),
+                                  ("Sort packs:       ", K.SORT_PACKS)):
                 if any(counts.values()):
                     print(title + ", ".join(
                         f"{k}={v}" for k, v in counts.items() if v))

@@ -174,16 +174,20 @@ Phases, in order (any mismatch raises; there is no fallback):
      (datagen.h2o_g1(1e8, 10, 42): every published width, nothing cut)
      and its dim table (1e6 id3 keys) at the capacity 100,663,296: each
      query's first run and median of 3 warm runs, its device memory
-     peak, its launches over the 4 runs equal to MAIN_PATH_LAUNCHES, its
-     tiers equal to phase 4's (PlanProbe), its key words, sort passes
-     and float_sums_fit decisions printed (q10: 3 words and 2 sort
+     peak, its launches over the 4 runs equal to MAIN_PATH_LAUNCHES
+     (launches_1e8: q10's second sort pass added), its tiers equal to
+     phase 4's (PlanProbe), its key words, sort passes and
+     float_sums_fit decisions printed (q10: 3 words and 2 sort
      passes, asserted), its answer against the numpy oracle (column
      arrays, never rows()) and the oracle's seconds; then
      onehot_segment_sums, seg_cumsum_i64 and seg_scan_multi at q9's,
      q3's and q7's inputs against their plain versions (exactly), and
      onehot_segment_sums at q4's with v3 a DOUBLE (integer lanes exactly,
-     the float64 lane within ONEHOT_F64_RTOL normwise), each timed beside
-     its bound, and the process's peak RSS.
+     the float64 lane within ONEHOT_F64_RTOL normwise), and
+     radix_sort_pairs at q10's two packs (28 bits as a 32-bit key, 37 as
+     a 64-bit one) and at q6's and q8's float64 sorts of v3 as a DOUBLE
+     (ascending and descending; keys and permutation exactly), each timed
+     beside its bound, and the process's peak RSS.
 The line before the last is the kernel report as JSON; the last line is
 {"ok": true, "device": {...}}. Exits non-zero, printing no result, when
 no CUDA card is available or the package is missing.
@@ -318,18 +322,19 @@ MAIN_KERNEL = {"q1": ["onehot_segment_sums"], "q2": ["onehot_segment_sums"],
                "io_trades": ["onehot_segment_sums"]}
 # phase 4's launches over its 4 runs of each h2o query, as an H100 run
 # counted them before the fused tiers' float-sum gate existed (the gate
-# must add none over finite data)
+# must add none over finite data), with ops/sort.lexsort's radix sorts (one
+# a run where the keys take one pack)
 MAIN_PATH_LAUNCHES = {"q1": {"onehot_segment_sums": 4},
                       "q2": {"onehot_segment_sums": 4},
-                      "q3": {"seg_cumsum_i64": 12},
+                      "q3": {"seg_cumsum_i64": 12, "radix_sort_pairs": 4},
                       "q4": {"onehot_segment_sums": 4},
-                      "q5": {"seg_cumsum_i64": 16},
-                      "q6": {"seg_cumsum_i64": 16},
-                      "q7": {"seg_scan_multi": 4},
-                      "q8": {"seg_scan_multi": 4},
+                      "q5": {"seg_cumsum_i64": 16, "radix_sort_pairs": 4},
+                      "q6": {"seg_cumsum_i64": 16, "radix_sort_pairs": 4},
+                      "q7": {"seg_scan_multi": 4, "radix_sort_pairs": 4},
+                      "q8": {"seg_scan_multi": 4, "radix_sort_pairs": 4},
                       "q9": {"onehot_segment_sums": 4},
-                      "q10": {"seg_cumsum_i64": 8}, "qj": {},
-                      "qjg": {"onehot_segment_sums": 4}}
+                      "q10": {"seg_cumsum_i64": 8, "radix_sort_pairs": 4},
+                      "qj": {}, "qjg": {"onehot_segment_sums": 4}}
 # db-benchmark's join task (J1_1e7_NA_0_0), each question a CREATE TABLE
 # AS as the benchmark's SQL solutions run it
 J1 = {
@@ -3445,14 +3450,31 @@ CAP_1E8 = 100_663_296            # config.bucket_size(1e8)
 G1_1E8 = ("q1", "q2", "q3", "q4", "q5", "q6", "q7", "q8", "q9", "q10", "qj",
           "qjg")
 # the packed tier's 30-bit key words at 1e8 (id3 and id6 take 24 bits) and
-# q10's sort passes: its three words and the validity bit take 91 bits, two
-# stable int64 sorts (ops/sort.lexsort); at 1e7 two words and one sort
+# q10's sort passes: its three words (8, 28 and 28 bits used) and the
+# validity bit take 65 bits, two stable radix sorts of 28 and 37 bits
+# (ops/sort.lexsort); at 1e7 two words and one sort of 57 bits
 WORDS_1E8 = {"q3": 1, "q5": 1, "q6": 1, "q7": 1, "q10": 3}
 SORTS_1E8 = {"q10": 2}
 # the kernels held against their plain versions at this pass's inputs:
 # the first call of each in the query named
 KERNEL_AT_1E8 = {"onehot_segment_sums": "q9", "seg_cumsum_i64": "q3",
                  "seg_scan_multi": "q7"}
+# radix_sort_pairs' calls held against its plain version at 1e8: q10's
+# packs in the order lexsort sorts them, (key dtype, end bit, descending),
+# and the float64 sort of v3 as a DOUBLE in q6 (median, ascending) and q8
+# (ASSUMING DESC v3)
+SORTS_AT_1E8 = {"q10": [(torch.int32, 28, False), (torch.int64, 37, False)],
+                "q6@float64": [(torch.float64, 64, False)],
+                "q8@float64": [(torch.float64, 64, True)]}
+
+
+def launches_1e8(q: str) -> dict:
+    """q's launches over phase 12's 4 runs: phase 4's, but for one radix
+    sort a run for each of SORTS_1E8's sort passes."""
+    want = dict(MAIN_PATH_LAUNCHES[q])
+    if q in SORTS_1E8:
+        want["radix_sort_pairs"] = 4 * SORTS_1E8[q]
+    return want
 
 
 class PlanProbe:
@@ -3461,7 +3483,8 @@ class PlanProbe:
     strategy; the ordered group-by; the star join, whose group-by is the
     fused group-by's; the count join), the packed tier's key words
     (fused_groupby._plan_words), each float_sums_fit decision and the
-    torch.sort calls (the sort passes). It wraps those functions where
+    radix_sort_pairs calls (ops/sort.lexsort's sort passes; on the CPU
+    too, where it takes its plain version). It wraps those functions where
     the engine looks them up and unwraps them on exit."""
 
     def __init__(self):
@@ -3522,7 +3545,7 @@ class PlanProbe:
         self._wrap(E.fused_ordered, "run", self._tier("ordered"))
         self._wrap(fused_star, "try_run", self._tier("star join"))
         self._wrap(fused_join, "try_run", self._tier("count join"))
-        self._wrap(torch, "sort", sort)
+        self._wrap(K, "radix_sort_pairs", sort)
         return self
 
     def __exit__(self, *exc):
@@ -3552,6 +3575,123 @@ def capture_first(name: str, run):
         setattr(K, name, real)
     torch.cuda.synchronize()
     return got[0]
+
+
+def capture_sorts(run) -> list[tuple]:
+    """Each K.radix_sort_pairs call that run() makes, as (keys, values,
+    end bit, descending), copies taken before the call: on the card it
+    overwrites its int keys and its values."""
+    real, got = K.radix_sort_pairs, []
+
+    def spy(keys, values, end_bit, descending=False):
+        got.append((keys.clone(), values.clone(), end_bit, descending))
+        return real(keys, values, end_bit, descending)
+    K.radix_sort_pairs = spy
+    try:
+        run()
+    finally:
+        K.radix_sort_pairs = real
+    torch.cuda.synchronize()
+    return got
+
+
+def sort_bytes(keys, values, end_bit: int) -> int:
+    """A radix sort's bytes: the histogram pass reads the keys, each digit
+    pass of 8 bits reads and writes keys and values; float64 keys are read
+    once and their order bits written, then sorted as 64-bit keys."""
+    kb = 8 if keys.dtype == torch.float64 else keys.element_size()
+    per_row = kb + -(-end_bit // 8) * 2 * (kb + values.element_size())
+    if keys.dtype == torch.float64:
+        per_row += 16
+    return keys.numel() * per_row
+
+
+def sort_ms(keys, values, end_bit: int, desc: bool, reps: int = 10):
+    """Median device time (CUDA events, after one warm-up) of
+    radix_sort_pairs on the call's inputs, which are copied back into its
+    buffers before each run, outside the events, and each run queued
+    behind a torch.cuda._sleep as cuda_ms queues it."""
+    k = keys if keys.dtype == torch.float64 else keys.clone()
+    v = values.clone()
+    times = []
+    for rep in range(reps + 1):
+        if k is not keys:
+            k.copy_(keys)
+        v.copy_(values)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        K.radix_sort_pairs(k, v, end_bit, desc)
+        end.record()
+        end.synchronize()
+        if rep:
+            times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def sorts_at_1e8(db, data, dev, rows: list[dict]) -> None:
+    """radix_sort_pairs at SORTS_AT_1E8's calls: q10's over G1_1e8, q6's and
+    q8's float64 sorts over its id4, id5, id6 and v3 with v3 a DOUBLE, as
+    db-benchmark's groupby-datagen.R writes it. Each call's sorted keys and
+    values equal radix_sort_pairs_plain's (torch.sort of the same bits),
+    its device time beside the bound of sort_bytes, the plain version
+    timed once; added to the kernel report as the radix_sort_pairs row."""
+    calls = {"q10": capture_sorts(lambda: db.execute(QUERIES["q10"]))}
+    db64 = connect(device=dev)
+    load(db64, "source", {"id4": data["id4"], "id5": data["id5"],
+                          "id6": data["id6"],
+                          "v3": data["v3"].astype(np.float64)}, dev)
+    for q in ("q6", "q8"):
+        calls[q + "@float64"] = [
+            c for c in capture_sorts(lambda: db64.execute(QUERIES[q]))
+            if c[0].dtype == torch.float64]
+    del db64
+    shapes = []
+    for q, want in SORTS_AT_1E8.items():
+        got = [(c[0].dtype, c[2], c[3]) for c in calls[q]]
+        if got != want:
+            raise AssertionError(f"{q} at 1e8 called radix_sort_pairs with "
+                                 f"{got}, want {want}")
+        for keys, values, end_bit, desc in calls[q]:
+            route = K._SORT_ROUTES[keys.dtype]
+            k = keys if route == "f64" else keys.clone()
+            sk, sv = K.radix_sort_pairs(k, values.clone(), end_bit, desc)
+            wk, wv = K.radix_sort_pairs_plain(keys, values, end_bit, desc)
+            for g, w in ((sk, wk), (sv, wv)):
+                if g.dtype != w.dtype or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"radix_sort_pairs at {q}'s {route} pack of "
+                        f"{end_bit} bits differs from its plain version")
+            del k, sk, sv, wk, wv
+            ms = sort_ms(keys, values, end_bit, desc)
+            pms = cuda_ms(lambda: K.radix_sort_pairs_plain(
+                keys, values, end_bit, desc), reps=1)
+            nbytes = sort_bytes(keys, values, end_bit)
+            b = bound_ms(nbytes)
+            shape = (f"{route}, {end_bit} bits, "
+                     f"{'descending' if desc else 'ascending'}, "
+                     f"{str(values.dtype).removeprefix('torch.')} values")
+            shapes.append({"query": q, "shape": shape,
+                           "rows": keys.numel(), "ms": ms, "plain_ms": pms,
+                           "bytes": nbytes, "bound_ms": b,
+                           "share_of_bound": b / ms})
+            print(f"# radix_sort_pairs at {q}'s inputs at 1e8 ({shape}, "
+                  f"{keys.numel()} rows): equal to its plain version; "
+                  f"kernel {ms:.4f} ms (median of 10), plain {pms:.4f} ms "
+                  f"(one run); {nbytes} bytes, bound {b:.4f} ms at 3.35 "
+                  f"TB/s, {b / ms:.1%} of bound", flush=True)
+        del calls[q]
+    main = next(s for s in shapes if s["query"] == "q10"
+                and s["shape"].startswith("u64"))
+    rows.append({"name": "radix_sort_pairs", "route": "cuda",
+                 "source": "aquery2_tpu_torch/csrc/radix_sort.cu",
+                 "replaces": "none: the JAX package sorts with lax.sort",
+                 "max_abs_err": 0, "ms": main["ms"],
+                 "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                 "bound_by": "bytes",
+                 "share_of_bound": main["share_of_bound"],
+                 "library_ms": None, "g1_1e8": shapes})
 
 
 def kernel_at_1e8(name: str, call, rows: list[dict],
@@ -3615,13 +3755,14 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
     """Phase 12: q1-q10, qj and qjg through connect(device="cuda").execute
     over G1_1e8 (datagen.h2o_g1(1e8, 10, 42)) and its dim table at the
     capacity bucket_size(1e8): each query's first run and 3 warm runs,
-    its launches over the 4 runs equal to MAIN_PATH_LAUNCHES (phase 4's
-    at 1e7), its tier equal to phase 4's, its key words, sort passes and
+    its launches over the 4 runs equal to launches_1e8 (phase 4's at 1e7,
+    q10's second sort pass added), its tier equal to phase 4's, its key words, sort passes and
     float_sums_fit decisions printed (q10's 3 words and 2 sorts
     asserted), the device memory peak over its runs, its answer against
     the numpy oracle and the oracle's seconds; then each kernel at its
-    query's inputs (KERNEL_AT_1E8), and onehot_segment_sums at q4's with
-    v3 a DOUBLE (capture_q4_double: its float64 lane). Returns the
+    query's inputs (KERNEL_AT_1E8), onehot_segment_sums at q4's with
+    v3 a DOUBLE (capture_q4_double: its float64 lane), and
+    radix_sort_pairs at SORTS_AT_1E8's calls (sorts_at_1e8). Returns the
     launches."""
     t_start = time.perf_counter()
     data = h2o_g1(ROWS_1E8, K_GROUPS, SEED)
@@ -3657,9 +3798,9 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
         peak = torch.cuda.max_memory_allocated()
         got = {k: v for k, v in K.LAUNCHES.items() if v}
         launches[q + "@1e8"] = got
-        if got != MAIN_PATH_LAUNCHES[q]:
+        if got != launches_1e8(q):
             raise AssertionError(f"{q} at 1e8 launched {got} over 4 runs, "
-                                 f"want {MAIN_PATH_LAUNCHES[q]}")
+                                 f"want {launches_1e8(q)}")
         if plan.tiers != plans_1e7[q].tiers:
             raise AssertionError(f"{q} at 1e8 took {plan.tiers}, at 1e7 "
                                  f"{plans_1e7[q].tiers}")
@@ -3697,6 +3838,7 @@ def run_g1_1e8(dev, plans_1e7: dict, rows: list[dict]):
     kernel_at_1e8("onehot_segment_sums", (tuple(args), kw), rows,
                   "q4@float64", "g1_1e8_q4_float64")
     del args, kw
+    sorts_at_1e8(db, data, dev, rows)
     rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
     print(f"# phase 12 took {time.perf_counter() - t_start:.1f} s; the "
           f"process's peak RSS {rss:.2f} GiB", flush=True)
@@ -3853,8 +3995,9 @@ def main() -> int:
     launches.update(run_g1_1e8(dev, plans, rows))
     phase("12. G1_1e8: q1-q10, qj and qjg over 1e8 rows match numpy, each "
           "on its 1e7 tier with its 1e7 launches a run, q10 on 3 key words "
-          "and 2 sort passes; onehot_segment_sums, seg_cumsum_i64 and "
-          "seg_scan_multi equal their plain versions at its inputs")
+          "and 2 sort passes; onehot_segment_sums, seg_cumsum_i64, "
+          "seg_scan_multi and radix_sort_pairs equal their plain versions "
+          "at its inputs")
     for r in rows:
         r["launches"] = sum(per.get(r["name"], 0)
                             for per in launches.values())

@@ -1173,3 +1173,114 @@ def test_services_match_numpy_on_card(tmp_path):
     threads = db.triggers.threads()
     db.close()
     assert errors == [] and not any(th.is_alive() for th in threads)
+
+
+_SORT_ROWS = [0, 1, 3, 1_000_007]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", _SORT_ROWS)
+def test_lexsort_matches_torch_sort_on_card(n):
+    """lexsort through radix_sort_pairs gives torch.sort(stable=True)'s
+    permutation, element for element, and its sorted keys: one bounded key
+    of 1, 9, 25, 31, 32, 37, 61 and 63 bits (each route, 32-bit and
+    64-bit keys), a validity bit above it, float64 keys with -0.0, NaN
+    and ±inf each way, int64 keys without bounds, all-equal keys (the
+    order stable), and a chain of three packs; radix_sort_pairs on int32
+    words with their high bits set and on int64 values against its plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.ops import sort as S
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n + 5)
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=g, device=dev,
+                             dtype=torch.int64)
+
+    def check(keys, order):
+        perm, sk = S.lexsort(keys)
+        want = torch.sort(order, stable=True).indices
+        assert perm.dtype == torch.int64 and torch.equal(perm, want)
+        for k, s in zip(keys, sk):               # floats bit for bit
+            t = k[0][want]
+            assert torch.equal(*(x.view(torch.int64) for x in (s, t))
+                               if t.is_floating_point() else (s, t))
+
+    for bits in (1, 9, 25, 31, 32, 37, 61, 63):
+        hi = (1 << bits) - 1
+        x = ints(0, hi) if bits < 63 else ints(-(1 << 62), 1 << 62) + (
+            1 << 62)
+        x[: min(n, 3)] = hi
+        check([(x, True, (0, hi))], x)
+        check([(x, False, (0, hi))], hi - x)
+        if bits < 63:
+            b = ints(0, 2) == 0
+            check([(b, True), (x, True, (0, hi))], b.long() << bits | x)
+    sample = torch.tensor([-0.0, 0.0, float("nan"), float("inf"),
+                           -float("inf"), 1.5, -2.5], device=dev,
+                          dtype=torch.float64)
+    f = sample[ints(0, len(sample))]
+    check([(f, True)], S.canonical_float(f))
+    check([(f, False)], S.canonical_float(-f))
+    w = ints(-2**62, 2**62) * 2 + ints(0, 2)
+    check([(w, True)], w)
+    check([(w, False)], ~w)
+    same = torch.full((n,), 7, dtype=torch.int32, device=dev)
+    check([(same, True, (0, 9))], same)
+    assert torch.equal(S.lexsort([(same, True)])[0],
+                       torch.arange(n, device=dev))
+    c = (ints(0, 2) == 0, (ints(0, 1 << 20) << 20 | ints(0, 1 << 20)),
+         ints(0, 300).to(torch.int32))
+    perm, _sk = S.lexsort([(c[0], False), (c[1], True, (0, (1 << 40) - 1)),
+                           (f, True), (c[2], False, (0, 299))])
+    want = torch.arange(n, device=dev)
+    for order in (-c[2].long(), S.canonical_float(f), c[1], (~c[0]).long()):
+        want = want[torch.sort(order[want], stable=True).indices]
+    assert torch.equal(perm, want)
+    k32 = ints(-2**31, 2**31).to(torch.int32)
+    for end in (7, 32):
+        for vals in (torch.arange(n, device=dev, dtype=torch.int32),
+                     ints(-2**40, 2**40)):
+            got = K.radix_sort_pairs(k32.clone(), vals.clone(), end)
+            want = K.radix_sort_pairs_plain(k32, vals, end)
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_lexsort_counts_its_packs_on_card():
+    """Each pack a CUDA lexsort sorts counts once in LAUNCHES and in
+    SORT_PACKS by its route, with ceil(end bit / 8) digit passes; a
+    float64 key of one row runs its order-bits pass alone (one launch, no
+    digit pass), and an int key of one row, or any key of none, launches
+    nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from aquery2_tpu_torch.ops import sort as S
+
+    dev = torch.device("cuda")
+    n = 1000
+    keys = [(torch.arange(n, device=dev) % 2 == 0, True),
+            (torch.arange(n, device=dev, dtype=torch.int32) % 37, True,
+             (0, 36)),
+            (torch.arange(n, device=dev, dtype=torch.float64).sin(), False),
+            (torch.arange(n, device=dev) * 3, True, (0, 1 << 40))]
+    packs = S.plan(keys)[1]
+    assert [(r, e) for _, r, e in packs] == [("u32", 7), ("f64", 64),
+                                            ("u64", 41)]
+    launches, packs0 = K.LAUNCHES["radix_sort_pairs"], dict(K.SORT_PACKS)
+    S.lexsort(keys)
+    assert K.LAUNCHES["radix_sort_pairs"] - launches == 3
+    assert {k: K.SORT_PACKS[k] - packs0[k] for k in K.SORT_PACKS} == {
+        "u32": 1, "u64": 1, "f64": 1, "passes": 1 + 8 + 6}
+    for m, launched in ((1, 1), (0, 0)):
+        launches, packs0 = K.LAUNCHES["radix_sort_pairs"], dict(K.SORT_PACKS)
+        one = [(k[0][:m], *k[1:]) for k in keys]
+        perm, sk = S.lexsort(one)
+        assert torch.equal(perm, torch.arange(m, device=dev))
+        assert torch.equal(sk[2], keys[2][0][:m])
+        assert K.LAUNCHES["radix_sort_pairs"] - launches == launched
+        assert {k: K.SORT_PACKS[k] - packs0[k] for k in K.SORT_PACKS} == {
+            "u32": 0, "u64": 0, "f64": launched, "passes": 0}

@@ -179,28 +179,35 @@ def test_repl_stats_prints_and_resets_the_counters(db, capsys):
 def test_repl_stats_prints_kernel_launches_and_onehot_lanes(db, capsys,
                                                            monkeypatch):
     """`stats` prints the process's kernel launches and the onehot lanes
-    they summed by dtype, when any launched (CPU tensors launch none), and
-    the onehot_segment_sums calls by form, when any was made; `stats
-    reset` clears them with the session's counters."""
+    they summed by dtype, when any launched (CPU tensors launch none), the
+    onehot_segment_sums calls by form, when any was made, and the radix
+    sorts' packs by route with their digit passes, when any was sorted on
+    the card; `stats reset` clears them with the session's counters."""
     r = Repl(db)
     capsys.readouterr()
     r.handle_line("stats")
     assert "Kernel launches" not in capsys.readouterr().out
     monkeypatch.setattr(K, "LAUNCHES", {"seg_cumsum_i64": 0,
-                                        "onehot_segment_sums": 3})
+                                        "onehot_segment_sums": 3,
+                                        "radix_sort_pairs": 4})
     monkeypatch.setattr(K, "ONEHOT_LANES", {"int64": 0, "int32": 4,
                                             "bool": 3, "float64": 1,
                                             "product": 0, "count": 2})
     monkeypatch.setattr(K, "ONEHOT_FORMS", {"keyed": 2, "code": 1})
+    monkeypatch.setattr(K, "SORT_PACKS", {"u32": 3, "u64": 0, "f64": 1,
+                                          "passes": 20})
     r.handle_line("stats")
     out = capsys.readouterr().out
-    assert "Kernel launches:  onehot_segment_sums=3\n" in out
+    assert ("Kernel launches:  onehot_segment_sums=3, radix_sort_pairs=4\n"
+            in out)
     assert "Onehot lanes:     int32=4, bool=3, float64=1, count=2\n" in out
     assert "Onehot forms:     keyed=2, code=1\n" in out
+    assert "Sort packs:       u32=3, f64=1, passes=20\n" in out
     r.handle_line("stats reset")
     r.handle_line("stats")
     out = capsys.readouterr().out
     assert "Kernel launches" not in out and "Onehot lanes" not in out
-    assert "Onehot forms" not in out
+    assert "Onehot forms" not in out and "Sort packs" not in out
     assert not any(K.LAUNCHES.values()) and not any(K.ONEHOT_LANES.values())
     assert not any(K.ONEHOT_FORMS.values())
+    assert not any(K.SORT_PACKS.values())
